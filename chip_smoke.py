@@ -1,0 +1,345 @@
+"""Smoke run of the PyTorch port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
+kernel against its plain PyTorch version at the shapes the serving path
+gives it, then serves DR-CircuitGNN (hidden 64, k 16, 2 layers, random
+weights from a seed) through ``CircuitServeEngine``:
+
+1. Table-1 partitions (``generate_design(0, "small")`` +
+   ``generate_design(1, "medium")``, scale 1.0) with ``drelu_backend``
+   ``"topk"``;
+2. the same with ``"bisect"`` (the D-ReLU bisection kernel);
+3. a scale-0.02 stream whose plans route ``pin``/``pinned`` to the dense
+   tier.
+
+Every kernel's launch count is zeroed just before each path and read just
+after; a kernel that the path should run and did not fails the run.  Every
+served prediction is compared with the port's CPU forward of the same
+graph and weights.  The last lines are the kernel report, the card's name
+and power limit, and ``{"ok": true, "device": {...}}``.  Any failed phase
+exits non-zero.  Needs one card; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+import warnings
+
+import torch
+
+HIDDEN, K, LAYERS, FEAT = 64, 16, 2, 16
+SEED = 0
+H100_BYTES_PER_S = 3.35e12        # HBM3, SXM part
+H100_F32_PER_S = 67e12            # fp32 outside the tensor cores
+CELL_ATOL = 1e-4                  # served vs CPU forward, per cell
+CELL_SHARE = 0.999                # share of cells that must be within it
+REPS = 20
+
+
+PROBLEMS = []
+
+
+def fail(msg: str) -> None:
+    """Stop now (the run cannot go on)."""
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def problem(msg: str) -> None:
+    """Record a failed check; the run goes on and exits non-zero at the
+    end."""
+    print(f"chip_smoke: CHECK FAILED: {msg}", file=sys.stderr, flush=True)
+    PROBLEMS.append(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int = REPS) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls after a warm-up
+    (CUDA events; the working set stays in L2 across calls)."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes: float, n_ops: float):
+    t_b, t_o = n_bytes / H100_BYTES_PER_S, n_ops / H100_F32_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def first_layer_operands(model, graph, cfg):
+    """The CBSR operands the first layer hands the DR-SpMM kernels, and the
+    dense cell embedding it hands the D-ReLU kernel."""
+    from repro_torch.core.hetero_mp import _sparsify_types
+    from repro_torch.kernels.ops import _multi_concat
+    with torch.inference_mode():
+        h_cell = graph.x_cell @ model.in_cell
+        h_net = graph.x_net @ model.in_net
+        c_cell, c_net = _sparsify_types(h_cell, h_net, cfg)
+        xv, xi = _multi_concat(graph.plan, (c_cell.values, c_net.values),
+                               (c_cell.idx, c_net.idx))
+    return xv, xi, h_cell.contiguous()
+
+
+def check_kernels(model, cfg, big, small):
+    """Each kernel against its plain version on the card, with times."""
+    from repro_torch.kernels import drspmm as K1
+    from repro_torch.kernels.drelu_topk import drelu_bisect, drelu_bisect_plain
+    rows = {}
+    tol = lambda ref: 1e-5 * max(1.0, float(ref.abs().max()))
+
+    # kernel 1: the full-width super-arena of the first served batch
+    plan = big.plan
+    xv, xi, h_cell = first_layer_operands(model, big.graph, cfg)
+    f = plan.fwd
+    y = K1.drspmm_fwd_arena(f, xv, xi, HIDDEN)
+    ref = K1.drspmm_fwd_arena_plain(f, xv, xi, HIDDEN)
+    torch.cuda.synchronize()
+    err = float((y - ref).abs().max())
+    if not torch.allclose(y, ref, rtol=1e-5, atol=tol(ref)):
+        problem(f"arena kernel disagrees with its plain version: {err}")
+    # the same operands with repeated non-zero columns (legal input outside
+    # the CBSR contract): the kernel's broadcast fallback must add them all
+    xi_dup = xi.clone()
+    xi_dup[::3, 1] = xi_dup[::3, 0]
+    y = K1.drspmm_fwd_arena(f, xv, xi_dup, HIDDEN)
+    ref = K1.drspmm_fwd_arena_plain(f, xv, xi_dup, HIDDEN)
+    torch.cuda.synchronize()
+    if not torch.allclose(y, ref, rtol=1e-5, atol=tol(ref)):
+        problem("arena kernel loses repeated columns: "
+                f"{float((y - ref).abs().max())}")
+    c, br, ec = f.nbr.shape
+    real = int((f.w != 0).sum())
+    arena_rows = (f.block_of.long()[:, None] * br
+                  + torch.arange(br, device=xv.device)[None, :])
+    mask = f.w != 0
+    warnings.filterwarnings("ignore", message="Sparse")
+    a_csr = torch.sparse_coo_tensor(
+        torch.stack([arena_rows[:, :, None].expand(f.nbr.shape)[mask],
+                     f.nbr.long()[mask]]), f.w[mask],
+        (f.n_arena_rows, xv.shape[0])).coalesce().to_sparse_csr()
+    xd = K1._densify(xv, xi, HIDDEN)
+    n_bytes = 4 * (f.blk_ptr.numel() + 2 * f.nbr.numel() + 2 * xv.numel()
+                   + f.n_arena_rows * HIDDEN)
+    b_ms, b_by = bound(n_bytes, 2.0 * real * xv.shape[1])
+    rows["drspmm_fwd_arena"] = dict(
+        name="drspmm_fwd_arena", route="cuda",
+        source="src/repro_torch/csrc/drspmm_arena_fwd.cu",
+        replaces="src/repro/kernels/drspmm.py:289",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: K1.drspmm_fwd_arena(f, xv, xi, HIDDEN)),
+        plain_ms=cuda_ms(lambda: K1.drspmm_fwd_arena_plain(f, xv, xi, HIDDEN)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: a_csr @ xd))
+    log(f"kernel drspmm_fwd_arena: C={c} BR={br} Ec={ec} "
+        f"R_arena={f.n_arena_rows} N_src={xv.shape[0]} k={xv.shape[1]} "
+        f"real_slots={real} bytes={n_bytes}")
+
+    # kernel 3: the first layer's cell embedding, full width
+    y = drelu_bisect(h_cell, K)
+    ref = drelu_bisect_plain(h_cell, K)
+    torch.cuda.synchronize()
+    if not torch.equal(y, ref):
+        problem("bisection kernel is not bit-exact against its plain version")
+    n, d = h_cell.shape
+    b_ms, b_by = bound(8.0 * n * d, 64.0 * n * d)
+    rows["drelu_bisect"] = dict(
+        name="drelu_bisect", route="cuda",
+        source="src/repro_torch/csrc/drelu_bisect.cu",
+        replaces="src/repro/kernels/drelu_topk.py:65",
+        max_abs_err=float((y - ref).abs().max()),
+        ms=cuda_ms(lambda: drelu_bisect(h_cell, K)),
+        plain_ms=cuda_ms(lambda: drelu_bisect_plain(h_cell, K)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"kernel drelu_bisect: N={n} D={d} k={K}")
+
+    # kernel 2: the dense-tier table of a scale-0.02 batch
+    plan = small.plan
+    if not plan.has_dense:
+        fail("the scale-0.02 batch has no dense-tier relation")
+    xv, xi, _ = first_layer_operands(model, small.graph, cfg)
+    a = plan.dense_fwd
+    y = K1.drspmm_dense_tier_fwd(a, xv, xi, HIDDEN)
+    ref = K1.drspmm_dense_tier_fwd_plain(a, xv, xi, HIDDEN)
+    torch.cuda.synchronize()
+    err = float((y - ref).abs().max())
+    if not torch.allclose(y, ref, rtol=1e-5, atol=tol(ref)):
+        problem(f"dense-tier kernel disagrees with its plain version: {err}")
+    m, n = a.shape
+    xd = K1._densify(xv, xi, HIDDEN)
+    b_ms, b_by = bound(4.0 * (m * n + 2 * xv.numel() + m * HIDDEN),
+                       2.0 * int((a != 0).sum()) * xv.shape[1])
+    rows["drspmm_dense_tier_fwd"] = dict(
+        name="drspmm_dense_tier_fwd", route="cuda",
+        source="src/repro_torch/csrc/drspmm_dense_tier_fwd.cu",
+        replaces="src/repro/kernels/drspmm.py:506",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: K1.drspmm_dense_tier_fwd(a, xv, xi, HIDDEN)),
+        plain_ms=cuda_ms(
+            lambda: K1.drspmm_dense_tier_fwd_plain(a, xv, xi, HIDDEN)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: a @ xd))
+    log(f"kernel drspmm_dense_tier_fwd: M={m} N={n} nnz={int((a != 0).sum())}")
+    for r in rows.values():
+        log(f"  {r['name']}: max_abs_err={r['max_abs_err']} ms={r['ms']} "
+            f"plain_ms={r['plain_ms']} bound_ms={r['bound_ms']} "
+            f"({r['bound_by']}) library_ms={r['library_ms']}")
+    return rows
+
+
+def serve_path(name, model, cfg, graphs, cpu_model, wrappers, expect):
+    """Serve ``graphs`` (max_batch 2), hold every prediction against the
+    CPU forward, and return the kernels' launch counts of this path."""
+    from repro_torch.serve.circuit_engine import CircuitServeEngine
+    eng = CircuitServeEngine(model, cfg, max_batch=2, device="cuda")
+    for w in wrappers.values():
+        w.launches = 0
+    rids = [eng.submit(g) for g in graphs]
+    done = eng.run()
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    st = eng.stats()
+    log(f"path {name}: {json.dumps(st)} launches={launches}")
+    for k in expect:
+        if launches[k] == 0:
+            problem(f"path {name}: kernel {k} was never launched")
+    n_cells = n_far = 0
+    worst = 0.0
+    for rid, g in zip(rids, graphs):
+        r = done[rid]
+        if r.error is not None:
+            problem(f"path {name}: request {rid} failed: {r.error!r}")
+        if r.pred.shape != (g.n_cell,) or not torch.isfinite(
+                torch.from_numpy(r.pred)).all():
+            problem(f"path {name}: request {rid} output malformed")
+        with torch.no_grad():
+            ref = cpu_model(g, cfg).numpy()
+        diff = abs(r.pred - ref)
+        n_cells += diff.size
+        n_far += int((diff > CELL_ATOL).sum())
+        worst = max(worst, float(diff.max()))
+    share = 1.0 - n_far / n_cells
+    log(f"path {name}: {n_cells} cells, {n_far} beyond {CELL_ATOL} of the "
+        f"CPU forward (share within {share}), max |diff| {worst}")
+    if share < CELL_SHARE:
+        problem(f"path {name}: only {share} of cells within {CELL_ATOL}")
+    return launches, st
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("no CUDA device visible")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    try:
+        from repro_torch.core.hetero_mp import HeteroMPConfig
+        from repro_torch.graphs.collate import collate_graphs
+        from repro_torch.graphs.generator import generate_design
+        from repro_torch.kernels import _build
+        from repro_torch.kernels.drelu_topk import drelu_bisect
+        from repro_torch.kernels.drspmm import (drspmm_dense_tier_fwd,
+                                                drspmm_fwd_arena)
+        from repro_torch.models.hgnn import DRCircuitGNN
+    except ImportError as e:
+        fail(f"the port is not importable next to this script: {e}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    t = time.perf_counter()
+    out_dir = _build.build_all()
+    log(f"phase build: {out_dir} in {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    table1 = generate_design(0, "small", 1.0) + generate_design(1, "medium", 1.0)
+    tiny = (generate_design(0, "small", 0.02)
+            + generate_design(1, "medium", 0.02)
+            + generate_design(2, "large", 0.02))
+    log(f"phase data: {len(table1)} Table-1 partitions "
+        f"{[(g.n_cell, g.n_net) for g in table1]}, {len(tiny)} scale-0.02 "
+        f"partitions, in {time.perf_counter() - t:.1f} s")
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = DRCircuitGNN(FEAT, FEAT, HIDDEN, LAYERS, device="cuda",
+                         generator=gen)
+    cpu_model = DRCircuitGNN(FEAT, FEAT, HIDDEN, LAYERS, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    topk = HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K)
+    bisect = HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K,
+                            drelu_backend="bisect")
+
+    t = time.perf_counter()
+    big = collate_graphs(table1[:2], device="cuda")
+    small = collate_graphs(tiny[:2], device="cuda")
+    log(f"phase plans: full-width tiers "
+        f"{[(s.etype, s.tier) for s in big.plan.segments]}, scale-0.02 tiers "
+        f"{[(s.etype, s.tier) for s in small.plan.segments]}")
+    rows = check_kernels(model, topk, big, small)
+    log(f"phase kernels: {time.perf_counter() - t:.1f} s")
+
+    # where a batch's time goes: host collation (numpy packing + the
+    # pinned copies) against the device forward of the same batch
+    t = time.perf_counter()
+    collate_graphs(table1[:2], device="cuda")
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3
+    with torch.inference_mode():
+        fwd_ms = {c.drelu_backend: cuda_ms(lambda: model(big.graph, c), 5)
+                  for c in (topk, bisect)}
+    log(f"phase breakdown: collate 2 Table-1 partitions {host_ms:.3f} ms on "
+        f"the host; batch forward on the card {fwd_ms} ms")
+
+    wrappers = {"drspmm_fwd_arena": drspmm_fwd_arena,
+                "drspmm_dense_tier_fwd": drspmm_dense_tier_fwd,
+                "drelu_bisect": drelu_bisect}
+    total = dict.fromkeys(wrappers, 0)
+    for name, cfg, graphs, expect in (
+            ("table1-topk", topk, table1, ["drspmm_fwd_arena"]),
+            ("table1-bisect", bisect, table1,
+             ["drspmm_fwd_arena", "drelu_bisect"]),
+            ("scale0.02-bisect", bisect, tiny, list(wrappers))):
+        t = time.perf_counter()
+        launches, _ = serve_path(name, model, cfg, graphs, cpu_model,
+                                 wrappers, expect)
+        for k, v in launches.items():
+            total[k] += v
+        log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+
+    for k, r in rows.items():
+        r["launches"] = total[k]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                  for r in rows.values()]}))
+    if PROBLEMS:
+        fail(f"{len(PROBLEMS)} check(s) failed: {PROBLEMS}")
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

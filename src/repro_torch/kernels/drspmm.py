@@ -1,0 +1,165 @@
+"""DR-SpMM forward kernels: the chunk arena and the dense tier.
+
+Forward (Alg. 1):  Y[i, :] += w_ij * scatter(x_vals[j], x_idx[j])  over j ∈ N(i)
+
+* :func:`drspmm_fwd_arena` replaces ``drspmm_fwd_fused`` (entered through
+  ``drspmm_fwd_multi``, ``src/repro/kernels/drspmm.py``): the arena-ordered
+  fp32 ``(R_arena, dim)`` output of a fused (super-)arena, one launch per
+  direction-group.  CUDA source: ``csrc/drspmm_arena_fwd.cu``.
+* :func:`drspmm_dense_tier_fwd` replaces ``drspmm_dense_tier_fwd``: the
+  stacked dense-tier table times the CBSR operand, densified inside the
+  kernel.  CUDA source: ``csrc/drspmm_dense_tier_fwd.cu``.
+
+Each wrapper runs its plain PyTorch version (``*_plain``) for a tensor on
+the CPU and launches its kernel for a tensor on a card; it never falls back
+from one to the other.  ``<wrapper>.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.graphs.ell import FusedELL
+from repro_torch.kernels import _build
+
+_c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
+
+
+def _densify(x_vals: torch.Tensor, x_idx: torch.Tensor,
+             dim: int) -> torch.Tensor:
+    """CBSR (N, k) pair -> dense fp32 (N, dim); duplicate columns add."""
+    xd = torch.zeros((x_vals.shape[0], dim), dtype=torch.float32,
+                     device=x_vals.device)
+    return xd.scatter_add_(1, x_idx.long(), x_vals.float())
+
+
+def _check_cbsr(x_vals, x_idx, dim: int) -> None:
+    if x_vals.dtype != torch.float32 or x_idx.dtype != torch.int32:
+        raise TypeError(f"CBSR operands must be float32/int32, got "
+                        f"{x_vals.dtype}/{x_idx.dtype}")
+    if x_vals.shape != x_idx.shape or x_vals.dim() != 2:
+        raise ValueError(f"CBSR shapes differ: {tuple(x_vals.shape)} vs "
+                         f"{tuple(x_idx.shape)}")
+    if not (x_vals.is_contiguous() and x_idx.is_contiguous()):
+        raise ValueError("CBSR operands must be contiguous")
+    if not 0 < dim <= 256:
+        raise ValueError(f"dim {dim} outside the kernels' range (1..256)")
+
+
+def _on_card(*ts) -> bool:
+    """True for tensors on a card, False on the CPU; anything else (or a
+    mix) raises -- there is no silent fallback between the two."""
+    types = {t.device.type for t in ts}
+    if types == {"cpu"}:
+        return False
+    if types == {"cuda"}:
+        return True
+    raise ValueError(f"operands on unsupported or mixed devices: {types}")
+
+
+# ---------------------------------------------------------------------------
+# kernel 1: arena forward
+# ---------------------------------------------------------------------------
+
+def drspmm_fwd_arena_plain(fwd: FusedELL, x_vals: torch.Tensor,
+                           x_idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """Arena-ordered fp32 Y (R_arena, dim): densify the CBSR operand, then
+    weight-sum each chunk row's neighbours and add chunks into their
+    row-block."""
+    xd = _densify(x_vals, x_idx, dim)
+    br = fwd.row_block
+    contrib = (xd[fwd.nbr.long()] * fwd.w[..., None]).sum(2)   # (C, BR, D)
+    y = torch.zeros((fwd.n_blocks, br, dim), dtype=torch.float32,
+                    device=x_vals.device)
+    y.index_add_(0, fwd.block_of.long(), contrib)
+    return y.reshape(fwd.n_arena_rows, dim)
+
+
+def drspmm_fwd_arena(fwd: FusedELL, x_vals: torch.Tensor,
+                     x_idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """Arena-ordered fp32 Y (R_arena, dim) of a fused (super-)arena whose
+    tables are tensors on the operands' device.  Read the caller-ordered
+    output with ``y[fwd.gather]``."""
+    if not _on_card(x_vals, x_idx, fwd.nbr, fwd.w, fwd.blk_ptr):
+        return drspmm_fwd_arena_plain(fwd, x_vals, x_idx, dim)
+    _check_cbsr(x_vals, x_idx, dim)
+    c, br, ec = fwd.nbr.shape
+    if fwd.nbr.dtype != torch.int32 or fwd.w.dtype != torch.float32 \
+            or fwd.blk_ptr.dtype != torch.int32:
+        raise TypeError("arena tables must be int32 nbr/blk_ptr, float32 w")
+    if ec not in (4, 8, 16) or br > 8 \
+            or fwd.blk_ptr.shape[0] != fwd.n_blocks + 1:
+        raise ValueError(f"arena geometry (BR={br}, Ec={ec}, blk_ptr "
+                         f"{tuple(fwd.blk_ptr.shape)}) not supported")
+    out = torch.empty((fwd.n_arena_rows, dim), dtype=torch.float32,
+                      device=x_vals.device)
+    lib = _arena_lib()
+    rc = lib.drspmm_arena_fwd(
+        _build.ptr(fwd.blk_ptr), _build.ptr(fwd.nbr), _build.ptr(fwd.w),
+        _build.ptr(x_vals), _build.ptr(x_idx), _build.ptr(out),
+        fwd.n_blocks, br, ec, x_vals.shape[1], dim, _build.stream_of(out))
+    _build.check(lib, rc, "drspmm_arena_fwd")
+    drspmm_fwd_arena.launches += 1
+    return out
+
+
+drspmm_fwd_arena.launches = 0
+
+
+def _arena_lib() -> ctypes.CDLL:
+    lib = _build.library("drspmm_arena_fwd")
+    fn = lib.drspmm_arena_fwd
+    fn.argtypes = [_c_ptr] * 6 + [_c_int] * 5 + [_c_ptr]
+    fn.restype = _c_int
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# kernel 2: dense-tier forward
+# ---------------------------------------------------------------------------
+
+def drspmm_dense_tier_fwd_plain(a_dense: torch.Tensor, x_vals: torch.Tensor,
+                                x_idx: torch.Tensor,
+                                dim: int) -> torch.Tensor:
+    """fp32 Y (M, dim) = A_dense · densify(CBSR)."""
+    return a_dense.float() @ _densify(x_vals, x_idx, dim)
+
+
+def drspmm_dense_tier_fwd(a_dense: torch.Tensor, x_vals: torch.Tensor,
+                          x_idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """fp32 Y (M, dim) = A_dense · densify(CBSR) for the stacked dense-tier
+    table (the plan's ``dense_fwd``, (M, N) with N = the source slab)."""
+    if not _on_card(a_dense, x_vals, x_idx):
+        return drspmm_dense_tier_fwd_plain(a_dense, x_vals, x_idx, dim)
+    _check_cbsr(x_vals, x_idx, dim)
+    m, n = a_dense.shape
+    if a_dense.dtype != torch.float32 or not a_dense.is_contiguous():
+        raise TypeError("dense-tier table must be contiguous float32")
+    if n != x_vals.shape[0]:
+        raise ValueError(f"table has {n} source columns, operand "
+                         f"{x_vals.shape[0]} rows")
+    out = torch.empty((m, dim), dtype=torch.float32, device=x_vals.device)
+    if m == 0:
+        return out
+    if n == 0:
+        return out.zero_()
+    lib = _dense_lib()
+    rc = lib.drspmm_dense_tier_fwd(
+        _build.ptr(a_dense), _build.ptr(x_vals), _build.ptr(x_idx),
+        _build.ptr(out), m, n, x_vals.shape[1], dim, _build.stream_of(out))
+    _build.check(lib, rc, "drspmm_dense_tier_fwd")
+    drspmm_dense_tier_fwd.launches += 1
+    return out
+
+
+drspmm_dense_tier_fwd.launches = 0
+
+
+def _dense_lib() -> ctypes.CDLL:
+    lib = _build.library("drspmm_dense_tier_fwd")
+    fn = lib.drspmm_dense_tier_fwd
+    fn.argtypes = [_c_ptr] * 4 + [_c_int] * 4 + [_c_ptr]
+    fn.restype = _c_int
+    return lib

@@ -1,0 +1,71 @@
+"""Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py).
+
+Inputs are made with numpy from a seed and handed to both packages; JAX
+stays on the CPU (its Pallas kernels run in interpret mode there)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+# small size of the parity tests: scale-0.02 Table-1 partitions, hidden 32,
+# k 8, two layers
+SCALE, HIDDEN, K, LAYERS = 0.02, 32, 8, 2
+
+
+@pytest.fixture
+def cuda():
+    """Skip unless a CUDA card is visible (decided at run time, never at
+    import, so every test worker collects the same tests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def assert_close(actual, ref, msg=""):
+    """fp32 parity where only the summation order differs: rtol 1e-5 and
+    atol 1e-5 scaled by the reference's magnitude."""
+    actual, ref = np.asarray(actual), np.asarray(ref)
+    atol = 1e-5 * max(1.0, float(np.abs(ref).max()) if ref.size else 1.0)
+    np.testing.assert_allclose(actual, ref, rtol=1e-5, atol=atol,
+                               err_msg=msg)
+
+
+def assert_fused_equal(a, b):
+    """Port arena ``b`` has exactly the reference arena ``a``'s tables."""
+    for f in ("nbr", "w", "block_of", "start", "rows", "gather", "rel"):
+        x, y = getattr(a, f), getattr(b, f)
+        if x is None:
+            assert y is None, f
+            continue
+        x, y = np.asarray(x), np.asarray(y)
+        assert x.dtype == y.dtype and np.array_equal(x, y), f
+    for f in ("n_dst", "n_src", "nnz", "row_block", "chunk"):
+        assert getattr(a, f) == getattr(b, f), f
+
+
+def assert_plan_equal(p, q):
+    """Port plan ``q`` has exactly the reference plan ``p``'s tables."""
+    assert_fused_equal(p.fwd, q.fwd)
+    assert_fused_equal(p.bwd, q.bwd)
+    for f in ("bwd_src_rows", "dense_fwd", "dense_bwd"):
+        x, y = np.asarray(getattr(p, f)), np.asarray(getattr(q, f))
+        assert x.dtype == y.dtype and np.array_equal(x, y), f
+    assert [dataclasses.astuple(s) for s in p.segments] == \
+        [dataclasses.astuple(s) for s in q.segments]
+    assert (p.src_types, p.src_off, p.src_sizes) == \
+        (q.src_types, q.src_off, q.src_sizes)
+
+
+def cbsr_operands(plan, k_of, seed=0, dim=HIDDEN):
+    """Per-type CBSR operands ``{ntype: (vals, idx)}`` as numpy: the top
+    ``k_of[t]`` of a seeded normal matrix per node type, idx ascending."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for t, n in zip(plan.src_types, plan.src_sizes):
+        x = rng.normal(size=(n, dim)).astype(np.float32)
+        idx = np.sort(np.argsort(-x, axis=1, kind="stable")[:, :k_of[t]],
+                      axis=1).astype(np.int32)
+        out[t] = (np.take_along_axis(x, idx, axis=1), idx)
+    return out

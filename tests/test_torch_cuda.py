@@ -1,0 +1,109 @@
+"""PyTorch port on a card: each CUDA kernel against its plain PyTorch
+version, and the serve engine on the card against the port's CPU forward.
+
+Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
+one.  The file imports no JAX, so it also runs on a machine with the card
+and no JAX:  ``PYTHONPATH=src python -m pytest -q -m cuda tests/``.
+Tolerances: the DR-SpMM kernels are fp32 with another summation order than
+their plain versions (rtol 1e-5, atol 1e-5 scaled by magnitude); the
+bisection is bit-exact; served predictions may differ from the CPU forward
+where a GPU-vs-CPU rounding flips a near-tied top-k pick, so 99.9 % of
+cells must be within 1e-4."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.hetero_mp import HeteroMPConfig
+from repro_torch.graphs.circuit import relation_plan_of
+from repro_torch.graphs.generator import generate_design
+from repro_torch.kernels import drelu_topk
+from repro_torch.kernels import drspmm as tk
+from repro_torch.models.hgnn import DRCircuitGNN
+from repro_torch.serve.circuit_engine import CircuitServeEngine
+from _torch_port import (HIDDEN, K, LAYERS, SCALE, assert_close,
+                         cbsr_operands, cuda)  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.cuda
+
+
+def _operands(plan, k, seed, device, dim=64):
+    ops_np = cbsr_operands(plan, {"cell": k, "net": k}, seed=seed, dim=dim)
+    xv = np.concatenate([ops_np[t][0] for t in plan.src_types])
+    xi = np.concatenate([ops_np[t][1] for t in plan.src_types])
+    return torch.from_numpy(xv).to(device), torch.from_numpy(xi).to(device)
+
+
+@pytest.mark.parametrize("k", [8, 16, 40])
+def test_arena_kernel_matches_plain(cuda, k):
+    plan = relation_plan_of(generate_design(1, "medium", SCALE)[0]).to(cuda)
+    xv, xi = _operands(plan, k, k, cuda)
+    before = tk.drspmm_fwd_arena.launches
+    y = tk.drspmm_fwd_arena(plan.fwd, xv, xi, 64)
+    torch.cuda.synchronize()
+    assert tk.drspmm_fwd_arena.launches == before + 1
+    assert_close(y.cpu().numpy(),
+                 tk.drspmm_fwd_arena_plain(plan.fwd, xv, xi, 64).cpu().numpy())
+
+
+def test_arena_kernel_repeated_columns(cuda):
+    """Zero-value padding duplicates and repeated non-zero columns (the
+    kernel's broadcast fallback) both accumulate every pair."""
+    plan = relation_plan_of(generate_design(0, "small", SCALE)[0]).to(cuda)
+    n = plan.n_src_total
+    rng = np.random.default_rng(3)
+    xv = rng.normal(size=(n, 6)).astype(np.float32)
+    xi = np.zeros((n, 6), np.int32)
+    xi[:, 3:] = 5
+    xv[:, 1:3] = 0.0
+    xv, xi = torch.from_numpy(xv).to(cuda), torch.from_numpy(xi).to(cuda)
+    y = tk.drspmm_fwd_arena(plan.fwd, xv, xi, HIDDEN)
+    assert_close(y.cpu().numpy(), tk.drspmm_fwd_arena_plain(
+        plan.fwd, xv, xi, HIDDEN).cpu().numpy())
+
+
+def test_dense_tier_kernel_matches_plain(cuda):
+    plan = relation_plan_of(generate_design(1, "medium", SCALE)[0]).to(cuda)
+    assert plan.has_dense
+    xv, xi = _operands(plan, 16, 5, cuda)
+    before = tk.drspmm_dense_tier_fwd.launches
+    y = tk.drspmm_dense_tier_fwd(plan.dense_fwd, xv, xi, 64)
+    torch.cuda.synchronize()
+    assert tk.drspmm_dense_tier_fwd.launches == before + 1
+    assert_close(y.cpu().numpy(), tk.drspmm_dense_tier_fwd_plain(
+        plan.dense_fwd, xv, xi, 64).cpu().numpy())
+
+
+@pytest.mark.parametrize("k,d", [(8, 32), (16, 64), (40, 96)])
+def test_drelu_bisect_kernel_bit_exact(cuda, k, d):
+    g = torch.Generator().manual_seed(k)
+    x = torch.randn((1031, d), generator=g)
+    x[0] = 0.0
+    x[1, :12] = 1.25                        # ties at the threshold
+    x[2, 1::3] = -0.0
+    x = x.to(cuda)
+    before = drelu_topk.drelu_bisect.launches
+    y = drelu_topk.drelu_bisect(x, k)
+    torch.cuda.synchronize()
+    assert drelu_topk.drelu_bisect.launches == before + 1
+    assert torch.equal(y, drelu_topk.drelu_bisect_plain(x, k))
+
+
+@pytest.mark.parametrize("drelu_backend", ["topk", "bisect"])
+def test_engine_on_card_matches_cpu(cuda, drelu_backend):
+    graphs = generate_design(0, "small", SCALE) \
+        + generate_design(1, "medium", SCALE)
+    cfg = HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K,
+                         drelu_backend=drelu_backend)
+    gpu = DRCircuitGNN(16, 16, HIDDEN, LAYERS, device=cuda)
+    cpu = DRCircuitGNN(16, 16, HIDDEN, LAYERS, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    eng = CircuitServeEngine(gpu, cfg, max_batch=2, device=cuda)
+    rids = [eng.submit(g) for g in graphs]
+    done = eng.run()
+    for rid, g in zip(rids, graphs):
+        assert done[rid].error is None
+        with torch.no_grad():
+            ref = cpu(g, cfg).numpy()
+        assert np.isfinite(done[rid].pred).all()
+        assert np.mean(np.abs(done[rid].pred - ref) <= 1e-4) >= 0.999

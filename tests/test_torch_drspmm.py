@@ -1,0 +1,119 @@
+"""PyTorch port, DR-SpMM forward: the plain versions of the arena and
+dense-tier kernels against the JAX package's Pallas kernels (interpret
+mode) and ``drspmm_multi`` against the JAX op.  The CUDA kernels are held
+against these plain versions on a card in tests/test_torch_cuda.py.
+
+Tolerance: fp32, rtol 1e-5 and atol 1e-5 (scaled by the output's
+magnitude) -- the two sides sum the same products in another order."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import repro.graphs.circuit as jcircuit
+import repro.graphs.generator as jgen
+from repro.kernels import drspmm as jk
+from repro.kernels import ops as jops
+import repro_torch.graphs.circuit as tcircuit
+import repro_torch.graphs.generator as tgen
+from repro_torch.kernels import drspmm as tk
+from repro_torch.kernels import ops as tops
+from _torch_port import HIDDEN, SCALE, assert_close, cbsr_operands
+
+
+def _plans(seed=0, size="small"):
+    gj = jgen.generate_design(seed, size, SCALE)[0]
+    gt = tgen.generate_design(seed, size, SCALE)[0]
+    return jcircuit.relation_plan_of(gj), tcircuit.relation_plan_of(gt)
+
+
+def _concat(plan, ops_np):
+    """Type-concat (xv, xi) numpy operands, k padded to the group max."""
+    kmax = max(ops_np[t][1].shape[1] for t in plan.src_types)
+    pad = lambda a: np.pad(a, ((0, 0), (0, kmax - a.shape[1])))
+    return (np.concatenate([pad(ops_np[t][0]) for t in plan.src_types]),
+            np.concatenate([pad(ops_np[t][1]) for t in plan.src_types]))
+
+
+@pytest.mark.parametrize("seed,size", [(0, "small"), (1, "medium")])
+def test_arena_plain_matches_pallas(seed, size):
+    pj, pt = _plans(seed, size)
+    xv, xi = _concat(pt, cbsr_operands(pt, {"cell": 8, "net": 8}, seed))
+    ref = np.asarray(jk.drspmm_fwd_multi(pj.fwd, jnp.asarray(xv),
+                                         jnp.asarray(xi), HIDDEN))
+    before = tk.drspmm_fwd_arena.launches
+    out = tk.drspmm_fwd_arena(pt.fwd.to("cpu"), torch.from_numpy(xv),
+                              torch.from_numpy(xi), HIDDEN)
+    assert tk.drspmm_fwd_arena.launches == before   # CPU: plain version
+    assert out.shape == (pt.fwd.n_arena_rows, HIDDEN)
+    assert_close(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("seed,size", [(0, "small"), (1, "medium")])
+def test_dense_tier_plain_matches_pallas(seed, size):
+    pj, pt = _plans(seed, size)
+    assert pt.has_dense
+    xv, xi = _concat(pt, cbsr_operands(pt, {"cell": 8, "net": 8}, seed))
+    ref = np.asarray(jk.drspmm_dense_tier_fwd(
+        jnp.asarray(pj.dense_fwd), jnp.asarray(xv), jnp.asarray(xi), HIDDEN))
+    out = tk.drspmm_dense_tier_fwd(torch.from_numpy(pt.dense_fwd),
+                                   torch.from_numpy(xv),
+                                   torch.from_numpy(xi), HIDDEN)
+    assert_close(out.numpy(), ref)
+
+
+def test_arena_plain_duplicate_columns():
+    """Zero-value duplicates of column 0 (k padding, CBSR filler) and
+    duplicate non-zero columns both accumulate."""
+    _, pt = _plans()
+    n = pt.n_src_total
+    rng = np.random.default_rng(3)
+    xv = rng.normal(size=(n, 6)).astype(np.float32)
+    xi = np.zeros((n, 6), np.int32)
+    xi[:, 3:] = 5
+    xv[:, 1:3] = 0.0
+    dense = np.zeros((n, HIDDEN), np.float32)
+    np.add.at(dense, (np.arange(n)[:, None], xi), xv)
+    a = pt.fwd.to_dense()
+    gather = pt.fwd.gather
+    out = tk.drspmm_fwd_arena(pt.fwd.to("cpu"), torch.from_numpy(xv),
+                              torch.from_numpy(xi), HIDDEN).numpy()
+    assert_close(out[gather], a @ dense)
+
+
+@pytest.mark.parametrize("backend", ["pallas_fused", "dense"])
+@pytest.mark.parametrize("dense_oracle", [False, True])
+def test_drspmm_multi_matches_jax(backend, dense_oracle):
+    """k_cell != k_net: the narrower type is padded inside the op."""
+    pj, pt = _plans(1, "medium")
+    ops_np = cbsr_operands(pt, {"cell": 8, "net": 5}, seed=11)
+    ref = jops.drspmm_multi(
+        pj, {t: (jnp.asarray(v), jnp.asarray(i)) for t, (v, i)
+             in ops_np.items()}, HIDDEN, backend=backend)
+    with torch.no_grad():
+        out = tops.drspmm_multi(
+            pt.to("cpu"), {t: (torch.from_numpy(v), torch.from_numpy(i))
+                           for t, (v, i) in ops_np.items()}, HIDDEN,
+            dense=dense_oracle)
+    assert set(out) == set(ref) == {"near", "pin", "pinned"}
+    for et in ref:
+        assert_close(out[et].numpy(), np.asarray(ref[et]), et)
+
+
+def test_drspmm_multi_refuses_gradients():
+    _, pt = _plans()
+    ops_np = cbsr_operands(pt, {"cell": 8, "net": 8})
+    cbsr = {t: (torch.from_numpy(v).requires_grad_(), torch.from_numpy(i))
+            for t, (v, i) in ops_np.items()}
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tops.drspmm_multi(pt.to("cpu"), cbsr, HIDDEN)
+
+
+def test_kernel_wrappers_refuse_mixed_devices():
+    _, pt = _plans()
+    xv = torch.zeros((pt.n_src_total, 4))
+    xi = torch.zeros((pt.n_src_total, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="devices"):
+        tk.drspmm_fwd_arena(pt.fwd.to("cpu"), xv.to("meta"), xi, HIDDEN)

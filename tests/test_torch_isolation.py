@@ -1,0 +1,95 @@
+"""The PyTorch port stands alone: no module of ``src/repro_torch`` (nor
+``chip_smoke.py``) imports JAX or the JAX package, the serving stack
+imports with JAX unavailable, entry points refuse to fall back to the CPU
+silently, and a kernel wrapper given a CUDA tensor never runs its plain
+version."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core.hetero_mp import HeteroMPConfig
+from repro_torch.graphs import collate as tcollate
+from repro_torch.graphs.generator import generate_design
+from repro_torch.kernels import drelu_topk, drspmm
+from repro_torch.models.hgnn import DRCircuitGNN
+from repro_torch.serve.circuit_engine import CircuitServeEngine
+from _torch_port import cuda  # noqa: F401  (fixture)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_serving_stack_imports_without_jax():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "import repro_torch.serve.circuit_engine, "
+            "repro_torch.kernels.ops, repro_torch.models.hgnn; "
+            "assert 'jax' not in {m.split('.')[0] for m, v in "
+            "sys.modules.items() if v is not None}")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_entry_points_refuse_missing_card(monkeypatch):
+    """With no card visible, the default device raises instead of running
+    on the CPU behind the caller's back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = generate_design(0, "small", 0.02)[:1]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DRCircuitGNN(16, 16, 32, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcollate.collate_graphs(g)
+    model = DRCircuitGNN(16, 16, 32, 2, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CircuitServeEngine(model, HeteroMPConfig(hidden=32, k_cell=8,
+                                                 k_net=8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.resolve_device("cuda:0")
+
+
+@pytest.mark.cuda
+def test_wrappers_never_run_plain_on_card(cuda, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+    monkeypatch.setattr(drspmm, "drspmm_fwd_arena_plain", boom)
+    monkeypatch.setattr(drspmm, "drspmm_dense_tier_fwd_plain", boom)
+    monkeypatch.setattr(drelu_topk, "drelu_bisect_plain", boom)
+    batch = tcollate.collate_graphs(generate_design(0, "small", 0.02),
+                                    device=cuda)
+    plan = batch.plan
+    n = plan.n_src_total
+    rng = np.random.default_rng(0)
+    xv = torch.from_numpy(rng.normal(size=(n, 8)).astype(np.float32)).to(cuda)
+    xi = torch.from_numpy(np.sort(rng.choice(64, size=(n, 8)), axis=1)
+                          .astype(np.int32)).to(cuda)
+    drspmm.drspmm_fwd_arena(plan.fwd, xv, xi, 64)
+    drspmm.drspmm_dense_tier_fwd(plan.dense_fwd, xv, xi, 64)
+    drelu_topk.drelu_bisect(torch.randn(n, 64, device=cuda), 8)
+    torch.cuda.synchronize()
