@@ -3,23 +3,31 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
-kernel against its plain PyTorch version at the shapes the serving path
-gives it, then serves DR-CircuitGNN (hidden 64, k 16, 2 layers, random
-weights from a seed) through ``CircuitServeEngine``:
+kernel against its plain PyTorch version at the shapes the serving and
+training paths give it, then serves DR-CircuitGNN (hidden 64, k 16, 2
+layers, random weights from a seed) through ``CircuitServeEngine``:
 
 1. Table-1 partitions (``generate_design(0, "small")`` +
    ``generate_design(1, "medium")``, scale 1.0) with ``drelu_backend``
    ``"topk"``;
 2. the same with ``"bisect"`` (the D-ReLU bisection kernel);
 3. a scale-0.02 stream whose plans route ``pin``/``pinned`` to the dense
-   tier.
+   tier;
+
+and trains it with ``CircuitTrainer.fit`` (2 epochs, batches of 2):
+
+4. ``train-table1-topk``: the Table-1 partitions;
+5. ``train-scale0.02-bisect``: the scale-0.02 stream with the bisection
+   kernel and per-layer recompute (remat).
 
 Every kernel's launch count is zeroed just before each path and read just
 after; a kernel that the path should run and did not fails the run.  Every
 served prediction is compared with the port's CPU forward of the same
-graph and weights.  The last lines are the kernel report, the card's name
-and power limit, and ``{"ok": true, "device": {...}}``.  Any failed phase
-exits non-zero.  Needs one card; imports no JAX.
+graph and weights; every training step's loss, and the first step's
+gradients, with a CPU trainer started from the same weights on the same
+batches.  The last lines are the kernel report, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.  Any failed phase exits
+non-zero.  Needs one card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ H100_BYTES_PER_S = 3.35e12        # HBM3, SXM part
 H100_F32_PER_S = 67e12            # fp32 outside the tensor cores
 CELL_ATOL = 1e-4                  # served vs CPU forward, per cell
 CELL_SHARE = 0.999                # share of cells that must be within it
+LOSS_RTOL = 1e-4                  # training step loss, card vs CPU
+GRAD_RTOL = 1e-4                  # first-step gradient, relative L2
 REPS = 20
 
 
@@ -97,6 +107,19 @@ def first_layer_operands(model, graph, cfg):
     return xv, xi, h_cell.contiguous()
 
 
+def arena_csr(f, n_src):
+    """The (super-)arena ``f`` as a CSR matrix (the library yardstick)."""
+    warnings.filterwarnings("ignore", message="Sparse")
+    br = f.row_block
+    rows = (f.block_of.long()[:, None] * br
+            + torch.arange(br, device=f.w.device)[None, :])
+    mask = f.w != 0
+    return torch.sparse_coo_tensor(
+        torch.stack([rows[:, :, None].expand(f.nbr.shape)[mask],
+                     f.nbr.long()[mask]]), f.w[mask],
+        (f.n_arena_rows, n_src)).coalesce().to_sparse_csr()
+
+
 def check_kernels(model, cfg, big, small):
     """Each kernel against its plain version on the card, with times."""
     from repro_torch.kernels import drspmm as K1
@@ -126,14 +149,7 @@ def check_kernels(model, cfg, big, small):
                 f"{float((y - ref).abs().max())}")
     c, br, ec = f.nbr.shape
     real = int((f.w != 0).sum())
-    arena_rows = (f.block_of.long()[:, None] * br
-                  + torch.arange(br, device=xv.device)[None, :])
-    mask = f.w != 0
-    warnings.filterwarnings("ignore", message="Sparse")
-    a_csr = torch.sparse_coo_tensor(
-        torch.stack([arena_rows[:, :, None].expand(f.nbr.shape)[mask],
-                     f.nbr.long()[mask]]), f.w[mask],
-        (f.n_arena_rows, xv.shape[0])).coalesce().to_sparse_csr()
+    a_csr = arena_csr(f, xv.shape[0])
     xd = K1._densify(xv, xi, HIDDEN)
     n_bytes = 4 * (f.blk_ptr.numel() + 2 * f.nbr.numel() + 2 * xv.numel()
                    + f.n_arena_rows * HIDDEN)
@@ -203,6 +219,114 @@ def check_kernels(model, cfg, big, small):
     return rows
 
 
+def backward_operands(model, batch, cfg):
+    """(gY, xi) that the first layer's DR-SpMM backward receives from the
+    batch's training loss: the loss is run backward once with the op's
+    tiered backward wrapped to record its operands."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.hgnn import batched_loss_fn
+    seen = []
+    tiered = ops._hybrid_bwd
+
+    def record(plan, gy_cat, xi):
+        seen.append((gy_cat.detach().clone(), xi))
+        return tiered(plan, gy_cat, xi)
+
+    ops._hybrid_bwd = record
+    try:
+        batched_loss_fn(model, batch.graph, batch.cell_weight,
+                        cfg).backward()
+    finally:
+        ops._hybrid_bwd = tiered
+        model.zero_grad(set_to_none=True)
+    return seen[-1]          # layers run backward last to first
+
+
+def check_bwd_kernels(model, cfg, big, small):
+    """The two sampled-backward kernels against their plain versions on
+    the card, on the cotangents of real training losses.  Those are small
+    (the loss is a mean over the batch's cells), so the tolerance scales
+    with the reference's magnitude without a floor."""
+    from repro_torch.kernels import drspmm as K1
+    rows = {}
+    tol = lambda ref: 1e-5 * float(ref.abs().max())
+
+    # kernel 4: the transposed super-arena of the first Table-1 batch
+    plan = big.plan
+    gy, xi = backward_operands(model, big, cfg)
+    f = plan.bwd
+    src = plan.bwd_src_rows
+    y = K1.drspmm_bwd_arena(f, src, gy, xi)
+    ref = K1.drspmm_bwd_arena_plain(f, src, gy, xi)
+    torch.cuda.synchronize()
+    err = float((y - ref).abs().max())
+    if not torch.allclose(y, ref, rtol=1e-5, atol=tol(ref)):
+        problem(f"arena backward kernel disagrees with its plain version: "
+                f"{err}")
+    c, br, ec = f.nbr.shape
+    k = xi.shape[1]
+    real = int((f.w != 0).sum())
+    a_t = arena_csr(f, gy.shape[0])
+    n_bytes = 4 * (f.blk_ptr.numel() + 2 * f.nbr.numel() + src.numel()
+                   + xi.numel() + gy.numel() + f.n_arena_rows * k)
+    b_ms, b_by = bound(n_bytes, 2.0 * real * k)
+    rows["drspmm_bwd_arena"] = dict(
+        name="drspmm_bwd_arena", route="cuda",
+        source="src/repro_torch/csrc/drspmm_arena_bwd.cu",
+        replaces="src/repro/kernels/drspmm.py:344",
+        max_abs_err=err, ref_max=float(ref.abs().max()),
+        ms=cuda_ms(lambda: K1.drspmm_bwd_arena(f, src, gy, xi)),
+        plain_ms=cuda_ms(lambda: K1.drspmm_bwd_arena_plain(f, src, gy, xi)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: a_t @ gy))
+    log(f"kernel drspmm_bwd_arena: C={c} BR={br} Ec={ec} "
+        f"R_arena={f.n_arena_rows} M={gy.shape[0]} N_src={xi.shape[0]} "
+        f"k={k} dim={gy.shape[1]} real_slots={real} bytes={n_bytes}; "
+        f"library_ms is torch.sparse.mm of the CSR Aᵀ by gY: the unsampled "
+        f"(R_arena, dim) product, dim/k = {gy.shape[1] / k} times the "
+        f"outputs")
+
+    # kernel 5: the stacked transposed dense-tier table of a scale-0.02
+    # batch, on the dense segments' rows of a real cotangent
+    plan = small.plan
+    if not plan.has_dense:
+        fail("the scale-0.02 batch has no dense-tier relation")
+    gy_cat, xi = backward_operands(model, small, cfg)
+    gy = torch.cat([gy_cat[s.out_off:s.out_off + s.n_dst]
+                    for s in plan.dense_segments]).contiguous()
+    a = plan.dense_bwd
+    y = K1.drspmm_dense_tier_bwd(a, gy, xi)
+    ref = K1.drspmm_dense_tier_bwd_plain(a, gy, xi)
+    torch.cuda.synchronize()
+    err = float((y - ref).abs().max())
+    if not torch.allclose(y, ref, rtol=1e-5, atol=tol(ref)):
+        problem(f"dense-tier backward kernel disagrees with its plain "
+                f"version: {err}")
+    n, m = a.shape
+    k = xi.shape[1]
+    nnz = int((a != 0).sum())
+    b_ms, b_by = bound(4.0 * (n * m + gy.numel() + 2 * n * k),
+                       2.0 * nnz * k)
+    rows["drspmm_dense_tier_bwd"] = dict(
+        name="drspmm_dense_tier_bwd", route="cuda",
+        source="src/repro_torch/csrc/drspmm_dense_tier_bwd.cu",
+        replaces="src/repro/kernels/drspmm.py:555",
+        max_abs_err=err, ref_max=float(ref.abs().max()),
+        ms=cuda_ms(lambda: K1.drspmm_dense_tier_bwd(a, gy, xi)),
+        plain_ms=cuda_ms(lambda: K1.drspmm_dense_tier_bwd_plain(a, gy, xi)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.mm(a, gy)))
+    log(f"kernel drspmm_dense_tier_bwd: N={n} M={m} nnz={nnz} k={k} "
+        f"dim={gy.shape[1]}; library_ms is torch.mm of Aᵀ by gY: the "
+        f"unsampled dense (N, dim) product")
+    for r in rows.values():
+        log(f"  {r['name']}: max_abs_err={r['max_abs_err']} (max |ref| "
+            f"{r['ref_max']}) ms={r['ms']} plain_ms={r['plain_ms']} "
+            f"bound_ms={r['bound_ms']} ({r['bound_by']}) "
+            f"library_ms={r['library_ms']}")
+    return rows
+
+
 def serve_path(name, model, cfg, graphs, cpu_model, wrappers, expect):
     """Serve ``graphs`` (max_batch 2), hold every prediction against the
     CPU forward, and return the kernels' launch counts of this path."""
@@ -242,6 +366,93 @@ def serve_path(name, model, cfg, graphs, cpu_model, wrappers, expect):
     return launches, st
 
 
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| (0 when both are 0)."""
+    den = float(torch.linalg.norm(b))
+    num = float(torch.linalg.norm(a - b))
+    return num / den if den > 0 else (0.0 if num == 0 else float("inf"))
+
+
+def train_path(name, cfg, graphs, state, wrappers, expect):
+    """``CircuitTrainer.fit`` on the card from the weights ``state``, held
+    against a CPU trainer started from the same weights on the same
+    batches: the first step's gradients per parameter, and every step's
+    loss.  Returns the kernels' launch counts of the card's fit."""
+    from repro_torch.models.hgnn import DRCircuitGNN, batched_loss_fn
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.train.circuit_trainer import CircuitTrainer
+    trainers = []
+    for dev in ("cuda", "cpu"):
+        m = DRCircuitGNN(FEAT, FEAT, HIDDEN, LAYERS, device=dev)
+        m.load_state_dict(state)
+        trainers.append(CircuitTrainer(cfg, FEAT, FEAT, model=m, device=dev))
+    gpu, cpu = trainers
+
+    def first_loss(tr):
+        graph, cell_w, _ = tr._collate(graphs[:cfg.batch_size])
+        return batched_loss_fn(tr.model, graph, cell_w, tr.mp_cfg, tr.spec)
+
+    grads = []
+    for tr in trainers:
+        first_loss(tr).backward()
+        grads.append({n: (torch.zeros_like(p) if p.grad is None
+                          else p.grad).detach().cpu()
+                      for n, p in tr.model.named_parameters()})
+        tr.model.zero_grad(set_to_none=True)
+    g_err = {n: rel_l2(grads[0][n], grads[1][n]) for n in grads[1]}
+    worst = max(g_err, key=g_err.get)
+    log(f"path {name}: first-step gradients, worst relative L2 "
+        f"{g_err[worst]} ({worst})")
+    if g_err[worst] > GRAD_RTOL:
+        problem(f"path {name}: first-step gradient of {worst} differs from "
+                f"the CPU by {g_err[worst]} (relative L2)")
+
+    for w in wrappers.values():
+        w.launches = 0
+    t = time.perf_counter()
+    hist = gpu.fit(graphs)["history"]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"path {name}: fit {fit_s:.3f} s, epoch losses "
+        f"{[h['loss'] for h in hist]}, {json.dumps(gpu.stats())} "
+        f"launches={launches}")
+    for k in expect:
+        if launches[k] == 0:
+            problem(f"path {name}: kernel {k} was never launched")
+    cpu.fit(graphs)
+    worst = 0.0
+    for i, (lg, lc) in enumerate(zip(gpu.step_loss, cpu.step_loss)):
+        d = abs(lg - lc) / abs(lc)
+        worst = max(worst, d)
+        if not d <= LOSS_RTOL:
+            problem(f"path {name}: step {i} loss {lg} on the card, {lc} on "
+                    f"the CPU")
+    if len(gpu.step_loss) != len(cpu.step_loss) or not gpu.step_loss:
+        problem(f"path {name}: {len(gpu.step_loss)} steps on the card, "
+                f"{len(cpu.step_loss)} on the CPU")
+    log(f"path {name}: {len(gpu.step_loss)} steps, worst relative loss "
+        f"difference to the CPU trainer {worst}")
+    ev = gpu.evaluate(graphs)
+    log(f"path {name}: evaluate pearson={ev['pearson']} "
+        f"spearman={ev['spearman']} mae={ev['mae']}")
+    if not all(map(lambda v: v == v, ev.values())):
+        problem(f"path {name}: evaluate gave non-finite metrics {ev}")
+
+    # where a training step's time goes on the card (cached first batch)
+    fwd_ms = cuda_ms(lambda: first_loss(gpu), 5)
+    fb_ms = cuda_ms(lambda: first_loss(gpu).backward(), 5)
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in gpu.params]
+    opt_ms = cuda_ms(lambda: adamw_update(gpu.params, grads, gpu.opt_state,
+                                          0.0), 5)
+    gpu.model.zero_grad(set_to_none=True)
+    log(f"path {name}: step breakdown on the card: forward+loss {fwd_ms} "
+        f"ms, forward+backward {fb_ms} ms, AdamW {opt_ms} ms; host step "
+        f"p50 {gpu.stats()['step_p50_ms']} ms")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device visible")
@@ -253,9 +464,12 @@ def main() -> None:
         from repro_torch.graphs.generator import generate_design
         from repro_torch.kernels import _build
         from repro_torch.kernels.drelu_topk import drelu_bisect
-        from repro_torch.kernels.drspmm import (drspmm_dense_tier_fwd,
+        from repro_torch.kernels.drspmm import (drspmm_bwd_arena,
+                                                drspmm_dense_tier_bwd,
+                                                drspmm_dense_tier_fwd,
                                                 drspmm_fwd_arena)
         from repro_torch.models.hgnn import DRCircuitGNN
+        from repro_torch.train.circuit_trainer import CircuitTrainConfig
     except ImportError as e:
         fail(f"the port is not importable next to this script: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -296,6 +510,7 @@ def main() -> None:
         f"{[(s.etype, s.tier) for s in big.plan.segments]}, scale-0.02 tiers "
         f"{[(s.etype, s.tier) for s in small.plan.segments]}")
     rows = check_kernels(model, topk, big, small)
+    rows.update(check_bwd_kernels(model, topk, big, small))
     log(f"phase kernels: {time.perf_counter() - t:.1f} s")
 
     # where a batch's time goes: host collation (numpy packing + the
@@ -312,16 +527,35 @@ def main() -> None:
 
     wrappers = {"drspmm_fwd_arena": drspmm_fwd_arena,
                 "drspmm_dense_tier_fwd": drspmm_dense_tier_fwd,
-                "drelu_bisect": drelu_bisect}
+                "drelu_bisect": drelu_bisect,
+                "drspmm_bwd_arena": drspmm_bwd_arena,
+                "drspmm_dense_tier_bwd": drspmm_dense_tier_bwd}
+    fwd_kernels = ["drspmm_fwd_arena", "drspmm_dense_tier_fwd",
+                   "drelu_bisect"]
     total = dict.fromkeys(wrappers, 0)
     for name, cfg, graphs, expect in (
             ("table1-topk", topk, table1, ["drspmm_fwd_arena"]),
             ("table1-bisect", bisect, table1,
              ["drspmm_fwd_arena", "drelu_bisect"]),
-            ("scale0.02-bisect", bisect, tiny, list(wrappers))):
+            ("scale0.02-bisect", bisect, tiny, fwd_kernels)):
         t = time.perf_counter()
         launches, _ = serve_path(name, model, cfg, graphs, cpu_model,
                                  wrappers, expect)
+        for k, v in launches.items():
+            total[k] += v
+        log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    train = dict(hidden=HIDDEN, n_layers=LAYERS, k_cell=K, k_net=K,
+                 epochs=2, batch_size=2)
+    for name, cfg, graphs, expect in (
+            ("train-table1-topk", CircuitTrainConfig(**train), table1,
+             ["drspmm_fwd_arena", "drspmm_bwd_arena"]),
+            ("train-scale0.02-bisect",
+             CircuitTrainConfig(**train, drelu_backend="bisect",
+                                remat=True), tiny, list(wrappers))):
+        t = time.perf_counter()
+        launches = train_path(name, cfg, graphs, state, wrappers, expect)
         for k, v in launches.items():
             total[k] += v
         log(f"phase {name}: {time.perf_counter() - t:.1f} s")

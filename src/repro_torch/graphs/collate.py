@@ -26,7 +26,8 @@ from repro_torch import resolve_device
 from repro_torch.graphs.circuit import (CircuitGraph, EDGE_SCHEMA, EDGE_TYPES,
                                         EdgeSet)
 from repro_torch.graphs.ell import (DEFAULT_BOUNDS, RelationPlan, _round_up,
-                                    build_relation_plan, ell_to_coo, pack_ell)
+                                    _to_tensor, build_relation_plan,
+                                    ell_to_coo, pack_ell)
 
 # Default bucket-grid resolution (mantissa bits of the geometric grid).
 NODE_GRID_BITS = 2
@@ -58,10 +59,16 @@ class MemberSlice:
 @dataclasses.dataclass
 class CollatedBatch:
     """One collated dispatch unit: the block-diagonal graph (its plan
-    attached) and where each member lives in it."""
+    attached), where each member lives in it, and the training loss
+    weights.  ``cell_weight`` holds 1/(n_real·n_cell_i) on member i's cells
+    for the first ``n_real`` members and 0 on filler members, so
+    ``Σ cell_weight·(pred − y)²`` is the mean of the real members' MSE
+    losses."""
 
     graph: CircuitGraph
     members: Tuple[MemberSlice, ...]
+    cell_weight: torch.Tensor       # (n_cell,) fp32, on the batch's device
+    n_real: int                     # members that carry real graphs
 
     @property
     def plan(self) -> Optional[RelationPlan]:
@@ -70,13 +77,18 @@ class CollatedBatch:
 
 def collate_graphs(graphs: Sequence[CircuitGraph], *,
                    bounds: Sequence[int] = DEFAULT_BOUNDS,
+                   n_real: Optional[int] = None,
                    device="cuda") -> CollatedBatch:
     """Merge member graphs into one block-diagonal :class:`CircuitGraph`
-    with its :class:`RelationPlan` attached, on ``device``.  (Loss weights
-    and filler members come with the training slice.)"""
+    with its :class:`RelationPlan` attached, on ``device``.  The first
+    ``n_real`` members (all by default) carry the loss weight; trailing
+    members are filler with weight 0."""
     device = resolve_device(device)
     if not graphs:
         raise ValueError("collate_graphs needs at least one member")
+    n_real = len(graphs) if n_real is None else int(n_real)
+    if not 0 < n_real <= len(graphs):
+        raise ValueError(f"n_real={n_real} outside 1..{len(graphs)}")
     f_cell = graphs[0].x_cell.shape[1]
     f_net = graphs[0].x_net.shape[1]
     if not all(g.x_cell.shape[1] == f_cell and g.x_net.shape[1] == f_net
@@ -94,10 +106,14 @@ def collate_graphs(graphs: Sequence[CircuitGraph], *,
     x_cell = np.zeros((cell_off, f_cell), np.float32)
     x_net = np.zeros((net_off, f_net), np.float32)
     y_cell = np.zeros(cell_off, np.float32)
-    for g, m in zip(graphs, members):
+    w_cell = np.zeros(cell_off, np.float32)
+    for i, (g, m) in enumerate(zip(graphs, members)):
         x_cell[m.cell_off:m.cell_off + m.n_cell] = g.x_cell.cpu().numpy()
         x_net[m.net_off:m.net_off + m.n_net] = g.x_net.cpu().numpy()
         y_cell[m.cell_off:m.cell_off + m.n_cell] = g.y_cell.cpu().numpy()
+        if i < n_real:
+            w_cell[m.cell_off:m.cell_off + m.n_cell] = \
+                1.0 / (n_real * m.n_cell)
 
     off_of = {"cell": [m.cell_off for m in members],
               "net": [m.net_off for m in members]}
@@ -126,4 +142,6 @@ def collate_graphs(graphs: Sequence[CircuitGraph], *,
                          x_cell=torch.from_numpy(x_cell),
                          x_net=torch.from_numpy(x_net),
                          y_cell=torch.from_numpy(y_cell), plan=plan)
-    return CollatedBatch(graph=graph.to(device), members=tuple(members))
+    return CollatedBatch(graph=graph.to(device), members=tuple(members),
+                         cell_weight=_to_tensor(w_cell, device),
+                         n_real=n_real)

@@ -1,6 +1,9 @@
-"""DR-SpMM forward kernels: the chunk arena and the dense tier.
+"""DR-SpMM kernels: the chunk arena and the dense tier, forward and
+sampled backward.
 
-Forward (Alg. 1):  Y[i, :] += w_ij * scatter(x_vals[j], x_idx[j])  over j ∈ N(i)
+Forward (Alg. 1):   Y[i, :] += w_ij * scatter(x_vals[j], x_idx[j])  over j ∈ N(i)
+Backward (Alg. 2):  dV[j, t] = Σ_i w_ij * gY[i, x_idx[j, t]]  (SSpMM: Aᵀ·gY
+                    sampled at each source row's own CBSR columns)
 
 * :func:`drspmm_fwd_arena` replaces ``drspmm_fwd_fused`` (entered through
   ``drspmm_fwd_multi``, ``src/repro/kernels/drspmm.py``): the arena-ordered
@@ -9,6 +12,12 @@ Forward (Alg. 1):  Y[i, :] += w_ij * scatter(x_vals[j], x_idx[j])  over j ∈ N(
 * :func:`drspmm_dense_tier_fwd` replaces ``drspmm_dense_tier_fwd``: the
   stacked dense-tier table times the CBSR operand, densified inside the
   kernel.  CUDA source: ``csrc/drspmm_dense_tier_fwd.cu``.
+* :func:`drspmm_bwd_arena` replaces ``drspmm_bwd_fused`` (entered through
+  ``drspmm_bwd_multi``): the arena-ordered fp32 ``(R_arena_bwd, k)`` dV of
+  the transposed super-arena.  CUDA source: ``csrc/drspmm_arena_bwd.cu``.
+* :func:`drspmm_dense_tier_bwd` replaces ``drspmm_dense_tier_bwd``: the
+  stacked transposed dense-tier table times gY, sampled inside the kernel.
+  CUDA source: ``csrc/drspmm_dense_tier_bwd.cu``.
 
 Each wrapper runs its plain PyTorch version (``*_plain``) for a tensor on
 the CPU and launches its kernel for a tensor on a card; it never falls back
@@ -160,6 +169,143 @@ drspmm_dense_tier_fwd.launches = 0
 def _dense_lib() -> ctypes.CDLL:
     lib = _build.library("drspmm_dense_tier_fwd")
     fn = lib.drspmm_dense_tier_fwd
+    fn.argtypes = [_c_ptr] * 4 + [_c_int] * 4 + [_c_ptr]
+    fn.restype = _c_int
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# kernel 4: arena sampled backward
+# ---------------------------------------------------------------------------
+
+def _check_bwd(gy: torch.Tensor, x_idx: torch.Tensor) -> None:
+    if gy.dtype != torch.float32 or x_idx.dtype != torch.int32:
+        raise TypeError(f"backward operands must be float32 gY and int32 "
+                        f"indices, got {gy.dtype}/{x_idx.dtype}")
+    if gy.dim() != 2 or x_idx.dim() != 2:
+        raise ValueError(f"gY {tuple(gy.shape)} and indices "
+                         f"{tuple(x_idx.shape)} must be matrices")
+    if not (gy.is_contiguous() and x_idx.is_contiguous()):
+        raise ValueError("backward operands must be contiguous")
+    if not (0 < x_idx.shape[1] <= 256 and 0 < gy.shape[1] <= 256):
+        raise ValueError(f"k {x_idx.shape[1]} or dim {gy.shape[1]} outside "
+                         f"the kernels' range (1..256)")
+
+
+def drspmm_bwd_arena_plain(bwd: FusedELL, bwd_src_rows: torch.Tensor,
+                           gy_cat: torch.Tensor,
+                           x_idx: torch.Tensor) -> torch.Tensor:
+    """Arena-ordered fp32 dV (R_arena, k) of the transposed super-arena
+    ``bwd``: each chunk slot samples its target's gY row at the CBSR
+    columns of the arena row's source (``x_idx[bwd_src_rows[j]]``), and
+    chunks add into their row-block."""
+    br = bwd.row_block
+    xi_arena = x_idx.long()[bwd_src_rows.long()]               # (R, k)
+    rows = (bwd.block_of.long()[:, None] * br
+            + torch.arange(br, device=gy_cat.device)[None, :])  # (C, BR)
+    xi_blocks = xi_arena[rows]                                 # (C, BR, k)
+    sampled = gy_cat.float()[bwd.nbr.long()[..., None],
+                             xi_blocks[:, :, None, :]]         # (C, BR, Ec, k)
+    contrib = (sampled * bwd.w[..., None]).sum(2)              # (C, BR, k)
+    dv = torch.zeros((bwd.n_blocks, br, x_idx.shape[1]), dtype=torch.float32,
+                     device=gy_cat.device)
+    dv.index_add_(0, bwd.block_of.long(), contrib)
+    return dv.reshape(bwd.n_arena_rows, x_idx.shape[1])
+
+
+def drspmm_bwd_arena(bwd: FusedELL, bwd_src_rows: torch.Tensor,
+                     gy_cat: torch.Tensor,
+                     x_idx: torch.Tensor) -> torch.Tensor:
+    """Arena-ordered fp32 dV (R_arena, k) of a transposed (super-)arena
+    whose tables are tensors on the operands' device.  ``gy_cat`` is the
+    relation-concat output cotangent (M, dim), ``x_idx`` the type-concat
+    CBSR indices (N, k) and ``bwd_src_rows`` maps arena rows to rows of
+    ``x_idx``.  Read the caller-ordered dV with ``dv[bwd.gather]``."""
+    if not _on_card(gy_cat, x_idx, bwd_src_rows, bwd.nbr, bwd.w,
+                    bwd.blk_ptr):
+        return drspmm_bwd_arena_plain(bwd, bwd_src_rows, gy_cat, x_idx)
+    _check_bwd(gy_cat, x_idx)
+    c, br, ec = bwd.nbr.shape
+    if bwd.nbr.dtype != torch.int32 or bwd.w.dtype != torch.float32 \
+            or bwd.blk_ptr.dtype != torch.int32 \
+            or bwd_src_rows.dtype != torch.int32:
+        raise TypeError("arena tables must be int32 nbr/blk_ptr/src rows, "
+                        "float32 w")
+    if ec not in (4, 8, 16) or br > 8 \
+            or bwd.blk_ptr.shape[0] != bwd.n_blocks + 1 \
+            or bwd_src_rows.shape != (bwd.n_arena_rows,):
+        raise ValueError(f"arena geometry (BR={br}, Ec={ec}, blk_ptr "
+                         f"{tuple(bwd.blk_ptr.shape)}, src rows "
+                         f"{tuple(bwd_src_rows.shape)}) not supported")
+    k = x_idx.shape[1]
+    out = torch.empty((bwd.n_arena_rows, k), dtype=torch.float32,
+                      device=gy_cat.device)
+    lib = _arena_bwd_lib()
+    rc = lib.drspmm_arena_bwd(
+        _build.ptr(bwd.blk_ptr), _build.ptr(bwd.nbr), _build.ptr(bwd.w),
+        _build.ptr(bwd_src_rows), _build.ptr(gy_cat), _build.ptr(x_idx),
+        _build.ptr(out), bwd.n_blocks, br, ec, k, gy_cat.shape[1],
+        _build.stream_of(out))
+    _build.check(lib, rc, "drspmm_arena_bwd")
+    drspmm_bwd_arena.launches += 1
+    return out
+
+
+drspmm_bwd_arena.launches = 0
+
+
+def _arena_bwd_lib() -> ctypes.CDLL:
+    lib = _build.library("drspmm_arena_bwd")
+    fn = lib.drspmm_arena_bwd
+    fn.argtypes = [_c_ptr] * 7 + [_c_int] * 5 + [_c_ptr]
+    fn.restype = _c_int
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# kernel 5: dense-tier sampled backward
+# ---------------------------------------------------------------------------
+
+def drspmm_dense_tier_bwd_plain(a_dense_t: torch.Tensor, gy: torch.Tensor,
+                                x_idx: torch.Tensor) -> torch.Tensor:
+    """fp32 dV (N, k) = (Aᵀ · gY) sampled at each row's CBSR columns."""
+    return torch.gather(a_dense_t.float() @ gy.float(), 1, x_idx.long())
+
+
+def drspmm_dense_tier_bwd(a_dense_t: torch.Tensor, gy: torch.Tensor,
+                          x_idx: torch.Tensor) -> torch.Tensor:
+    """fp32 dV (N, k) = sample(Aᵀ · gY, x_idx) for the stacked transposed
+    dense-tier table (the plan's ``dense_bwd``, (N, M) with N = the source
+    slab and M = the dense relations' output rows)."""
+    if not _on_card(a_dense_t, gy, x_idx):
+        return drspmm_dense_tier_bwd_plain(a_dense_t, gy, x_idx)
+    _check_bwd(gy, x_idx)
+    n, m = a_dense_t.shape
+    if a_dense_t.dtype != torch.float32 or not a_dense_t.is_contiguous():
+        raise TypeError("dense-tier table must be contiguous float32")
+    if m != gy.shape[0] or n != x_idx.shape[0]:
+        raise ValueError(f"table {tuple(a_dense_t.shape)} does not match gY "
+                         f"{tuple(gy.shape)} and indices "
+                         f"{tuple(x_idx.shape)}")
+    k = x_idx.shape[1]
+    if n == 0 or m == 0:
+        return torch.zeros((n, k), dtype=torch.float32, device=gy.device)
+    out = torch.empty((n, k), dtype=torch.float32, device=gy.device)
+    lib = _dense_bwd_lib()
+    rc = lib.drspmm_dense_tier_bwd(
+        _build.ptr(a_dense_t), _build.ptr(gy), _build.ptr(x_idx),
+        _build.ptr(out), n, m, k, gy.shape[1], _build.stream_of(out))
+    _build.check(lib, rc, "drspmm_dense_tier_bwd")
+    drspmm_dense_tier_bwd.launches += 1
+    return out
+
+
+drspmm_dense_tier_bwd.launches = 0
+
+
+def _dense_bwd_lib() -> ctypes.CDLL:
+    lib = _build.library("drspmm_dense_tier_bwd")
+    fn = lib.drspmm_dense_tier_bwd
     fn.argtypes = [_c_ptr] * 4 + [_c_int] * 4 + [_c_ptr]
     fn.restype = _c_int
     return lib

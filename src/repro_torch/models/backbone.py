@@ -4,13 +4,18 @@
 (h_i = f_i(h_{i-1})), ``"residual"`` (+ h_{i-1} from the second layer on)
 and ``"dense"`` (+ Σ of all previous layer states).  Skips start at the
 second layer, so a depth-1 residual or dense stack is the plain one.
-Layer-granular recompute (remat) comes with the training slice.
+``remat`` recomputes each layer in the backward instead of keeping its
+activations (``torch.utils.checkpoint``, non-reentrant).  Every kernel on
+the path is deterministic, so the recompute is bit-identical and the
+gradients equal those without remat.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Sequence
+
+from torch.utils.checkpoint import checkpoint
 
 WIRINGS = ("plain", "residual", "dense")
 
@@ -21,6 +26,7 @@ class BackboneSpec:
     depth: int = 2
     hidden: int = 64
     wiring: str = "plain"        # plain | residual | dense
+    remat: bool = False          # recompute each layer in the backward
 
     def __post_init__(self):
         if self.wiring not in WIRINGS:
@@ -47,7 +53,10 @@ def apply_stack(layers: Sequence, state: tuple, body: Callable,
                          f"layers given")
     acc = None                      # Σ of post-wiring layer states
     for i, lp in enumerate(layers):
-        y = body(lp, state, const)
+        if spec.remat:
+            y = checkpoint(body, lp, state, const, use_reentrant=False)
+        else:
+            y = body(lp, state, const)
         if i and spec.wiring == "residual":
             y = _tree_add(y, state)
         elif i and spec.wiring == "dense":

@@ -5,7 +5,8 @@ Every layer runs its whole message passing over the graph's
 :class:`RelationPlan` (``core/hetero_mp.py``); the inter-layer activation
 is D-ReLU in its dense form, as in the paper.  Weights keep the
 reference's ``(in, out)`` layout, so :meth:`DRCircuitGNN.from_jax_params`
-copies a reference parameter tree over as it is.
+copies a reference parameter tree over as it is.  ``loss_fn`` and
+``batched_loss_fn`` are the training objectives.
 """
 
 from __future__ import annotations
@@ -110,3 +111,21 @@ class DRCircuitGNN(nn.Module):
                 state[f"layers.{i}.{f}"] = t(getattr(lp, f))
         model.load_state_dict(state)
         return model
+
+
+def loss_fn(model: DRCircuitGNN, graph: CircuitGraph, cfg: HeteroMPConfig,
+            spec: Optional[BackboneSpec] = None) -> torch.Tensor:
+    """Mean squared error of the per-cell prediction."""
+    pred = model(graph, cfg, spec)
+    return torch.mean((pred - graph.y_cell) ** 2)
+
+
+def batched_loss_fn(model: DRCircuitGNN, graph: CircuitGraph,
+                    cell_weight: torch.Tensor, cfg: HeteroMPConfig,
+                    spec: Optional[BackboneSpec] = None) -> torch.Tensor:
+    """Loss over a block-diagonal collated batch (``graphs/collate.py``).
+    ``cell_weight`` is 1/(n_real·n_cell_i) on member i's cells and 0 on
+    filler, so this is the mean of the real members' ``loss_fn`` values
+    and its gradient that of the per-graph loop."""
+    pred = model(graph, cfg, spec)
+    return torch.sum(cell_weight * (pred - graph.y_cell) ** 2)

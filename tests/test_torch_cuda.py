@@ -1,5 +1,6 @@
 """PyTorch port on a card: each CUDA kernel against its plain PyTorch
-version, and the serve engine on the card against the port's CPU forward.
+version, the serve engine on the card against the port's CPU forward, and
+one training step on the card against the same step on the CPU.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs on a machine with the card
@@ -8,19 +9,24 @@ Tolerances: the DR-SpMM kernels are fp32 with another summation order than
 their plain versions (rtol 1e-5, atol 1e-5 scaled by magnitude); the
 bisection is bit-exact; served predictions may differ from the CPU forward
 where a GPU-vs-CPU rounding flips a near-tied top-k pick, so 99.9 % of
-cells must be within 1e-4."""
+cells must be within 1e-4; a training step's loss and parameters must be
+within 1e-4 relative (L2 for the parameters) of the CPU step."""
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.hetero_mp import HeteroMPConfig
-from repro_torch.graphs.circuit import relation_plan_of
+from repro_torch.graphs.circuit import (EDGE_SCHEMA, EDGE_TYPES,
+                                        relation_plan_of)
+from repro_torch.graphs.ell import build_relation_plan, ell_to_coo
 from repro_torch.graphs.generator import generate_design
 from repro_torch.kernels import drelu_topk
 from repro_torch.kernels import drspmm as tk
 from repro_torch.models.hgnn import DRCircuitGNN
 from repro_torch.serve.circuit_engine import CircuitServeEngine
+from repro_torch.train.circuit_trainer import (CircuitTrainConfig,
+                                               CircuitTrainer)
 from _torch_port import (HIDDEN, K, LAYERS, SCALE, assert_close,
                          cbsr_operands, cuda)  # noqa: F401  (fixture)
 
@@ -107,3 +113,77 @@ def test_engine_on_card_matches_cpu(cuda, drelu_backend):
             ref = cpu(g, cfg).numpy()
         assert np.isfinite(done[rid].pred).all()
         assert np.mean(np.abs(done[rid].pred - ref) <= 1e-4) >= 0.999
+
+
+def _plan_with_chunk(ec, device, dense_threshold=-1):
+    """The plan of a scale-0.02 partition with the arena chunk width
+    pinned to ``ec`` (all-arena by default)."""
+    g = generate_design(1, "medium", SCALE)[0]
+    rels = [(et, *EDGE_SCHEMA[et], *ell_to_coo(g.edges[et].adj))
+            for et in EDGE_TYPES]
+    plan = build_relation_plan(rels, {"cell": g.n_cell, "net": g.n_net},
+                               chunk=ec, dense_threshold=dense_threshold)
+    assert plan.bwd.nbr.shape[2] == ec
+    return plan.to(device)
+
+
+@pytest.mark.parametrize("ec", [4, 8, 16])
+@pytest.mark.parametrize("k", [8, 16, 32, 40])
+def test_arena_bwd_kernel_matches_plain(cuda, k, ec):
+    """k 40 runs the kernel's wide-row variant.  Every fifth xi row repeats
+    an index (the gather samples that gY column twice)."""
+    plan = _plan_with_chunk(ec, cuda)
+    _, xi = _operands(plan, k, k + ec, cuda)
+    xi[::5, 1] = xi[::5, 0]
+    gy = torch.randn((plan.n_out_total, 64),
+                     generator=torch.Generator().manual_seed(ec)).to(cuda)
+    before = tk.drspmm_bwd_arena.launches
+    dv = tk.drspmm_bwd_arena(plan.bwd, plan.bwd_src_rows, gy, xi)
+    torch.cuda.synchronize()
+    assert tk.drspmm_bwd_arena.launches == before + 1
+    assert dv.shape == (plan.bwd.n_arena_rows, k)
+    assert_close(dv.cpu().numpy(), tk.drspmm_bwd_arena_plain(
+        plan.bwd, plan.bwd_src_rows, gy, xi).cpu().numpy())
+
+
+@pytest.mark.parametrize("k", [8, 16, 32, 40])
+def test_dense_tier_bwd_kernel_matches_plain(cuda, k):
+    """The stacked transposed table with every seventh source row zeroed:
+    those rows come back exactly 0."""
+    plan = relation_plan_of(generate_design(1, "medium", SCALE)[0]).to(cuda)
+    assert plan.has_dense
+    _, xi = _operands(plan, k, 5, cuda)
+    xi[::4, 2] = xi[::4, 1]
+    a_t = plan.dense_bwd.clone()
+    a_t[::7] = 0.0
+    gy = torch.randn((a_t.shape[1], 64),
+                     generator=torch.Generator().manual_seed(k)).to(cuda)
+    before = tk.drspmm_dense_tier_bwd.launches
+    dv = tk.drspmm_dense_tier_bwd(a_t, gy, xi)
+    torch.cuda.synchronize()
+    assert tk.drspmm_dense_tier_bwd.launches == before + 1
+    assert_close(dv.cpu().numpy(), tk.drspmm_dense_tier_bwd_plain(
+        a_t, gy, xi).cpu().numpy())
+    assert torch.all(dv[::7] == 0)
+
+
+@pytest.mark.parametrize("drelu_backend", ["topk", "bisect"])
+def test_trainer_step_on_card_matches_cpu(cuda, drelu_backend):
+    graphs = generate_design(1, "medium", SCALE)[:2]
+    cfg = CircuitTrainConfig(hidden=HIDDEN, k_cell=K, k_net=K, lr=1e-3,
+                             batch_size=2, drelu_backend=drelu_backend,
+                             remat=drelu_backend == "bisect")
+    gpu = CircuitTrainer(cfg, 16, 16, device=cuda)
+    cpu_model = DRCircuitGNN(16, 16, HIDDEN, LAYERS, device="cpu")
+    cpu_model.load_state_dict(gpu.model.state_dict())
+    cpu = CircuitTrainer(cfg, 16, 16, model=cpu_model, device="cpu")
+    before = (tk.drspmm_bwd_arena.launches,
+              tk.drspmm_dense_tier_bwd.launches)
+    loss_gpu = gpu.train_epoch(graphs)
+    loss_cpu = cpu.train_epoch(graphs)
+    assert tk.drspmm_bwd_arena.launches > before[0]
+    assert tk.drspmm_dense_tier_bwd.launches > before[1]
+    assert abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    for (n, p), q in zip(gpu.model.named_parameters(), cpu.params):
+        err = float(torch.linalg.norm(p.detach().cpu() - q.detach()))
+        assert err <= 1e-4 * float(torch.linalg.norm(q.detach())), n

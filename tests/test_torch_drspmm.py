@@ -1,7 +1,8 @@
-"""PyTorch port, DR-SpMM forward: the plain versions of the arena and
-dense-tier kernels against the JAX package's Pallas kernels (interpret
-mode) and ``drspmm_multi`` against the JAX op.  The CUDA kernels are held
-against these plain versions on a card in tests/test_torch_cuda.py.
+"""PyTorch port, DR-SpMM forward and backward: the plain versions of the
+arena and dense-tier kernels against the JAX package's Pallas kernels
+(interpret mode) and its XLA arena walk, and ``drspmm_multi`` (values and
+gradients) against the JAX op.  The CUDA kernels are held against these
+plain versions on a card in tests/test_torch_cuda.py.
 
 Tolerance: fp32, rtol 1e-5 and atol 1e-5 (scaled by the output's
 magnitude) -- the two sides sum the same products in another order."""
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import repro.graphs.circuit as jcircuit
@@ -23,10 +25,16 @@ from repro_torch.kernels import ops as tops
 from _torch_port import HIDDEN, SCALE, assert_close, cbsr_operands
 
 
-def _plans(seed=0, size="small"):
+def _plans(seed=0, size="small", dense_threshold=None):
     gj = jgen.generate_design(seed, size, SCALE)[0]
     gt = tgen.generate_design(seed, size, SCALE)[0]
-    return jcircuit.relation_plan_of(gj), tcircuit.relation_plan_of(gt)
+    return (jcircuit.relation_plan_of(gj, dense_threshold=dense_threshold),
+            tcircuit.relation_plan_of(gt, dense_threshold))
+
+
+def _cotangent(n, seed, dim=HIDDEN):
+    return np.random.default_rng(seed).normal(size=(n, dim)).astype(
+        np.float32)
 
 
 def _concat(plan, ops_np):
@@ -102,13 +110,88 @@ def test_drspmm_multi_matches_jax(backend, dense_oracle):
         assert_close(out[et].numpy(), np.asarray(ref[et]), et)
 
 
-def test_drspmm_multi_refuses_gradients():
-    _, pt = _plans()
-    ops_np = cbsr_operands(pt, {"cell": 8, "net": 8})
+@pytest.mark.parametrize("seed,size", [(0, "small"), (1, "medium")])
+def test_arena_bwd_plain_matches_pallas(seed, size):
+    """All-arena plan: every relation goes through the transposed arena."""
+    pj, pt = _plans(seed, size, dense_threshold=-1)
+    xv, xi = _concat(pt, cbsr_operands(pt, {"cell": 8, "net": 5}, seed))
+    gy = _cotangent(pt.n_out_total, seed + 7)
+    ref = np.asarray(jk.drspmm_bwd_multi(pj.bwd, jnp.asarray(pj.bwd_src_rows),
+                                         jnp.asarray(gy), jnp.asarray(xi),
+                                         interpret=True))
+    before = tk.drspmm_bwd_arena.launches
+    bwd = pt.bwd.to("cpu")
+    out = tk.drspmm_bwd_arena(bwd, torch.from_numpy(pt.bwd_src_rows),
+                              torch.from_numpy(gy), torch.from_numpy(xi))
+    assert tk.drspmm_bwd_arena.launches == before   # CPU: plain version
+    assert out.shape == (pt.bwd.n_arena_rows, xi.shape[1])
+    assert_close(out.numpy(), ref)
+    # the XLA arena walk of the reference returns caller order
+    ref_xla = np.asarray(jops._bwd_fused_xla(
+        pj.bwd, jnp.asarray(gy), jnp.asarray(xi), rows=pj.bwd_src_rows))
+    assert_close(out.numpy()[pt.bwd.gather], ref_xla)
+
+
+@pytest.mark.parametrize("seed,size", [(0, "small"), (1, "medium")])
+def test_dense_tier_bwd_plain_matches_pallas(seed, size):
+    pj, pt = _plans(seed, size)
+    assert pt.has_dense
+    _, xi = _concat(pt, cbsr_operands(pt, {"cell": 8, "net": 8}, seed))
+    gy = _cotangent(pt.dense_bwd.shape[1], seed + 3)
+    ref = np.asarray(jk.drspmm_dense_tier_bwd(
+        jnp.asarray(pj.dense_bwd), jnp.asarray(gy), jnp.asarray(xi),
+        interpret=True))
+    out = tk.drspmm_dense_tier_bwd(torch.from_numpy(pt.dense_bwd),
+                                   torch.from_numpy(gy), torch.from_numpy(xi))
+    assert_close(out.numpy(), ref)
+    ref_xla = np.asarray(jops._multi_dense_bwd(pj, jnp.asarray(gy),
+                                               jnp.asarray(xi), "xla_fused"))
+    assert_close(out.numpy(), ref_xla)
+    # rows of the slab outside every dense relation come back exactly 0
+    empty = ~pt.dense_bwd.any(axis=1)
+    assert np.all(out.numpy()[empty] == 0.0)
+
+
+def test_dense_tier_bwd_empty_table():
+    xi = torch.zeros((5, 4), dtype=torch.int32)
+    out = tk.drspmm_dense_tier_bwd(torch.zeros((5, 0)), torch.zeros((0, 8)),
+                                   xi)
+    assert out.shape == (5, 4) and not out.any()
+
+
+@pytest.mark.parametrize("threshold", [None, -1], ids=["mixed", "arena"])
+@pytest.mark.parametrize("backend", ["xla_fused", "dense"])
+@pytest.mark.parametrize("dense_oracle", [False, True])
+def test_drspmm_multi_grads_match_jax(threshold, backend, dense_oracle):
+    """Gradients of the CBSR values against ``jax.vjp`` of the reference
+    op.  k_cell != k_net, so the kmax padding is sliced per type; cell
+    feeds both ``near`` and ``pin``, so its arena segments add up."""
+    pj, pt = _plans(1, "medium", dense_threshold=threshold)
+    assert pt.has_dense == (threshold is None)
+    ops_np = cbsr_operands(pt, {"cell": 8, "net": 5}, seed=13)
+    types = pt.src_types
+    etypes = [s.etype for s in pt.segments]
+    gys = {et: _cotangent(s.n_dst, 20 + i)
+           for i, (et, s) in enumerate(zip(etypes, pt.segments))}
+
+    def f(vals):
+        ys = jops.drspmm_multi(
+            pj, {t: (v, jnp.asarray(ops_np[t][1])) for t, v in
+                 zip(types, vals)}, HIDDEN, backend=backend)
+        return tuple(ys[et] for et in etypes)
+
+    _, vjp = jax.vjp(f, tuple(jnp.asarray(ops_np[t][0]) for t in types))
+    (ref,) = vjp(tuple(jnp.asarray(gys[et]) for et in etypes))
     cbsr = {t: (torch.from_numpy(v).requires_grad_(), torch.from_numpy(i))
             for t, (v, i) in ops_np.items()}
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tops.drspmm_multi(pt.to("cpu"), cbsr, HIDDEN)
+    ys = tops.drspmm_multi(pt.to("cpu"), cbsr, HIDDEN, dense=dense_oracle)
+    torch.autograd.backward([ys[et] for et in etypes],
+                            [torch.from_numpy(gys[et]) for et in etypes])
+    for t, r in zip(types, ref):
+        g = cbsr[t][0].grad
+        assert g.shape == ops_np[t][0].shape, t
+        assert_close(g.numpy(), np.asarray(r), t)
+        assert cbsr[t][1].grad is None
 
 
 def test_kernel_wrappers_refuse_mixed_devices():

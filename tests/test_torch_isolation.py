@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, the serving stack
-imports with JAX unavailable, entry points refuse to fall back to the CPU
-silently, and a kernel wrapper given a CUDA tensor never runs its plain
+``chip_smoke.py``) imports JAX or the JAX package, the serving and
+training stacks import with JAX unavailable, entry points refuse to fall
+back to the CPU silently, and a kernel wrapper given a CUDA tensor never runs its plain
 version."""
 
 import ast
@@ -21,6 +21,8 @@ from repro_torch.graphs.generator import generate_design
 from repro_torch.kernels import drelu_topk, drspmm
 from repro_torch.models.hgnn import DRCircuitGNN
 from repro_torch.serve.circuit_engine import CircuitServeEngine
+from repro_torch.train.circuit_trainer import (CircuitTrainConfig,
+                                               CircuitTrainer)
 from _torch_port import cuda  # noqa: F401  (fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -57,6 +59,19 @@ def test_serving_stack_imports_without_jax():
     assert res.returncode == 0, res.stderr
 
 
+def test_training_stack_imports_without_jax():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "import repro_torch.train.circuit_trainer, "
+            "repro_torch.optim.schedules; "
+            "assert 'jax' not in {m.split('.')[0] for m, v in "
+            "sys.modules.items() if v is not None}")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_entry_points_refuse_missing_card(monkeypatch):
     """With no card visible, the default device raises instead of running
     on the CPU behind the caller's back."""
@@ -71,6 +86,8 @@ def test_entry_points_refuse_missing_card(monkeypatch):
         CircuitServeEngine(model, HeteroMPConfig(hidden=32, k_cell=8,
                                                  k_net=8))
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        CircuitTrainer(CircuitTrainConfig(hidden=32), 16, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         repro_torch.resolve_device("cuda:0")
 
 
@@ -80,6 +97,8 @@ def test_wrappers_never_run_plain_on_card(cuda, monkeypatch):
         raise AssertionError("plain version called for a CUDA tensor")
     monkeypatch.setattr(drspmm, "drspmm_fwd_arena_plain", boom)
     monkeypatch.setattr(drspmm, "drspmm_dense_tier_fwd_plain", boom)
+    monkeypatch.setattr(drspmm, "drspmm_bwd_arena_plain", boom)
+    monkeypatch.setattr(drspmm, "drspmm_dense_tier_bwd_plain", boom)
     monkeypatch.setattr(drelu_topk, "drelu_bisect_plain", boom)
     batch = tcollate.collate_graphs(generate_design(0, "small", 0.02),
                                     device=cuda)
@@ -91,5 +110,10 @@ def test_wrappers_never_run_plain_on_card(cuda, monkeypatch):
                           .astype(np.int32)).to(cuda)
     drspmm.drspmm_fwd_arena(plan.fwd, xv, xi, 64)
     drspmm.drspmm_dense_tier_fwd(plan.dense_fwd, xv, xi, 64)
+    gy = torch.randn(plan.n_out_total, 64, device=cuda)
+    drspmm.drspmm_bwd_arena(plan.bwd, plan.bwd_src_rows, gy, xi)
+    drspmm.drspmm_dense_tier_bwd(plan.dense_bwd,
+                                 torch.randn(plan.dense_bwd.shape[1], 64,
+                                             device=cuda), xi)
     drelu_topk.drelu_bisect(torch.randn(n, 64, device=cuda), 8)
     torch.cuda.synchronize()
