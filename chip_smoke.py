@@ -18,10 +18,21 @@ and trains it with ``CircuitTrainer.fit`` (2 epochs, batches of 2):
 
 4. ``train-table1-topk``: the Table-1 partitions;
 5. ``train-scale0.02-bisect``: the scale-0.02 stream with the bisection
-   kernel and per-layer recompute (remat).
+   kernel and per-layer recompute (remat);
+6. ``train-table1-dense``: the Table-1 partitions with D-ReLU off (the
+   paper's dense-SpMM baseline): 11 launches of the arena SpMM kernel a
+   step and none of the D-ReLU path's kernels;
+
+and trains the homogeneous Table-2 baselines (hidden 64, 3 layers, 3 AdamW
+steps on the homogenized first Table-1 partition, 11,840 nodes):
+
+7. ``train-homo-gcn`` and ``train-homo-sage``: the arena SpMM kernel;
+8. ``train-homo-gat`` and ``train-homo-gat_edge``: the learnable-edge
+   forward, dx and dW kernels.
 
 Every kernel's launch count is zeroed just before each path and read just
-after; a kernel that the path should run and did not fails the run.  Every
+after; a kernel that the path should run and did not, or one it must not
+run and did, fails the run.  Every
 served prediction is compared with the port's CPU forward of the same
 graph and weights; every training step's loss, and the first step's
 gradients, with a CPU trainer started from the same weights on the same
@@ -167,14 +178,21 @@ def check_kernels(model, cfg, big, small):
         f"R_arena={f.n_arena_rows} N_src={xv.shape[0]} k={xv.shape[1]} "
         f"real_slots={real} bytes={n_bytes}")
 
-    # kernel 3: the first layer's cell embedding, full width
+    # kernel 3: the first layer's cell embedding, full width; its library
+    # yardstick is the torch.topk-threshold D-ReLU of the "topk" backend,
+    # the same function up to ties at the threshold
+    from repro_torch.core.drelu import drelu
     y = drelu_bisect(h_cell, K)
     ref = drelu_bisect_plain(h_cell, K)
+    with torch.inference_mode():
+        n_same = int((drelu(h_cell, K) == y).all(dim=1).sum())
     torch.cuda.synchronize()
     if not torch.equal(y, ref):
         problem("bisection kernel is not bit-exact against its plain version")
     n, d = h_cell.shape
     b_ms, b_by = bound(8.0 * n * d, 64.0 * n * d)
+    with torch.inference_mode():
+        lib_ms = cuda_ms(lambda: drelu(h_cell, K))
     rows["drelu_bisect"] = dict(
         name="drelu_bisect", route="cuda",
         source="src/repro_torch/csrc/drelu_bisect.cu",
@@ -182,8 +200,10 @@ def check_kernels(model, cfg, big, small):
         max_abs_err=float((y - ref).abs().max()),
         ms=cuda_ms(lambda: drelu_bisect(h_cell, K)),
         plain_ms=cuda_ms(lambda: drelu_bisect_plain(h_cell, K)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"kernel drelu_bisect: N={n} D={d} k={K}")
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    log(f"kernel drelu_bisect: N={n} D={d} k={K}; library_ms is the "
+        f"torch.topk-threshold D-ReLU, which gives the kernel's rows "
+        f"exactly on {n_same} of {n} rows")
 
     # kernel 2: the dense-tier table of a scale-0.02 batch
     plan = small.plan
@@ -216,6 +236,169 @@ def check_kernels(model, cfg, big, small):
         log(f"  {r['name']}: max_abs_err={r['max_abs_err']} ms={r['ms']} "
             f"plain_ms={r['plain_ms']} bound_ms={r['bound_ms']} "
             f"({r['bound_by']}) library_ms={r['library_ms']}")
+    return rows
+
+
+def coo_csr(dst, src, w, shape):
+    """A CSR matrix from COO triples (the library yardstick)."""
+    warnings.filterwarnings("ignore", message="Sparse")
+    return torch.sparse_coo_tensor(torch.stack([dst.long(), src.long()]),
+                                   w, shape).coalesce().to_sparse_csr()
+
+
+def record_calls(module, name, run):
+    """Run ``run()`` with the kernel wrapper ``module.name`` wrapped to
+    record every call's arguments; returns the list of argument tuples.
+    The wrapper counts its launches on the module-level name, so the
+    stand-in carries the counter while it is installed."""
+    seen, fn = [], getattr(module, name)
+
+    def rec(*args):
+        seen.append(args)
+        return fn(*args)
+
+    rec.launches = fn.launches
+    setattr(module, name, rec)
+    try:
+        run()
+    finally:
+        setattr(module, name, fn)
+        fn.launches = rec.launches
+    return seen
+
+
+def check_spmm_kernel(model, cfg_dense, big):
+    """Kernel 6 on the ``near`` arena of the first Table-1 batch, forward
+    (the first layer's cell embedding) and transposed (the cotangent the
+    batch's dense training loss sends back to that layer's ``near``)."""
+    from repro_torch.kernels import drspmm as K1
+    from repro_torch.kernels import ops
+    from repro_torch.models.hgnn import batched_loss_fn
+    tol = lambda ref: 1e-5 * float(ref.abs().max())
+    g = big.graph
+    adj, adj_t = g.edges["near"].adj, g.edges["near"].adj_t
+    f = ops.device_arena(adj, "cuda")
+    f_t = ops.device_arena(adj_t, "cuda")
+    calls = record_calls(K1, "spmm_arena", lambda: batched_loss_fn(
+        model, g, big.cell_weight, cfg_dense).backward())
+    model.zero_grad(set_to_none=True)
+    x = next(a[1] for a in calls if a[0] is f)            # layer 1, forward
+    gy = [a[1] for a in calls if a[0] is f_t][-1]        # layer 1, backward
+    row = None
+    for arena, opnd, what in ((f, x, "forward"), (f_t, gy, "transposed")):
+        y = K1.spmm_arena(arena, opnd)
+        ref = K1.spmm_arena_plain(arena, opnd)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        if not torch.allclose(y, ref, rtol=1e-5, atol=tol(ref)):
+            problem(f"spmm kernel ({what}) disagrees with its plain "
+                    f"version: {err}")
+        c, br, ec = arena.nbr.shape
+        real = int((arena.w != 0).sum())
+        a_csr = arena_csr(arena, opnd.shape[0])
+        n_bytes = 4 * (arena.blk_ptr.numel() + 2 * arena.nbr.numel()
+                       + opnd.numel() + arena.n_arena_rows * opnd.shape[1])
+        b_ms, b_by = bound(n_bytes, 2.0 * real * opnd.shape[1])
+        r = dict(
+            name="spmm_arena", route="cuda",
+            source="src/repro_torch/csrc/spmm_arena.cu",
+            replaces="src/repro/kernels/drspmm.py:443",
+            max_abs_err=err, ref_max=float(ref.abs().max()),
+            ms=cuda_ms(lambda: K1.spmm_arena(arena, opnd)),
+            plain_ms=cuda_ms(lambda: K1.spmm_arena_plain(arena, opnd)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(lambda: a_csr @ opnd))
+        log(f"kernel spmm_arena ({what}): C={c} BR={br} Ec={ec} "
+            f"R_arena={arena.n_arena_rows} N_src={opnd.shape[0]} "
+            f"dim={opnd.shape[1]} real_slots={real} bytes={n_bytes}: "
+            f"max_abs_err={err} (max |ref| {r['ref_max']}) ms={r['ms']} "
+            f"plain_ms={r['plain_ms']} bound_ms={b_ms} ({b_by}) "
+            f"library_ms={r['library_ms']}")
+        row = row or r               # the table's row is the forward
+    return {"spmm_arena": row}
+
+
+def check_learnable_kernels(homo_gat, homo):
+    """Kernels 7-9 on the homogenized first Table-1 partition with the
+    ``gat`` model's first-layer attention weights, its hw = h @ W as the
+    dense operand (k = dim, indices iota) and the cotangent its loss sends
+    back to that layer."""
+    from repro_torch.kernels import drspmm as K1
+    from repro_torch.models.hgnn import homo_forward, learnable_edge_packing
+    adj, adj_t, x, y, n_cell = homo
+    tol = lambda ref: 1e-5 * float(ref.abs().max())
+    fwd_calls = []
+
+    def run():
+        nonlocal fwd_calls
+        fwd_calls = record_calls(K1, "drspmm_fwd_learnable", lambda: torch.mean(
+            (homo_forward(homo_gat, adj, adj_t, x, n_cell) - y) ** 2
+        ).backward())
+
+    dw_calls = record_calls(K1, "drspmm_dw_learnable", run)
+    homo_gat.zero_grad(set_to_none=True)
+    f, nnz, w, xv, xi, dim = fwd_calls[0]                 # layer 1
+    _f, _n, gy, _xv, _xi = dw_calls[-1]                   # layer 1
+    _ff, ft, dst_c, src_c, _w, _nnz = learnable_edge_packing(adj, "cuda")
+    rows = {}
+    a_w = coo_csr(dst_c, src_c, w, (adj.n_dst, adj.n_src))
+    a_wt = coo_csr(src_c, dst_c, w, (adj.n_src, adj.n_dst))
+    pattern = coo_csr(dst_c, src_c, torch.ones_like(w),
+                      (adj.n_dst, adj.n_src))
+    xt = xv.t().contiguous()
+    k = xi.shape[1]
+    specs = (
+        ("drspmm_fwd_learnable", "drspmm_learnable_fwd.cu",
+         "src/repro/kernels/drspmm.py:644",
+         lambda: K1.drspmm_fwd_learnable(f, nnz, w, xv, xi, dim),
+         lambda: K1.drspmm_fwd_learnable_plain(f, nnz, w, xv, xi, dim),
+         lambda: a_w @ xv,
+         4 * (f.blk_ptr.numel() + 2 * f.nbr.numel() + nnz + 2 * xv.numel()
+              + f.n_arena_rows * dim)),
+        ("drspmm_bwd_learnable", "drspmm_learnable_bwd.cu",
+         "src/repro/kernels/drspmm.py:706",
+         lambda: K1.drspmm_bwd_learnable(ft, nnz, w, gy, xi),
+         lambda: K1.drspmm_bwd_learnable_plain(ft, nnz, w, gy, xi),
+         lambda: a_wt @ gy,
+         4 * (ft.blk_ptr.numel() + 2 * ft.nbr.numel() + ft.n_arena_rows
+              + nnz + gy.numel() + xi.numel() + ft.n_arena_rows * k)),
+        ("drspmm_dw_learnable", "drspmm_learnable_dw.cu",
+         "src/repro/kernels/drspmm.py:765",
+         lambda: K1.drspmm_dw_learnable(f, nnz, gy, xv, xi),
+         lambda: K1.drspmm_dw_learnable_plain(f, nnz, gy, xv, xi),
+         lambda: torch.sparse.sampled_addmm(pattern, gy, xt, beta=0.0),
+         4 * (f.blk_ptr.numel() + 2 * f.nbr.numel() + f.n_arena_rows
+              + gy.numel() + 2 * xv.numel() + nnz)),
+    )
+    for name, src, replaces, kern, plain, lib, n_bytes in specs:
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        if not torch.allclose(out, ref, rtol=1e-5, atol=tol(ref)):
+            problem(f"{name} kernel disagrees with its plain version: {err}")
+        b_ms, b_by = bound(n_bytes, 2.0 * nnz * k)
+        rows[name] = dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
+            replaces=replaces, max_abs_err=err,
+            ref_max=float(ref.abs().max()), ms=cuda_ms(kern),
+            plain_ms=cuda_ms(plain), bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(lib))
+        r = rows[name]
+        log(f"kernel {name}: N={adj.n_src} nnz={nnz} k={k} dim={dim} "
+            f"chunks={f.nbr.shape} bytes={n_bytes}: max_abs_err={err} "
+            f"(max |ref| {r['ref_max']}) ms={r['ms']} "
+            f"plain_ms={r['plain_ms']} bound_ms={b_ms} ({b_by}) "
+            f"library_ms={r['library_ms']}")
+    # the yardsticks compute the same functions (xi = identity); a CSR
+    # matrix keeps its values in (row, column) order
+    csr_order = torch.argsort(dst_c * adj.n_src + src_c)
+    lib_err = [
+        float((a_w @ xv - K1.drspmm_fwd_learnable(
+            f, nnz, w, xv, xi, dim)[f.gather]).abs().max()),
+        float((torch.sparse.sampled_addmm(pattern, gy, xt, beta=0.0).values()
+               - K1.drspmm_dw_learnable(f, nnz, gy, xv, xi)[csr_order]
+               ).abs().max())]
+    log(f"library yardsticks vs kernels (forward, dW): max |diff| {lib_err}")
     return rows
 
 
@@ -373,11 +556,23 @@ def rel_l2(a, b) -> float:
     return num / den if den > 0 else (0.0 if num == 0 else float("inf"))
 
 
-def train_path(name, cfg, graphs, state, wrappers, expect):
+def check_launches(name, launches, expect, forbid=()):
+    for k in expect:
+        if launches[k] == 0:
+            problem(f"path {name}: kernel {k} was never launched")
+    for k in forbid:
+        if launches[k] != 0:
+            problem(f"path {name}: kernel {k} was launched "
+                    f"{launches[k]} times")
+
+
+def train_path(name, cfg, graphs, state, wrappers, expect, forbid=(),
+               per_step=None):
     """``CircuitTrainer.fit`` on the card from the weights ``state``, held
     against a CPU trainer started from the same weights on the same
     batches: the first step's gradients per parameter, and every step's
-    loss.  Returns the kernels' launch counts of the card's fit."""
+    loss.  ``per_step`` pins the launches of ``expect[0]`` per step.
+    Returns the kernels' launch counts of the card's fit."""
     from repro_torch.models.hgnn import DRCircuitGNN, batched_loss_fn
     from repro_torch.optim.adamw import adamw_update
     from repro_torch.train.circuit_trainer import CircuitTrainer
@@ -417,9 +612,11 @@ def train_path(name, cfg, graphs, state, wrappers, expect):
     log(f"path {name}: fit {fit_s:.3f} s, epoch losses "
         f"{[h['loss'] for h in hist]}, {json.dumps(gpu.stats())} "
         f"launches={launches}")
-    for k in expect:
-        if launches[k] == 0:
-            problem(f"path {name}: kernel {k} was never launched")
+    check_launches(name, launches, expect, forbid)
+    n_steps = len(gpu.step_loss)
+    if per_step is not None and launches[expect[0]] != per_step * n_steps:
+        problem(f"path {name}: {launches[expect[0]]} launches of "
+                f"{expect[0]} in {n_steps} steps, expected {per_step} a step")
     cpu.fit(graphs)
     worst = 0.0
     for i, (lg, lc) in enumerate(zip(gpu.step_loss, cpu.step_loss)):
@@ -453,6 +650,118 @@ def train_path(name, cfg, graphs, state, wrappers, expect):
     return launches
 
 
+def homo_path(name, kind, homo, wrappers, expect, forbid, steps=3):
+    """A homogeneous baseline (hidden 64, 3 layers, seeded weights) trained
+    ``steps`` AdamW steps on the card (lr 1e-3, weight decay 2e-4, as
+    ``benchmarks/bench_table2.py::train_homo``), held against the same
+    steps on the CPU: the first step's gradients and every step's loss.
+    Returns the kernels' launch counts of the card's steps."""
+    from repro_torch.models.hgnn import HomoGNN, homo_forward
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+    adj, adj_t, x, y, n_cell = homo
+    models = []
+    for dev in ("cuda", "cpu"):
+        m = HomoGNN(x.shape[1], HIDDEN, 3, kind, adj.nnz, device=dev,
+                    generator=torch.Generator().manual_seed(SEED))
+        models.append((m, x.to(dev), y.to(dev)))
+
+    def loss_of(m, xd, yd):
+        return torch.mean((homo_forward(m, adj, adj_t, xd, n_cell) - yd) ** 2)
+
+    def grads_of(m):
+        return [torch.zeros_like(p) if p.grad is None else p.grad
+                for p in m.parameters()]
+
+    first = []
+    for m, xd, yd in models:
+        loss_of(m, xd, yd).backward()
+        first.append([g.detach().cpu().clone() for g in grads_of(m)])
+        m.zero_grad(set_to_none=True)
+    names = [n for n, _ in models[1][0].named_parameters()]
+    g_err = {n: rel_l2(a, b) for n, a, b in zip(names, *first)}
+    worst = max(g_err, key=g_err.get)
+    log(f"path {name}: first-step gradients, worst relative L2 "
+        f"{g_err[worst]} ({worst})")
+    if g_err[worst] > GRAD_RTOL:
+        problem(f"path {name}: first-step gradient of {worst} differs from "
+                f"the CPU by {g_err[worst]} (relative L2)")
+
+    losses, step_ms, launches = [], [], None
+    for i, (m, xd, yd) in enumerate(models):
+        params = list(m.parameters())
+        state = adamw_init(params)
+        if i == 0:
+            for w in wrappers.values():
+                w.launches = 0
+        ls = []
+        for _ in range(steps):
+            t = time.perf_counter()
+            m.zero_grad(set_to_none=True)
+            loss = loss_of(m, xd, yd)
+            loss.backward()
+            adamw_update(params, grads_of(m), state, 1e-3,
+                         weight_decay=2e-4)
+            ls.append(float(loss.detach()))         # barrier ends the step
+            if i == 0:
+                step_ms.append((time.perf_counter() - t) * 1e3)
+        if i == 0:
+            torch.cuda.synchronize()
+            launches = {k: w.launches for k, w in wrappers.items()}
+        losses.append(ls)
+    log(f"path {name}: {steps} steps, losses {losses[0]} (CPU {losses[1]}), "
+        f"host step ms {step_ms}, launches={launches}")
+    check_launches(name, launches, expect, forbid)
+    worst = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    log(f"path {name}: worst relative loss difference to the CPU {worst}")
+    if not worst <= LOSS_RTOL:
+        problem(f"path {name}: step losses {losses[0]} on the card, "
+                f"{losses[1]} on the CPU")
+
+    m, xd, yd = models[0]
+    params = list(m.parameters())
+    fwd_ms = cuda_ms(lambda: loss_of(m, xd, yd), 5)
+    fb_ms = cuda_ms(lambda: loss_of(m, xd, yd).backward(), 5)
+    grads = grads_of(m)
+    opt_ms = cuda_ms(lambda: adamw_update(params, grads, adamw_init(params),
+                                          0.0), 5)
+    m.zero_grad(set_to_none=True)
+    log(f"path {name}: step breakdown on the card: forward+loss {fwd_ms} "
+        f"ms, forward+backward {fb_ms} ms, AdamW {opt_ms} ms; host step "
+        f"p50 {sorted(step_ms)[len(step_ms) // 2]} ms")
+    return launches
+
+
+def modules_time(g, reps=REPS):
+    """The three relation SpMMs of one partition as concurrent modules on
+    side streams (``run_fused``) and module by module with a synchronise
+    after each (``run_sequential``): host ms per layer's worth, synced."""
+    from repro_torch.core.parallel import run_fused, run_sequential
+    from repro_torch.kernels.ops import spmm
+    gen = torch.Generator().manual_seed(SEED)
+    x_c = torch.randn((g.n_cell, HIDDEN), generator=gen).cuda()
+    x_n = torch.randn((g.n_net, HIDDEN), generator=gen).cuda()
+    fns = [lambda x, et=et: spmm(g.edges[et].adj, g.edges[et].adj_t, x)
+           for et in ("near", "pin", "pinned")]
+    args = [(x_c,), (x_c,), (x_n,)]
+    out = {}
+    with torch.no_grad():
+        for mode, run in (("fused", run_fused), ("sequential", run_sequential),
+                          ("fused", run_fused),
+                          ("sequential", run_sequential)):
+            run(fns, args)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(reps):
+                run(fns, args)
+            torch.cuda.synchronize()
+            out[mode] = (time.perf_counter() - t) * 1e3 / reps
+        same = all(torch.equal(a, b) for a, b in zip(
+            run_fused(fns, args), run_sequential(fns, args)))
+    if not same:
+        problem("run_fused and run_sequential disagree")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device visible")
@@ -465,10 +774,15 @@ def main() -> None:
         from repro_torch.kernels import _build
         from repro_torch.kernels.drelu_topk import drelu_bisect
         from repro_torch.kernels.drspmm import (drspmm_bwd_arena,
+                                                drspmm_bwd_learnable,
                                                 drspmm_dense_tier_bwd,
                                                 drspmm_dense_tier_fwd,
-                                                drspmm_fwd_arena)
-        from repro_torch.models.hgnn import DRCircuitGNN
+                                                drspmm_dw_learnable,
+                                                drspmm_fwd_arena,
+                                                drspmm_fwd_learnable,
+                                                spmm_arena)
+        from repro_torch.models.hgnn import (DRCircuitGNN, HomoGNN,
+                                             homogenize)
         from repro_torch.train.circuit_trainer import CircuitTrainConfig
     except ImportError as e:
         fail(f"the port is not importable next to this script: {e}")
@@ -511,6 +825,16 @@ def main() -> None:
         f"{[(s.etype, s.tier) for s in small.plan.segments]}")
     rows = check_kernels(model, topk, big, small)
     rows.update(check_bwd_kernels(model, topk, big, small))
+    dense = HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K, use_drelu=False)
+    rows.update(check_spmm_kernel(model, dense, big))
+    homo = homogenize(table1[0])
+    log(f"phase homogenize: partition 0 -> {homo[0].n_dst} nodes, "
+        f"{homo[0].nnz} edges")
+    homo_gat = HomoGNN(homo[2].shape[1], HIDDEN, 3, "gat", device="cuda",
+                       generator=torch.Generator().manual_seed(SEED))
+    rows.update(check_learnable_kernels(
+        homo_gat, (homo[0], homo[1], homo[2].cuda(), homo[3].cuda(),
+                   homo[4])))
     log(f"phase kernels: {time.perf_counter() - t:.1f} s")
 
     # where a batch's time goes: host collation (numpy packing + the
@@ -529,7 +853,13 @@ def main() -> None:
                 "drspmm_dense_tier_fwd": drspmm_dense_tier_fwd,
                 "drelu_bisect": drelu_bisect,
                 "drspmm_bwd_arena": drspmm_bwd_arena,
-                "drspmm_dense_tier_bwd": drspmm_dense_tier_bwd}
+                "drspmm_dense_tier_bwd": drspmm_dense_tier_bwd,
+                "spmm_arena": spmm_arena,
+                "drspmm_fwd_learnable": drspmm_fwd_learnable,
+                "drspmm_bwd_learnable": drspmm_bwd_learnable,
+                "drspmm_dw_learnable": drspmm_dw_learnable}
+    drelu_kernels = list(wrappers)[:5]
+    learnable_kernels = list(wrappers)[6:]
     fwd_kernels = ["drspmm_fwd_arena", "drspmm_dense_tier_fwd",
                    "drelu_bisect"]
     total = dict.fromkeys(wrappers, 0)
@@ -548,17 +878,41 @@ def main() -> None:
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
     train = dict(hidden=HIDDEN, n_layers=LAYERS, k_cell=K, k_net=K,
                  epochs=2, batch_size=2)
-    for name, cfg, graphs, expect in (
+    # a D-ReLU-off step: 3 relations x 2 layers forward, and backward all
+    # but the last layer's pin, whose output never reaches the loss
+    for name, cfg, graphs, expect, forbid, per_step in (
             ("train-table1-topk", CircuitTrainConfig(**train), table1,
-             ["drspmm_fwd_arena", "drspmm_bwd_arena"]),
+             ["drspmm_fwd_arena", "drspmm_bwd_arena"], (), None),
             ("train-scale0.02-bisect",
              CircuitTrainConfig(**train, drelu_backend="bisect",
-                                remat=True), tiny, list(wrappers))):
+                                remat=True), tiny, drelu_kernels, (), None),
+            ("train-table1-dense",
+             CircuitTrainConfig(**train, use_drelu=False), table1,
+             ["spmm_arena"], drelu_kernels, 3 * LAYERS + 3 * LAYERS - 1)):
         t = time.perf_counter()
-        launches = train_path(name, cfg, graphs, state, wrappers, expect)
+        launches = train_path(name, cfg, graphs, state, wrappers, expect,
+                              forbid, per_step)
         for k, v in launches.items():
             total[k] += v
         log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    mt = modules_time(table1[0])
+    log(f"phase modules: the three relation SpMMs of partition 0 (dim "
+        f"{HIDDEN}): run_fused {mt['fused']} ms, run_sequential "
+        f"{mt['sequential']} ms a layer, in {time.perf_counter() - t:.1f} s")
+
+    for kind in ("gcn", "sage", "gat", "gat_edge"):
+        t = time.perf_counter()
+        gat = kind.startswith("gat")
+        launches = homo_path(
+            f"train-homo-{kind}", kind, homo, wrappers,
+            learnable_kernels if gat else ["spmm_arena"],
+            ["spmm_arena"] + drelu_kernels if gat
+            else learnable_kernels + drelu_kernels)
+        for k, v in launches.items():
+            total[k] += v
+        log(f"phase train-homo-{kind}: {time.perf_counter() - t:.1f} s")
 
     for k, r in rows.items():
         r["launches"] = total[k]

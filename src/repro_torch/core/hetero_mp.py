@@ -7,24 +7,29 @@ One HeteroConv layer (paper Fig. 1 / Fig. 5) = three edge-type modules::
     pin    : GraphConv  cell -> net
 
 with the cell-side merge Y_cell = max(near_out, pinned_out) (Eq. 8) and
-Y_net = pin_out (Eq. 9).  Each node type is sparsified once per layer
-(D-ReLU -> CBSR) and the whole message passing runs over the graph's
-:class:`RelationPlan` in one ``drspmm_multi`` call: one arena-kernel launch
-plus at most one dense-tier launch.  The per-relation serial path of the
-reference comes later in the port.
+Y_net = pin_out (Eq. 9).
+
+* With D-ReLU on, each node type is sparsified once per layer (D-ReLU ->
+  CBSR) and the whole message passing runs over the graph's
+  :class:`RelationPlan` in one ``drspmm_multi`` call: one arena-kernel
+  launch plus at most one dense-tier launch.
+* With D-ReLU off (``use_drelu=False``, the paper's dense-SpMM baseline),
+  the layer runs the reference's serial per-relation loop: one
+  ``ops.spmm`` per edge type over ``graph.edges``, then the same merge.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from repro_torch.core.cbsr import CBSR, cbsr_from_dense
 from repro_torch.core.drelu import drelu
+from repro_torch.graphs.circuit import CircuitGraph
 from repro_torch.graphs.ell import RelationPlan
 from repro_torch.kernels import ops
 from repro_torch.kernels.drelu_topk import drelu_bisect
@@ -43,12 +48,15 @@ class HeteroMPConfig:
     # dense-tier nnz crossover for plans the model builds itself (None: the
     # DENSE_TIER_NNZ constant); collated plans were tiered at pack time
     dense_threshold: Optional[int] = None
+    # False: the dense baseline (plain SpMM per relation, ReLU activation)
+    use_drelu: bool = True
 
     def __post_init__(self):
         if self.drelu_backend not in DRELU_BACKENDS:
             raise ValueError(f"unknown drelu_backend {self.drelu_backend!r}; "
                              f"expected one of {DRELU_BACKENDS}")
-        if not (0 < self.k_cell < self.hidden and 0 < self.k_net < self.hidden):
+        if self.use_drelu and not (0 < self.k_cell < self.hidden
+                                   and 0 < self.k_net < self.hidden):
             raise ValueError("the plan path needs 0 < k < hidden for both "
                              "node types")
 
@@ -104,11 +112,23 @@ def _merge(layer: HeteroLayer, x_cell: torch.Tensor, agg_near: torch.Tensor,
     return y_cell, y_net
 
 
-def hetero_conv(layer: HeteroLayer, plan: RelationPlan, x_cell: torch.Tensor,
-                x_net: torch.Tensor, cfg: HeteroMPConfig
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One HeteroConv layer over ``plan`` (tables on the features' device).
-    Returns (y_cell, y_net)."""
+def hetero_conv(layer: HeteroLayer, over: Union[RelationPlan, CircuitGraph],
+                x_cell: torch.Tensor, x_net: torch.Tensor,
+                cfg: HeteroMPConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One HeteroConv layer.  Returns (y_cell, y_net).
+
+    With D-ReLU on, ``over`` is the layer's :class:`RelationPlan` (tables
+    on the features' device).  With it off, ``over`` is the
+    :class:`CircuitGraph` whose edge packings the serial loop runs: three
+    ``ops.spmm`` calls (their arenas are memoised on the features'
+    device)."""
+    if not cfg.use_drelu:
+        es = over.edges
+        agg_near = ops.spmm(es["near"].adj, es["near"].adj_t, x_cell)
+        agg_pinned = ops.spmm(es["pinned"].adj, es["pinned"].adj_t, x_net)
+        agg_pin = ops.spmm(es["pin"].adj, es["pin"].adj_t, x_cell)
+        return _merge(layer, x_cell, agg_near, agg_pinned, agg_pin)
+    plan = over
     c_cell, c_net = _sparsify_types(x_cell, x_net, cfg)
     aggs = ops.drspmm_multi(plan, {"cell": (c_cell.values, c_cell.idx),
                                    "net": (c_net.values, c_net.idx)},

@@ -7,182 +7,18 @@
 //   dV[j, t] = sum over the block's chunks c, slots e of
 //              w[c,r,e] * gY[nbr[c,r,e], xi[src_rows[j], t]]     j = blk*BR + r
 //
-// Only the k sampled columns of each gY row are ever read, so the dense
-// (N, dim) cotangent Aᵀ·gY is never formed.  Each arena row reads its CBSR
-// indices straight from the type-concat xi at src_rows[j]; no arena-ordered
-// copy of xi is built.
-//
-// One thread block per output row-block (the trailing all-zero sentinel
-// included), one warp per row of the block.  The block walks its chunk run
-// blk_ptr[b]..blk_ptr[b+1] and keeps the row's k sums in registers, so the
-// result is fp32, has no atomics and is deterministic; a block with no chunk
-// writes zeros.
-//
-// Bound on the H100: memory.  Each real slot gathers k scattered floats of
-// one gY row (a 256-byte row at dim 64, mostly L2 hits: gY of a Table-1
-// batch is a few MB) and each output row is written once.  What the design
-// does about it:
-//  * for k <= 32 the warp splits into G = 32/KP slot groups of KP lanes
-//    (KP = k rounded up to a power of two, at least 4): lane (s, t) samples
-//    position t of slots s, s+G, ...  At k = 16 two slots are read per warp
-//    instruction and all of a chunk row's loads are issued before any is
-//    added, so a chunk row costs one memory round trip.  The groups' partial
-//    sums are folded by shuffles at the end, in a fixed order;
-//  * a chunk row whose slots are all padding (w == 0) is skipped
-//    warp-uniformly, and padding slots issue no load;
-//  * rows wider than 32 use one lane per position (up to 8 positions a
-//    lane), slot by slot;
-//  * row-blocks run heaviest first: the arena stores degree buckets in
-//    ascending degree, so block b = n_blocks-1-blockIdx.x puts the long
-//    chunk runs at the front of the schedule.
-// Columns outside [0, dim) sample nothing (they contribute 0).
-#include <cuda_runtime.h>
-
-constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kMaxRows = 8;   // rows (warps) per block
-constexpr int kMaxWide = 8;   // positions per lane for k > 32 (k <= 256)
-
-template <int KP, int EC>
-__global__ void __launch_bounds__(256) arena_bwd_narrow(
-    const int* __restrict__ blk_ptr, const int* __restrict__ nbr,
-    const float* __restrict__ w, const int* __restrict__ src_rows,
-    const float* __restrict__ gy, const int* __restrict__ xi,
-    float* __restrict__ out, int n_blocks, int k, int dim) {
-  constexpr int G = 32 / KP;               // slot groups per warp
-  constexpr int NI = (EC + G - 1) / G;     // slot iterations per chunk row
-  const int b = n_blocks - 1 - blockIdx.x;
-  const int br = blockDim.y;
-  const int lane = threadIdx.x;
-  const int t = lane % KP;
-  const int s = lane / KP;
-  const long long row = (long long)b * br + threadIdx.y;
-  int col = -1;
-  if (t < k) {
-    const int c = xi[(long long)src_rows[row] * k + t];
-    if ((unsigned)c < (unsigned)dim) col = c;
-  }
-  float acc = 0.f;
-  const int c1 = blk_ptr[b + 1];
-  for (int ch = blk_ptr[b]; ch < c1; ++ch) {
-    const long long slot0 = ((long long)ch * br + threadIdx.y) * EC;
-    int my_n = 0;
-    float my_w = 0.f;
-    if (lane < EC) {
-      my_n = nbr[slot0 + lane];
-      my_w = w[slot0 + lane];
-    }
-    if (!__any_sync(kFullMask, my_w != 0.f)) continue;   // all padding
-    float wt[NI], g[NI];
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const int e = s + G * i;             // < 32; lanes >= EC hold w = 0
-      wt[i] = __shfl_sync(kFullMask, my_w, e);
-      const int tgt = __shfl_sync(kFullMask, my_n, e);
-      g[i] = 0.f;
-      if (e < EC && wt[i] != 0.f && col >= 0)
-        g[i] = gy[(long long)tgt * dim + col];
-    }
-#pragma unroll
-    for (int i = 0; i < NI; ++i) acc += wt[i] * g[i];
-  }
-#pragma unroll
-  for (int off = 16; off >= KP; off >>= 1)
-    acc += __shfl_down_sync(kFullMask, acc, off);
-  if (s == 0 && t < k) out[row * k + t] = acc;
-}
-
-__global__ void __launch_bounds__(256) arena_bwd_wide(
-    const int* __restrict__ blk_ptr, const int* __restrict__ nbr,
-    const float* __restrict__ w, const int* __restrict__ src_rows,
-    const float* __restrict__ gy, const int* __restrict__ xi,
-    float* __restrict__ out, int n_blocks, int ec, int k, int dim) {
-  const int b = n_blocks - 1 - blockIdx.x;
-  const int br = blockDim.y;
-  const int lane = threadIdx.x;
-  const long long row = (long long)b * br + threadIdx.y;
-  const int* xr = xi + (long long)src_rows[row] * k;
-  int col[kMaxWide];
-  float acc[kMaxWide];
-#pragma unroll
-  for (int j = 0; j < kMaxWide; ++j) {
-    const int t = lane + 32 * j;
-    col[j] = -1;
-    acc[j] = 0.f;
-    if (t < k && (unsigned)xr[t] < (unsigned)dim) col[j] = xr[t];
-  }
-  const int c1 = blk_ptr[b + 1];
-  for (int ch = blk_ptr[b]; ch < c1; ++ch) {
-    const long long slot0 = ((long long)ch * br + threadIdx.y) * ec;
-    int my_n = 0;
-    float my_w = 0.f;
-    if (lane < ec) {
-      my_n = nbr[slot0 + lane];
-      my_w = w[slot0 + lane];
-    }
-    for (int e = 0; e < ec; ++e) {
-      const float wt = __shfl_sync(kFullMask, my_w, e);
-      const int tgt = __shfl_sync(kFullMask, my_n, e);
-      if (wt == 0.f) continue;             // warp-uniform
-      const float* gr = gy + (long long)tgt * dim;
-#pragma unroll
-      for (int j = 0; j < kMaxWide; ++j)
-        if (col[j] >= 0) acc[j] += wt * gr[col[j]];
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kMaxWide; ++j) {
-    const int t = lane + 32 * j;
-    if (t < k) out[row * k + t] = acc[j];
-  }
-}
-
-template <int KP, int EC>
-static void launch(const int* blk_ptr, const int* nbr, const float* w,
-                   const int* src_rows, const float* gy, const int* xi,
-                   float* out, int n_blocks, int row_block, int k, int dim,
-                   cudaStream_t stream) {
-  arena_bwd_narrow<KP, EC><<<n_blocks, dim3(32, row_block), 0, stream>>>(
-      blk_ptr, nbr, w, src_rows, gy, xi, out, n_blocks, k, dim);
-}
-
-template <int KP>
-static int launch_ec(const int* blk_ptr, const int* nbr, const float* w,
-                     const int* src_rows, const float* gy, const int* xi,
-                     float* out, int n_blocks, int row_block, int ec, int k,
-                     int dim, cudaStream_t stream) {
-  switch (ec) {
-    case 4: launch<KP, 4>(blk_ptr, nbr, w, src_rows, gy, xi, out, n_blocks, row_block, k, dim, stream); break;
-    case 8: launch<KP, 8>(blk_ptr, nbr, w, src_rows, gy, xi, out, n_blocks, row_block, k, dim, stream); break;
-    case 16: launch<KP, 16>(blk_ptr, nbr, w, src_rows, gy, xi, out, n_blocks, row_block, k, dim, stream); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return 0;
-}
+// with src_rows the plan's bwd_src_rows (arena row -> type-concat xi row).
+// The row walk, its bound on the H100 and what its design does about it
+// are in arena_bwd_walk.cuh; here the weights are the arena's own table.
+#include "arena_bwd_walk.cuh"
 
 extern "C" int drspmm_arena_bwd(const int* blk_ptr, const int* nbr,
                                 const float* w, const int* src_rows,
                                 const float* gy, const int* xi, float* out,
                                 int n_blocks, int row_block, int ec, int k,
                                 int dim, cudaStream_t stream) {
-  if (row_block > kMaxRows || k < 1 || k > 32 * kMaxWide)
-    return (int)cudaErrorInvalidValue;
-  if (n_blocks == 0) return 0;
-  int rc = 0;
-  if (k <= 4)
-    rc = launch_ec<4>(blk_ptr, nbr, w, src_rows, gy, xi, out, n_blocks, row_block, ec, k, dim, stream);
-  else if (k <= 8)
-    rc = launch_ec<8>(blk_ptr, nbr, w, src_rows, gy, xi, out, n_blocks, row_block, ec, k, dim, stream);
-  else if (k <= 16)
-    rc = launch_ec<16>(blk_ptr, nbr, w, src_rows, gy, xi, out, n_blocks, row_block, ec, k, dim, stream);
-  else if (k <= 32)
-    rc = launch_ec<32>(blk_ptr, nbr, w, src_rows, gy, xi, out, n_blocks, row_block, ec, k, dim, stream);
-  else if (ec == 4 || ec == 8 || ec == 16)
-    arena_bwd_wide<<<n_blocks, dim3(32, row_block), 0, stream>>>(
-        blk_ptr, nbr, w, src_rows, gy, xi, out, n_blocks, ec, k, dim);
-  else
-    rc = (int)cudaErrorInvalidValue;
-  if (rc != 0) return rc;
-  return (int)cudaGetLastError();
+  return arena_bwd_dispatch(blk_ptr, nbr, FixedWeights{w}, src_rows, gy, xi,
+                            out, n_blocks, row_block, ec, k, dim, stream);
 }
 
 extern "C" const char* error_string(int e) {

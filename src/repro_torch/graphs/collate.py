@@ -78,11 +78,13 @@ class CollatedBatch:
 def collate_graphs(graphs: Sequence[CircuitGraph], *,
                    bounds: Sequence[int] = DEFAULT_BOUNDS,
                    n_real: Optional[int] = None,
+                   with_plan: bool = True,
                    device="cuda") -> CollatedBatch:
     """Merge member graphs into one block-diagonal :class:`CircuitGraph`
     with its :class:`RelationPlan` attached, on ``device``.  The first
     ``n_real`` members (all by default) carry the loss weight; trailing
-    members are filler with weight 0."""
+    members are filler with weight 0.  ``with_plan=False`` builds and
+    copies no plan (the D-ReLU-off path reads only the edge packings)."""
     device = resolve_device(device)
     if not graphs:
         raise ValueError("collate_graphs needs at least one member")
@@ -137,7 +139,8 @@ def collate_graphs(graphs: Sequence[CircuitGraph], *,
 
     plan = build_relation_plan(
         relations, sizes, bounds=bounds,
-        packed={et: (e.adj, e.adj_t) for et, e in edges.items()})
+        packed={et: (e.adj, e.adj_t) for et, e in edges.items()}) \
+        if with_plan else None
     graph = CircuitGraph(n_cell=cell_off, n_net=net_off, edges=edges,
                          x_cell=torch.from_numpy(x_cell),
                          x_net=torch.from_numpy(x_net),

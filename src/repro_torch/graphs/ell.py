@@ -8,7 +8,9 @@ Host-side numpy preprocessing, table for table the same as
 * :class:`FusedELL` -- every bucket re-chunked into one uniform
   ``(C, BR, Ec)`` chunk arena.  Chunks of one output row-block are stored
   consecutively, so one CUDA thread block per row-block walks its chunk run
-  (``blk_ptr[b]..blk_ptr[b+1]``) and accumulates without atomics;
+  (``blk_ptr[b]..blk_ptr[b+1]``) and accumulates without atomics.  An
+  edge-id arena (:func:`pack_fused_eid_pair`) also carries the canonical
+  edge id of every slot, for learnable per-edge weights;
 * :class:`RelationPlan` -- every relation of a hetero layer in one fwd/bwd
   super-arena pair plus a dense-tier table for relations small enough to
   run as one masked dense product (``DENSE_TIER_NNZ`` / ``DENSE_TIER_AREA``).
@@ -20,6 +22,7 @@ Tables stay numpy until ``.to(device)`` copies them into torch tensors
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -154,6 +157,31 @@ def pack_ell_pair(dst, src, w, n_dst: int, n_src: int,
             pack_ell(src, dst, w, n_src, n_dst, bounds))
 
 
+def pack_eid_slabs(dst, src, n_dst: int, n_src: int,
+                   bounds: Sequence[int] = DEFAULT_BOUNDS):
+    """Edge-id slabs aligned with :func:`pack_ell`'s bucketing: the slabs'
+    ``w`` holds ``f32(id + 1)`` of each edge's index in the canonical
+    (dst-stable-sorted) order, 0 on padding (exact up to 2^24 edges).
+    Returns ``(fwd_slabs, bwd_slabs, order, nnz)``; ``order`` maps the
+    canonical order back to the caller's COO order."""
+    dst = np.asarray(dst, np.int64)
+    src = np.asarray(src, np.int64)
+    nnz = dst.shape[0]
+    if nnz >= 1 << 24:
+        raise ValueError(f"{nnz} edge ids exceed the f32 exact-integer range")
+    order = np.argsort(dst, kind="stable")           # pack_ell's canonical
+    eid = np.empty(nnz, np.int64)
+    eid[order] = np.arange(nnz)                      # caller order -> canon
+    ids = eid.astype(np.float32) + 1.0
+    return (pack_ell(dst, src, ids, n_dst, n_src, bounds),
+            pack_ell(src, dst, ids, n_src, n_dst, bounds), order, nnz)
+
+
+def decode_eids(slab_w) -> np.ndarray:
+    """f32-encoded ``id + 1`` slab -> int32 ids with -1 on padding."""
+    return np.asarray(slab_w).astype(np.int32) - 1
+
+
 def ell_to_coo(adj: BucketedELL) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(dst, src, w) of the non-zero slots -- the inverse of
     :func:`pack_ell` (zero-weight slots are padding by construction)."""
@@ -216,6 +244,9 @@ class FusedELL:
     chunk: int
     rel: Optional[np.ndarray] = None
     blk_ptr: Optional[np.ndarray] = None  # (n_blocks + 1,) int32
+    # (C, BR, Ec) int32 canonical edge id per slot, -1 on padding (edge-id
+    # arenas only; ``w`` is then the 0/1 real-slot mask)
+    eid: Optional[np.ndarray] = None
 
     def __post_init__(self):
         if self.blk_ptr is None:
@@ -238,7 +269,8 @@ class FusedELL:
         device = torch.device(device)
         conv = {f: _to_tensor(getattr(self, f), device)
                 for f in ("nbr", "w", "block_of", "start", "rows", "gather",
-                          "rel", "blk_ptr") if getattr(self, f) is not None}
+                          "rel", "blk_ptr", "eid")
+                if getattr(self, f) is not None}
         return dataclasses.replace(self, **conv)
 
     def to_dense(self) -> np.ndarray:
@@ -298,12 +330,27 @@ def pick_chunk_multi(packings: Sequence[BucketedELL], row_block: int = None,
     return _min_slots(bws, row_block, candidates)
 
 
+# id-keyed memo of fused arenas, guarded by a weakref to the packing (an
+# entry goes when its packing dies, and a reused id never hits)
+_FUSE_CACHE: Dict[tuple, tuple] = {}
+
+
 def fuse_bucketed(adj: BucketedELL, row_block: int = None,
-                  chunk: int = None) -> FusedELL:
+                  chunk: int = None, *, eids: bool = False) -> FusedELL:
     """Re-pack a :class:`BucketedELL` into the fused arena.  ``chunk=None``
-    picks the slot-minimising width (:func:`pick_chunk`)."""
+    picks the slot-minimising width (:func:`pick_chunk`).
+
+    ``eids=True`` reads ``adj`` as an edge-id slab packing
+    (:func:`pack_eid_slabs`): the arena then carries the int32 ``eid``
+    table (-1 on padding), chunked exactly like the weights, and ``w``
+    becomes the 0/1 real-slot mask.  Results are memoised per (packing,
+    layout)."""
     if row_block is None:
         row_block = FUSED_ROW_BLOCK
+    key = (id(adj), row_block, chunk, eids)
+    hit = _FUSE_CACHE.get(key)
+    if hit is not None and hit[0]() is adj:
+        return hit[1]
     if chunk is None:
         chunk = pick_chunk(adj, row_block)
 
@@ -360,14 +407,46 @@ def fuse_bucketed(adj: BucketedELL, row_block: int = None,
 
     nnz = adj.nnz if adj.nnz >= 0 else int(
         sum(int((np.asarray(b.w) != 0).sum()) for b in adj.buckets))
-    return FusedELL(
-        nbr=np.stack(nbr_chunks), w=np.stack(w_chunks),
+    w_arena = np.stack(w_chunks)
+    eid_arena = None
+    if eids:
+        eid_arena = w_arena.astype(np.int32) - 1
+        w_arena = (w_arena != 0).astype(np.float32)
+    fused = FusedELL(
+        nbr=np.stack(nbr_chunks), w=w_arena,
         block_of=np.asarray(block_of, np.int32),
         start=np.asarray(start, np.int32),
         rows=np.concatenate(rows_parts).astype(np.int32),
         gather=gather.astype(np.int32),
         n_dst=adj.n_dst, n_src=adj.n_src, nnz=nnz,
-        row_block=row_block, chunk=chunk)
+        row_block=row_block, chunk=chunk, eid=eid_arena)
+    _FUSE_CACHE[key] = (weakref.ref(adj, lambda _: _FUSE_CACHE.pop(key, None)),
+                        fused)
+    return fused
+
+
+def pack_fused_eid_pair(dst, src, n_dst: int, n_src: int,
+                        bounds: Sequence[int] = DEFAULT_BOUNDS,
+                        row_block: int = None,
+                        chunk: Union[int, None, Tuple] = None
+                        ) -> Tuple[FusedELL, FusedELL, np.ndarray, int]:
+    """Fused edge-id arena pair (forward and transposed) for learnable
+    per-edge weights: a canonical weight vector w (nnz,) gathers straight
+    into either arena as ``w[eid]``.  ``chunk`` pins the chunk width (an
+    int, or a ``(fwd, bwd)`` tuple).  Returns ``(fwd, bwd, order, nnz)``.
+
+    Every canonical id occupies exactly one slot of each arena, so the
+    per-slot dW of the forward arena reaches canonical order by a
+    permutation; this is checked here."""
+    fwd, bwd, order, nnz = pack_eid_slabs(dst, src, n_dst, n_src, bounds)
+    ck_f, ck_b = chunk if isinstance(chunk, tuple) else (chunk, chunk)
+    pair = (fuse_bucketed(fwd, row_block, ck_f, eids=True),
+            fuse_bucketed(bwd, row_block, ck_b, eids=True))
+    for f in pair:
+        real = f.eid[f.eid >= 0]
+        if real.size != nnz or np.any(np.bincount(real, minlength=nnz) != 1):
+            raise AssertionError("edge ids are not one slot each")
+    return pair + (order, nnz)
 
 
 def fused_to_coo(f: FusedELL) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -19,6 +19,20 @@ Backward (Alg. 2):  dV[j, t] = Σ_i w_ij * gY[i, x_idx[j, t]]  (SSpMM: Aᵀ·gY
   stacked transposed dense-tier table times gY, sampled inside the kernel.
   CUDA source: ``csrc/drspmm_dense_tier_bwd.cu``.
 
+* :func:`spmm_arena` replaces ``spmm_dense_fused``: the arena-ordered fp32
+  ``(R_arena, dim)`` product of a fused arena with a dense operand, the
+  executor of ``ops.spmm`` (D-ReLU off, the GCN and SAGE baselines).  CUDA
+  source: ``csrc/spmm_arena.cu``.
+* :func:`drspmm_fwd_learnable` replaces ``drspmm_fwd_learnable_fused``:
+  kernel 1 over an edge-id arena, the weights gathered in the kernel as
+  ``w_canon[eid]``.  CUDA source: ``csrc/drspmm_learnable_fwd.cu``.
+* :func:`drspmm_bwd_learnable` replaces ``drspmm_bwd_learnable_fused``:
+  kernel 4 over the transposed edge-id arena with ``w_canon[teid]``.  CUDA
+  source: ``csrc/drspmm_learnable_bwd.cu``.
+* :func:`drspmm_dw_learnable` replaces ``drspmm_dw_learnable_fused`` and
+  its scatter to canonical order: the per-edge weight gradient ``(nnz,)``.
+  CUDA source: ``csrc/drspmm_learnable_dw.cu``.
+
 Each wrapper runs its plain PyTorch version (``*_plain``) for a tensor on
 the CPU and launches its kernel for a tensor on a card; it never falls back
 from one to the other.  ``<wrapper>.launches`` counts kernel launches.
@@ -27,6 +41,7 @@ from one to the other.  ``<wrapper>.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -55,6 +70,47 @@ def _check_cbsr(x_vals, x_idx, dim: int) -> None:
         raise ValueError("CBSR operands must be contiguous")
     if not 0 < dim <= 256:
         raise ValueError(f"dim {dim} outside the kernels' range (1..256)")
+
+
+def _check_arena(f: FusedELL, *, eids: bool = False) -> None:
+    """The arena tables a kernel walks: int32 ``nbr``/``blk_ptr`` (and
+    ``eid``), float32 ``w``, chunk width 4/8/16, at most 8 rows a block."""
+    c, br, ec = f.nbr.shape
+    if f.nbr.dtype != torch.int32 or f.w.dtype != torch.float32 \
+            or f.blk_ptr.dtype != torch.int32:
+        raise TypeError("arena tables must be int32 nbr/blk_ptr, float32 w")
+    if eids and (f.eid is None or f.eid.dtype != torch.int32
+                 or f.eid.shape != f.nbr.shape):
+        raise TypeError("learnable kernels need the arena's int32 eid table "
+                        "(pack_fused_eid_pair)")
+    if ec not in (4, 8, 16) or br > 8 \
+            or f.blk_ptr.shape[0] != f.n_blocks + 1:
+        raise ValueError(f"arena geometry (BR={br}, Ec={ec}, blk_ptr "
+                         f"{tuple(f.blk_ptr.shape)}) not supported")
+
+
+def _arena_rows(f: FusedELL) -> torch.Tensor:
+    """(C, BR) arena row of each chunk slot row."""
+    return (f.block_of.long()[:, None] * f.row_block
+            + torch.arange(f.row_block, device=f.nbr.device)[None, :])
+
+
+def _canon_slot_weights(f: FusedELL, nnz: int,
+                        w_canon: torch.Tensor) -> torch.Tensor:
+    """(C, BR, Ec) arena weights ``w_canon[eid]``, 0 where eid is -1."""
+    wp = torch.cat([w_canon.float(), w_canon.new_zeros(1, dtype=torch.float32)])
+    eid = f.eid.long()
+    return wp[torch.where(eid < 0, nnz, eid)]
+
+
+def _check_canon(w_canon: torch.Tensor, nnz: int, f: FusedELL) -> None:
+    if w_canon.dtype != torch.float32 or w_canon.shape != (nnz,) \
+            or not w_canon.is_contiguous():
+        raise ValueError(f"w_canon must be a contiguous float32 ({nnz},) "
+                         f"vector, got {w_canon.dtype} "
+                         f"{tuple(w_canon.shape)}")
+    if f.nnz >= 0 and f.nnz != nnz:
+        raise ValueError(f"nnz {nnz} does not match the arena's {f.nnz}")
 
 
 def _on_card(*ts) -> bool:
@@ -94,14 +150,8 @@ def drspmm_fwd_arena(fwd: FusedELL, x_vals: torch.Tensor,
     if not _on_card(x_vals, x_idx, fwd.nbr, fwd.w, fwd.blk_ptr):
         return drspmm_fwd_arena_plain(fwd, x_vals, x_idx, dim)
     _check_cbsr(x_vals, x_idx, dim)
+    _check_arena(fwd)
     c, br, ec = fwd.nbr.shape
-    if fwd.nbr.dtype != torch.int32 or fwd.w.dtype != torch.float32 \
-            or fwd.blk_ptr.dtype != torch.int32:
-        raise TypeError("arena tables must be int32 nbr/blk_ptr, float32 w")
-    if ec not in (4, 8, 16) or br > 8 \
-            or fwd.blk_ptr.shape[0] != fwd.n_blocks + 1:
-        raise ValueError(f"arena geometry (BR={br}, Ec={ec}, blk_ptr "
-                         f"{tuple(fwd.blk_ptr.shape)}) not supported")
     out = torch.empty((fwd.n_arena_rows, dim), dtype=torch.float32,
                       device=x_vals.device)
     lib = _arena_lib()
@@ -192,6 +242,13 @@ def _check_bwd(gy: torch.Tensor, x_idx: torch.Tensor) -> None:
                          f"the kernels' range (1..256)")
 
 
+def _check_src_rows(f: FusedELL, src_rows: torch.Tensor) -> None:
+    if src_rows.dtype != torch.int32 or src_rows.shape != (f.n_arena_rows,):
+        raise ValueError(f"source-row map must be int32 "
+                         f"({f.n_arena_rows},), got {src_rows.dtype} "
+                         f"{tuple(src_rows.shape)}")
+
+
 def drspmm_bwd_arena_plain(bwd: FusedELL, bwd_src_rows: torch.Tensor,
                            gy_cat: torch.Tensor,
                            x_idx: torch.Tensor) -> torch.Tensor:
@@ -201,9 +258,7 @@ def drspmm_bwd_arena_plain(bwd: FusedELL, bwd_src_rows: torch.Tensor,
     chunks add into their row-block."""
     br = bwd.row_block
     xi_arena = x_idx.long()[bwd_src_rows.long()]               # (R, k)
-    rows = (bwd.block_of.long()[:, None] * br
-            + torch.arange(br, device=gy_cat.device)[None, :])  # (C, BR)
-    xi_blocks = xi_arena[rows]                                 # (C, BR, k)
+    xi_blocks = xi_arena[_arena_rows(bwd)]                     # (C, BR, k)
     sampled = gy_cat.float()[bwd.nbr.long()[..., None],
                              xi_blocks[:, :, None, :]]         # (C, BR, Ec, k)
     contrib = (sampled * bwd.w[..., None]).sum(2)              # (C, BR, k)
@@ -225,18 +280,9 @@ def drspmm_bwd_arena(bwd: FusedELL, bwd_src_rows: torch.Tensor,
                     bwd.blk_ptr):
         return drspmm_bwd_arena_plain(bwd, bwd_src_rows, gy_cat, x_idx)
     _check_bwd(gy_cat, x_idx)
+    _check_arena(bwd)
+    _check_src_rows(bwd, bwd_src_rows)
     c, br, ec = bwd.nbr.shape
-    if bwd.nbr.dtype != torch.int32 or bwd.w.dtype != torch.float32 \
-            or bwd.blk_ptr.dtype != torch.int32 \
-            or bwd_src_rows.dtype != torch.int32:
-        raise TypeError("arena tables must be int32 nbr/blk_ptr/src rows, "
-                        "float32 w")
-    if ec not in (4, 8, 16) or br > 8 \
-            or bwd.blk_ptr.shape[0] != bwd.n_blocks + 1 \
-            or bwd_src_rows.shape != (bwd.n_arena_rows,):
-        raise ValueError(f"arena geometry (BR={br}, Ec={ec}, blk_ptr "
-                         f"{tuple(bwd.blk_ptr.shape)}, src rows "
-                         f"{tuple(bwd_src_rows.shape)}) not supported")
     k = x_idx.shape[1]
     out = torch.empty((bwd.n_arena_rows, k), dtype=torch.float32,
                       device=gy_cat.device)
@@ -309,3 +355,207 @@ def _dense_bwd_lib() -> ctypes.CDLL:
     fn.argtypes = [_c_ptr] * 4 + [_c_int] * 4 + [_c_ptr]
     fn.restype = _c_int
     return lib
+
+
+# ---------------------------------------------------------------------------
+# kernel 6: dense-operand arena SpMM
+# ---------------------------------------------------------------------------
+
+def spmm_arena_plain(f: FusedELL, x: torch.Tensor) -> torch.Tensor:
+    """Arena-ordered fp32 Y (R_arena, D): weight-sum each chunk row's
+    neighbour rows of ``x`` and add chunks into their row-block."""
+    contrib = (x.float()[f.nbr.long()] * f.w[..., None]).sum(2)  # (C, BR, D)
+    y = torch.zeros((f.n_blocks, f.row_block, x.shape[1]),
+                    dtype=torch.float32, device=x.device)
+    y.index_add_(0, f.block_of.long(), contrib)
+    return y.reshape(f.n_arena_rows, x.shape[1])
+
+
+def spmm_arena(f: FusedELL, x: torch.Tensor) -> torch.Tensor:
+    """Arena-ordered fp32 Y (R_arena, D) = A · x of a fused arena whose
+    tables are tensors on ``x``'s device.  Read the caller-ordered output
+    with ``y[f.gather]``."""
+    if not _on_card(x, f.nbr, f.w, f.blk_ptr):
+        return spmm_arena_plain(f, x)
+    _check_arena(f)
+    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        raise TypeError(f"the operand must be a contiguous float32 matrix, "
+                        f"got {x.dtype} {tuple(x.shape)}")
+    if not 0 < x.shape[1] <= 256:
+        raise ValueError(f"dim {x.shape[1]} outside the kernel's range "
+                         f"(1..256)")
+    c, br, ec = f.nbr.shape
+    out = torch.empty((f.n_arena_rows, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    lib = _spmm_lib()
+    rc = lib.spmm_arena(
+        _build.ptr(f.blk_ptr), _build.ptr(f.nbr), _build.ptr(f.w),
+        _build.ptr(x), _build.ptr(out), f.n_blocks, br, ec, x.shape[1],
+        _build.stream_of(out))
+    _build.check(lib, rc, "spmm_arena")
+    spmm_arena.launches += 1
+    return out
+
+
+spmm_arena.launches = 0
+
+
+def _spmm_lib() -> ctypes.CDLL:
+    lib = _build.library("spmm_arena")
+    fn = lib.spmm_arena
+    fn.argtypes = [_c_ptr] * 5 + [_c_int] * 4 + [_c_ptr]
+    fn.restype = _c_int
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# kernel 7: learnable-edge arena forward
+# ---------------------------------------------------------------------------
+
+def drspmm_fwd_learnable_plain(f: FusedELL, nnz: int, w_canon: torch.Tensor,
+                               x_vals: torch.Tensor, x_idx: torch.Tensor,
+                               dim: int) -> torch.Tensor:
+    """Arena-ordered fp32 Y (R_arena, dim) of an edge-id arena with the
+    weights ``w_canon[eid]``: kernel 1's plain version on those weights."""
+    wa = _canon_slot_weights(f, nnz, w_canon)
+    return drspmm_fwd_arena_plain(dataclasses.replace(f, w=wa), x_vals,
+                                  x_idx, dim)
+
+
+def drspmm_fwd_learnable(f: FusedELL, nnz: int, w_canon: torch.Tensor,
+                         x_vals: torch.Tensor, x_idx: torch.Tensor,
+                         dim: int) -> torch.Tensor:
+    """Arena-ordered fp32 Y (R_arena, dim) = A(w)·densify(CBSR) over the
+    forward edge-id arena ``f`` (tables on the operands' device), the
+    canonical weights ``w_canon`` (nnz,) gathered in the kernel.  Read the
+    caller-ordered output with ``y[f.gather]``."""
+    if not _on_card(w_canon, x_vals, x_idx, f.nbr, f.eid, f.blk_ptr):
+        return drspmm_fwd_learnable_plain(f, nnz, w_canon, x_vals, x_idx,
+                                          dim)
+    _check_cbsr(x_vals, x_idx, dim)
+    _check_arena(f, eids=True)
+    _check_canon(w_canon, nnz, f)
+    c, br, ec = f.nbr.shape
+    out = torch.empty((f.n_arena_rows, dim), dtype=torch.float32,
+                      device=x_vals.device)
+    lib = _learnable_lib("drspmm_learnable_fwd", 7)
+    rc = lib.drspmm_learnable_fwd(
+        _build.ptr(f.blk_ptr), _build.ptr(f.nbr), _build.ptr(f.eid),
+        _build.ptr(w_canon), _build.ptr(x_vals), _build.ptr(x_idx),
+        _build.ptr(out), f.n_blocks, br, ec, x_vals.shape[1], dim,
+        _build.stream_of(out))
+    _build.check(lib, rc, "drspmm_learnable_fwd")
+    drspmm_fwd_learnable.launches += 1
+    return out
+
+
+drspmm_fwd_learnable.launches = 0
+
+
+def _learnable_lib(name: str, n_ptr: int) -> ctypes.CDLL:
+    lib = _build.library(name)
+    fn = getattr(lib, name)
+    fn.argtypes = [_c_ptr] * n_ptr + [_c_int] * 5 + [_c_ptr]
+    fn.restype = _c_int
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# kernel 8: learnable-edge sampled backward (dL/dx_vals)
+# ---------------------------------------------------------------------------
+
+def drspmm_bwd_learnable_plain(ft: FusedELL, nnz: int, w_canon: torch.Tensor,
+                               gy: torch.Tensor,
+                               x_idx: torch.Tensor) -> torch.Tensor:
+    """Arena-ordered fp32 dV (R_arena, k) of the transposed edge-id arena
+    ``ft`` with the weights ``w_canon[teid]``; each arena row samples at
+    ``x_idx[ft.rows[j]]``: kernel 4's plain version on those weights."""
+    wa = _canon_slot_weights(ft, nnz, w_canon)
+    return drspmm_bwd_arena_plain(dataclasses.replace(ft, w=wa), ft.rows,
+                                  gy, x_idx)
+
+
+def drspmm_bwd_learnable(ft: FusedELL, nnz: int, w_canon: torch.Tensor,
+                         gy: torch.Tensor,
+                         x_idx: torch.Tensor) -> torch.Tensor:
+    """Arena-ordered fp32 dV (R_arena, k) = sample(A(w)ᵀ·gY, x_idx) over
+    the transposed edge-id arena ``ft`` (tables on the operands' device).
+    Read the caller-ordered dV with ``dv[ft.gather]``."""
+    if not _on_card(w_canon, gy, x_idx, ft.nbr, ft.eid, ft.rows,
+                    ft.blk_ptr):
+        return drspmm_bwd_learnable_plain(ft, nnz, w_canon, gy, x_idx)
+    _check_bwd(gy, x_idx)
+    _check_arena(ft, eids=True)
+    _check_src_rows(ft, ft.rows)
+    _check_canon(w_canon, nnz, ft)
+    c, br, ec = ft.nbr.shape
+    k = x_idx.shape[1]
+    out = torch.empty((ft.n_arena_rows, k), dtype=torch.float32,
+                      device=gy.device)
+    lib = _learnable_lib("drspmm_learnable_bwd", 8)
+    rc = lib.drspmm_learnable_bwd(
+        _build.ptr(ft.blk_ptr), _build.ptr(ft.nbr), _build.ptr(ft.eid),
+        _build.ptr(w_canon), _build.ptr(ft.rows), _build.ptr(gy),
+        _build.ptr(x_idx), _build.ptr(out), ft.n_blocks, br, ec, k,
+        gy.shape[1], _build.stream_of(out))
+    _build.check(lib, rc, "drspmm_learnable_bwd")
+    drspmm_bwd_learnable.launches += 1
+    return out
+
+
+drspmm_bwd_learnable.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 9: learnable-edge weight gradient (dL/dw, canonical order)
+# ---------------------------------------------------------------------------
+
+def drspmm_dw_learnable_plain(f: FusedELL, nnz: int, gy: torch.Tensor,
+                              x_vals: torch.Tensor,
+                              x_idx: torch.Tensor) -> torch.Tensor:
+    """fp32 gw (nnz,): each real slot of the forward edge-id arena ``f``
+    samples its destination's gY row at its source's CBSR columns and dots
+    it with the source's values; the slot sums land at their canonical ids
+    (one slot per id, so a plain index copy)."""
+    dst = f.rows.long()[_arena_rows(f)]                        # (C, BR)
+    nbr = f.nbr.long()
+    g = gy.float()[dst]                                        # (C, BR, D)
+    cols = x_idx.long()[nbr]                                   # (C, BR, Ec, k)
+    sampled = torch.gather(g[:, :, None, :].expand(*nbr.shape, g.shape[-1]),
+                           3, cols)
+    contrib = (sampled * x_vals.float()[nbr]).sum(-1)          # (C, BR, Ec)
+    real = f.eid >= 0
+    gw = torch.zeros(nnz, dtype=torch.float32, device=gy.device)
+    return gw.index_copy_(0, f.eid[real].long(), contrib[real])
+
+
+def drspmm_dw_learnable(f: FusedELL, nnz: int, gy: torch.Tensor,
+                        x_vals: torch.Tensor,
+                        x_idx: torch.Tensor) -> torch.Tensor:
+    """fp32 dL/dw_canon (nnz,) of Y = A(w)·densify(CBSR) over the forward
+    edge-id arena ``f`` (tables on the operands' device), given the
+    caller-ordered cotangent ``gy`` (n_dst, dim)."""
+    if not _on_card(gy, x_vals, x_idx, f.nbr, f.eid, f.rows, f.blk_ptr):
+        return drspmm_dw_learnable_plain(f, nnz, gy, x_vals, x_idx)
+    _check_cbsr(x_vals, x_idx, gy.shape[1])
+    _check_bwd(gy, x_idx)
+    _check_arena(f, eids=True)
+    _check_src_rows(f, f.rows)
+    if f.nnz >= 0 and f.nnz != nnz:
+        raise ValueError(f"nnz {nnz} does not match the arena's {f.nnz}")
+    c, br, ec = f.nbr.shape
+    # every canonical id owns exactly one slot (pack_fused_eid_pair checks
+    # it), so the kernel writes each entry once
+    gw = torch.empty(nnz, dtype=torch.float32, device=gy.device)
+    lib = _learnable_lib("drspmm_learnable_dw", 8)
+    rc = lib.drspmm_learnable_dw(
+        _build.ptr(f.blk_ptr), _build.ptr(f.nbr), _build.ptr(f.eid),
+        _build.ptr(f.rows), _build.ptr(gy), _build.ptr(x_vals),
+        _build.ptr(x_idx), _build.ptr(gw), f.n_blocks, br, ec,
+        x_idx.shape[1], gy.shape[1], _build.stream_of(gw))
+    _build.check(lib, rc, "drspmm_learnable_dw")
+    drspmm_dw_learnable.launches += 1
+    return gw
+
+
+drspmm_dw_learnable.launches = 0

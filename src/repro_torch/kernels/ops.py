@@ -1,5 +1,15 @@
-"""``drspmm_multi``: one hetero layer's whole message passing over a
-:class:`~repro_torch.graphs.ell.RelationPlan`, forward and backward.
+"""The differentiable ops over the kernels of ``kernels/drspmm.py``.
+
+* ``drspmm_multi``: one hetero layer's whole message passing over a
+  :class:`~repro_torch.graphs.ell.RelationPlan`, forward and sampled
+  backward (the D-ReLU path);
+* ``spmm``: one relation's SpMM with a dense operand and the full backward
+  over the transposed arena (the D-ReLU-off DR-CircuitGNN and the GCN /
+  SAGE baselines);
+* ``drspmm_learnable``: DR-SpMM whose edge weights are a differentiable
+  canonical vector (the GAT baselines).
+
+``drspmm_multi``:
 
 The plan's arena-tier relations run as one launch of the arena kernel over
 the super-arena and its dense-tier relations as at most one launch of the
@@ -15,12 +25,15 @@ dense product.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import weakref
+from typing import Dict, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.graphs.ell import RelationPlan
+from repro_torch import resolve_device
+from repro_torch.graphs.ell import (BucketedELL, FusedELL, RelationPlan,
+                                    fuse_bucketed)
 from repro_torch.kernels import drspmm as _k
 
 
@@ -131,13 +144,7 @@ def _plan_dense_mat(plan: RelationPlan) -> torch.Tensor:
     a = torch.zeros((plan.n_out_total, plan.n_src_total),
                     dtype=torch.float32, device=dev)
     if plan.has_arena:
-        f = plan.fwd
-        fa = torch.zeros((f.n_dst, f.n_src), dtype=torch.float32, device=dev)
-        rows = (f.block_of.long()[:, None] * f.row_block
-                + torch.arange(f.row_block, device=dev)[None, :])
-        slot_rows = f.rows.long()[rows]                       # (C, BR)
-        fa.index_put_((slot_rows[:, :, None].expand(f.nbr.shape),
-                       f.nbr.long()), f.w, accumulate=True)
+        fa = _dense_of(plan.fwd, plan.fwd.w)
         for s in plan.arena_segments:
             a[s.out_off:s.out_off + s.n_dst] = \
                 fa[s.arena_out_off:s.arena_out_off + s.n_dst]
@@ -165,3 +172,135 @@ def drspmm_multi(plan: RelationPlan,
     else:
         y_cat = _DRSpMMMulti.apply(plan, dim, idxs, *vals)
     return {s.etype: y for s, y in zip(plan.segments, _split_out(plan, y_cat))}
+
+
+# ---------------------------------------------------------------------------
+# device arenas of single adjacencies (spmm, drspmm_learnable)
+# ---------------------------------------------------------------------------
+
+# (id(pack), eids, device) -> (weakref to pack, device arena): fusing and
+# the copy to the card happen once per adjacency, so an epoch after the
+# first pays neither; an entry goes when its adjacency dies
+_DEVICE_ARENAS: Dict[tuple, tuple] = {}
+
+
+def device_arena(pack: Union[BucketedELL, FusedELL], device, *,
+                 eids: bool = False) -> FusedELL:
+    """The fused arena of ``pack`` with its tables on ``device``.  A
+    :class:`BucketedELL` is fused first (``eids=True`` reads it as an
+    edge-id slab packing); a host :class:`FusedELL` is copied; a
+    :class:`FusedELL` already on ``device`` is returned as it is."""
+    device = resolve_device(device)
+    if isinstance(pack, FusedELL) and isinstance(pack.nbr, torch.Tensor) \
+            and pack.nbr.device == device:
+        return pack
+    key = (id(pack), eids, str(device))
+    hit = _DEVICE_ARENAS.get(key)
+    if hit is not None and hit[0]() is pack:
+        return hit[1]
+    f = pack if isinstance(pack, FusedELL) else fuse_bucketed(pack,
+                                                             eids=eids)
+    if eids and f.eid is None:
+        raise ValueError("drspmm_learnable needs an edge-id packing "
+                         "(pack_eid_slabs / pack_fused_eid_pair)")
+    f = f.to(device)
+    _DEVICE_ARENAS[key] = (
+        weakref.ref(pack, lambda _: _DEVICE_ARENAS.pop(key, None)), f)
+    return f
+
+
+def _dense_of(f: FusedELL, w: torch.Tensor) -> torch.Tensor:
+    """(n_dst, n_src) matrix of the arena ``f`` with slot weights ``w``
+    (C, BR, Ec); differentiable in ``w``."""
+    rows = f.rows.long()[_k._arena_rows(f)]                  # (C, BR)
+    a = torch.zeros((f.n_dst, f.n_src), dtype=torch.float32,
+                    device=w.device)
+    return a.index_put((rows[:, :, None].expand(f.nbr.shape),
+                        f.nbr.long()), w, accumulate=True)
+
+
+# ---------------------------------------------------------------------------
+# spmm: dense-operand SpMM, full backward
+# ---------------------------------------------------------------------------
+
+class _SpMM(torch.autograd.Function):
+    """Caller-ordered Y = A·x; the backward is the same kernel over the
+    arena of Aᵀ with gY as the operand (full, not sampled)."""
+
+    @staticmethod
+    def forward(ctx, fa, fa_t, x):
+        ctx.fa_t = fa_t
+        return _k.spmm_arena(fa, x.float().contiguous()).index_select(
+            0, fa.gather)
+
+    @staticmethod
+    def backward(ctx, gy):
+        if not ctx.needs_input_grad[2]:
+            return None, None, None
+        gx = _k.spmm_arena(ctx.fa_t, gy.float().contiguous())
+        return None, None, gx.index_select(0, ctx.fa_t.gather)
+
+
+def spmm(adj: Union[BucketedELL, FusedELL], adj_t: Union[BucketedELL,
+                                                         FusedELL],
+         x: torch.Tensor, *, dense: bool = False) -> torch.Tensor:
+    """Y = A·x (n_dst, D), differentiable in ``x``.  ``adj``/``adj_t`` are
+    the host packings of A and Aᵀ; their fused arenas are built and copied
+    to ``x``'s device once (:func:`device_arena`).  ``dense=True`` runs the
+    oracle ``A_dense @ x`` instead, for tests."""
+    if dense:                        # host packings only
+        return torch.from_numpy(adj.to_dense()).to(x.device) @ x
+    return _SpMM.apply(device_arena(adj, x.device),
+                       device_arena(adj_t, x.device), x)
+
+
+# ---------------------------------------------------------------------------
+# drspmm_learnable: per-edge weights with gradients
+# ---------------------------------------------------------------------------
+
+class _DRSpMMLearnable(torch.autograd.Function):
+    """Caller-ordered Y = A(w)·densify(CBSR); the backward gives dL/dw
+    (kernel 9) and dL/dx_vals (kernel 8), none for the indices."""
+
+    @staticmethod
+    def forward(ctx, f, ft, nnz, dim, w_canon, x_vals, x_idx):
+        w_canon = w_canon.float().contiguous()
+        x_vals = x_vals.float().contiguous()
+        ctx.f, ctx.ft, ctx.nnz = f, ft, nnz
+        ctx.save_for_backward(w_canon, x_vals, x_idx)
+        y = _k.drspmm_fwd_learnable(f, nnz, w_canon, x_vals, x_idx, dim)
+        return y.index_select(0, f.gather)
+
+    @staticmethod
+    def backward(ctx, gy):
+        w_canon, x_vals, x_idx = ctx.saved_tensors
+        gy = gy.float().contiguous()
+        gw = gx = None
+        if ctx.needs_input_grad[4]:
+            gw = _k.drspmm_dw_learnable(ctx.f, ctx.nnz, gy, x_vals, x_idx)
+        if ctx.needs_input_grad[5]:
+            gx = _k.drspmm_bwd_learnable(ctx.ft, ctx.nnz, w_canon, gy,
+                                         x_idx).index_select(0, ctx.ft.gather)
+        return None, None, None, None, gw, gx, None
+
+
+def drspmm_learnable(fwd, bwd, nnz: int, w_canon: torch.Tensor,
+                     x_vals: torch.Tensor, x_idx: torch.Tensor, dim: int, *,
+                     dense: bool = False) -> torch.Tensor:
+    """Y = A(w)·densify(CBSR(x)) (n_dst, dim), differentiable in both
+    ``w_canon`` (nnz,) and ``x_vals`` (N, k).
+
+    ``fwd``/``bwd`` are the forward and transposed edge-id packings: fused
+    arenas (:func:`~repro_torch.graphs.ell.pack_fused_eid_pair`), on the
+    host or already on the operands' device, or edge-id slabs
+    (:func:`~repro_torch.graphs.ell.pack_eid_slabs`).  ``dense=True`` runs
+    the oracle: the dense A(w) times the densified operand, differentiated
+    by autograd."""
+    dev = x_vals.device
+    f = device_arena(fwd, dev, eids=True)
+    if dense:
+        wa = _k._canon_slot_weights(f, nnz, w_canon)
+        return _dense_of(f, wa) @ _k._densify(x_vals, x_idx, dim)
+    ft = device_arena(bwd, dev, eids=True)
+    return _DRSpMMLearnable.apply(f, ft, nnz, dim, w_canon, x_vals,
+                                  x_idx.to(torch.int32).contiguous())

@@ -10,8 +10,11 @@ moments and the step counter stay) and counted in ``nonfinite_grad_steps``.
 
 Plans and collated batches are built once on the host and cached on the
 card, per graph and per member-id tuple, so an epoch after the first pays
-no host packing.  The reference's observability, chaos, data-parallel and
-K-profiling hooks are not ported: setting them raises.
+no host packing.  With ``use_drelu=False`` (the paper's dense-SpMM
+baseline) no plan is built: each layer runs one ``ops.spmm`` per relation,
+whose arenas are memoised on the card per edge packing.  The reference's
+observability, chaos, data-parallel and K-profiling hooks are not ported:
+setting them raises.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ class CircuitTrainConfig:
     weight_decay: float = 1e-5
     epochs: int = 10
     drelu_backend: str = "topk"       # "topk" | "bisect" (CUDA kernel)
-    use_drelu: bool = True            # not ported: must stay True
+    use_drelu: bool = True            # False: the dense-SpMM baseline
     use_plan: bool = True             # not ported: must stay True
     n_shards: int = 0                 # not ported: must stay 0 or 1
     # dense-tier crossover for single-graph plans (None: DENSE_TIER_NNZ);
@@ -57,14 +60,19 @@ class CircuitTrainConfig:
     wiring: str = "plain"             # plain | residual | dense
 
     def __post_init__(self):
-        unported = {"auto_k": self.auto_k, "use_drelu": not self.use_drelu,
-                    "use_plan": not self.use_plan,
+        unported = {"auto_k": self.auto_k, "use_plan": not self.use_plan,
                     "n_shards": self.n_shards > 1}
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(
                 f"CircuitTrainConfig fields {bad} are set away from their "
                 f"defaults; the port does not have these paths yet")
+        if self.use_drelu and not (self.k_cell < self.hidden
+                                   and self.k_net < self.hidden):
+            raise NotImplementedError(
+                f"D-ReLU with k_cell={self.k_cell} or k_net={self.k_net} >= "
+                f"hidden={self.hidden} needs the serial per-relation "
+                f"DR-SpMM path, which the port does not have yet")
         if self.drelu_backend not in DRELU_BACKENDS:
             raise ValueError(f"unknown drelu_backend {self.drelu_backend!r}; "
                              f"expected one of {DRELU_BACKENDS}")
@@ -101,7 +109,8 @@ class CircuitTrainer:
         self.mp_cfg = HeteroMPConfig(hidden=cfg.hidden, k_cell=cfg.k_cell,
                                      k_net=cfg.k_net,
                                      drelu_backend=cfg.drelu_backend,
-                                     dense_threshold=cfg.dense_threshold)
+                                     dense_threshold=cfg.dense_threshold,
+                                     use_drelu=cfg.use_drelu)
         self.spec = BackboneSpec(depth=cfg.n_layers, hidden=cfg.hidden,
                                  wiring=cfg.wiring, remat=cfg.remat)
         self.params = list(model.parameters())
@@ -123,12 +132,17 @@ class CircuitTrainer:
                 "step_p95_ms": M.percentile(s, 0.95)}
 
     def _planned(self, g: CircuitGraph) -> CircuitGraph:
-        """``g`` on the device with its relation plan attached (cached)."""
+        """``g`` on the device with its relation plan attached (cached).
+        With D-ReLU off no plan is built: the layers read ``g``'s edge
+        packings, whose device arenas ``ops.spmm`` memoises."""
         hit = self._plan_cache.get(id(g))
         if hit is not None and hit[0] is g:
             return hit[1]
-        plan = relation_plan_of(g, self.cfg.dense_threshold)
-        pg = dataclasses.replace(g, plan=plan).to(self.device)
+        pg = g
+        if self.cfg.use_drelu:
+            pg = dataclasses.replace(
+                g, plan=relation_plan_of(g, self.cfg.dense_threshold))
+        pg = pg.to(self.device)
         self._plan_cache[id(g)] = (g, pg)
         return pg
 
@@ -139,7 +153,8 @@ class CircuitTrainer:
         hit = self._batch_cache.get(key)
         if hit is not None and all(a is b for a, b in zip(hit[0], graphs)):
             return hit[1]
-        batch = collate_graphs(graphs, device=self.device)
+        batch = collate_graphs(graphs, with_plan=self.cfg.use_drelu,
+                               device=self.device)
         entry = (batch.graph, batch.cell_weight, batch.n_real)
         self._batch_cache[key] = (tuple(graphs), entry)
         return entry

@@ -1,6 +1,8 @@
 """PyTorch port on a card: each CUDA kernel against its plain PyTorch
-version, the serve engine on the card against the port's CPU forward, and
-one training step on the card against the same step on the CPU.
+version, the serve engine on the card against the port's CPU forward, one
+training step on the card against the same step on the CPU (the D-ReLU
+trainer, the dense-SpMM trainer and the homogeneous baselines), and the
+concurrent relation modules against the sequential ones.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs on a machine with the card
@@ -16,14 +18,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import parallel
 from repro_torch.core.hetero_mp import HeteroMPConfig
 from repro_torch.graphs.circuit import (EDGE_SCHEMA, EDGE_TYPES,
                                         relation_plan_of)
-from repro_torch.graphs.ell import build_relation_plan, ell_to_coo
+from repro_torch.graphs.ell import (build_relation_plan, ell_to_coo,
+                                    fuse_bucketed, pack_fused_eid_pair)
 from repro_torch.graphs.generator import generate_design
 from repro_torch.kernels import drelu_topk
 from repro_torch.kernels import drspmm as tk
-from repro_torch.models.hgnn import DRCircuitGNN
+from repro_torch.kernels import ops as tops
+from repro_torch.models.hgnn import (HOMO_KINDS, DRCircuitGNN, HomoGNN,
+                                     homo_forward, homogenize)
 from repro_torch.serve.circuit_engine import CircuitServeEngine
 from repro_torch.train.circuit_trainer import (CircuitTrainConfig,
                                                CircuitTrainer)
@@ -187,3 +193,164 @@ def test_trainer_step_on_card_matches_cpu(cuda, drelu_backend):
     for (n, p), q in zip(gpu.model.named_parameters(), cpu.params):
         err = float(torch.linalg.norm(p.detach().cpu() - q.detach()))
         assert err <= 1e-4 * float(torch.linalg.norm(q.detach())), n
+
+
+def _rel_close(a, b, rtol=1e-4):
+    """Relative L2 closeness of a card tensor to its CPU counterpart."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    assert float(torch.linalg.norm(a - b)) <= rtol * float(
+        torch.linalg.norm(b)) + 1e-12
+
+
+@pytest.mark.parametrize("dim", [32, 64, 96])
+@pytest.mark.parametrize("ec", [4, 8, 16])
+def test_spmm_arena_kernel_matches_plain(cuda, ec, dim):
+    adj = generate_design(1, "medium", SCALE)[0].edges["near"].adj
+    f = fuse_bucketed(adj, chunk=ec).to(cuda)
+    x = torch.randn((adj.n_src, dim),
+                    generator=torch.Generator().manual_seed(ec)).to(cuda)
+    before = tk.spmm_arena.launches
+    y = tk.spmm_arena(f, x)
+    torch.cuda.synchronize()
+    assert tk.spmm_arena.launches == before + 1
+    assert_close(y.cpu().numpy(), tk.spmm_arena_plain(f, x).cpu().numpy())
+
+
+def _eid_arenas(device, ec=None, n=300, n_target=4000, seed=0):
+    rng = np.random.default_rng(seed)
+    pairs = np.unique(np.stack([rng.integers(0, n, n_target),
+                                rng.integers(0, n, n_target)], 1), axis=0)
+    pairs = pairs[rng.permutation(len(pairs))]
+    ff, fb, _o, nnz = pack_fused_eid_pair(pairs[:, 0], pairs[:, 1], n, n,
+                                          chunk=ec)
+    w = torch.from_numpy(rng.normal(size=nnz).astype(np.float32))
+    return ff.to(device), fb.to(device), nnz, w.to(device)
+
+
+def _learnable_operand(n, k, dim, seed, device):
+    """A CBSR operand (n, k): the dense iota case at k == dim, else k
+    random columns per row with every fifth row repeating a column."""
+    g = torch.Generator().manual_seed(seed)
+    xv = torch.randn((n, k), generator=g)
+    if k == dim:
+        xi = torch.arange(k, dtype=torch.int32).expand(n, k).contiguous()
+    else:
+        xi = torch.stack([torch.randperm(dim, generator=g)[:k]
+                          for _ in range(n)]).to(torch.int32)
+        xi[::5, 1] = xi[::5, 0]
+    return xv.to(device), xi.to(device)
+
+
+@pytest.mark.parametrize("ec", [4, 8, 16])
+@pytest.mark.parametrize("k", [6, 16, 40, 64])
+def test_learnable_fwd_kernel_matches_plain(cuda, k, ec):
+    """Repeated CBSR columns (every fifth row) take the broadcast path;
+    k 64 = dim is the GAT baselines' dense operand."""
+    ff, _fb, nnz, w = _eid_arenas(cuda, ec)
+    xv, xi = _learnable_operand(ff.n_src, k, 64, k, cuda)
+    before = tk.drspmm_fwd_learnable.launches
+    y = tk.drspmm_fwd_learnable(ff, nnz, w, xv, xi, 64)
+    torch.cuda.synchronize()
+    assert tk.drspmm_fwd_learnable.launches == before + 1
+    assert_close(y.cpu().numpy(), tk.drspmm_fwd_learnable_plain(
+        ff, nnz, w, xv, xi, 64).cpu().numpy())
+
+
+@pytest.mark.parametrize("ec", [4, 8, 16])
+@pytest.mark.parametrize("k", [8, 32, 40, 64])
+def test_learnable_bwd_kernel_matches_plain(cuda, k, ec):
+    """k > 32 runs the walk's wide variant."""
+    _ff, fb, nnz, w = _eid_arenas(cuda, ec, seed=1)
+    _, xi = _learnable_operand(fb.n_dst, k, 64, k + 1, cuda)
+    gy = torch.randn((fb.n_src, 64),
+                     generator=torch.Generator().manual_seed(ec)).to(cuda)
+    before = tk.drspmm_bwd_learnable.launches
+    dv = tk.drspmm_bwd_learnable(fb, nnz, w, gy, xi)
+    torch.cuda.synchronize()
+    assert tk.drspmm_bwd_learnable.launches == before + 1
+    assert dv.shape == (fb.n_arena_rows, k)
+    assert_close(dv.cpu().numpy(), tk.drspmm_bwd_learnable_plain(
+        fb, nnz, w, gy, xi).cpu().numpy())
+
+
+@pytest.mark.parametrize("ec", [4, 8, 16])
+@pytest.mark.parametrize("k", [6, 32, 40, 64])
+def test_learnable_dw_kernel_matches_plain(cuda, k, ec):
+    ff, _fb, nnz, _w = _eid_arenas(cuda, ec, seed=2)
+    xv, xi = _learnable_operand(ff.n_src, k, 64, k + 2, cuda)
+    gy = torch.randn((ff.n_dst, 64),
+                     generator=torch.Generator().manual_seed(k)).to(cuda)
+    before = tk.drspmm_dw_learnable.launches
+    gw = tk.drspmm_dw_learnable(ff, nnz, gy, xv, xi)
+    torch.cuda.synchronize()
+    assert tk.drspmm_dw_learnable.launches == before + 1
+    assert gw.shape == (nnz,)
+    assert_close(gw.cpu().numpy(), tk.drspmm_dw_learnable_plain(
+        ff, nnz, gy, xv, xi).cpu().numpy())
+
+
+def test_trainer_dense_step_on_card_matches_cpu(cuda):
+    """A batched ``use_drelu=False`` step on the card launches the SpMM
+    kernel and none of the D-ReLU path's, and matches the CPU step."""
+    graphs = generate_design(1, "medium", SCALE)[:2]
+    cfg = CircuitTrainConfig(hidden=HIDDEN, k_cell=K, k_net=K, lr=1e-3,
+                             batch_size=2, use_drelu=False)
+    gpu = CircuitTrainer(cfg, 16, 16, device=cuda)
+    cpu_model = DRCircuitGNN(16, 16, HIDDEN, LAYERS, device="cpu")
+    cpu_model.load_state_dict(gpu.model.state_dict())
+    cpu = CircuitTrainer(cfg, 16, 16, model=cpu_model, device="cpu")
+    others = [tk.drspmm_fwd_arena, tk.drspmm_bwd_arena,
+              tk.drspmm_dense_tier_fwd, tk.drspmm_dense_tier_bwd,
+              drelu_topk.drelu_bisect]
+    before = [f.launches for f in others]
+    n0 = tk.spmm_arena.launches
+    loss_gpu = gpu.train_epoch(graphs)
+    loss_cpu = cpu.train_epoch(graphs)
+    assert tk.spmm_arena.launches - n0 == 11    # 6 forward, 5 backward
+    assert [f.launches for f in others] == before
+    assert abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    for (n, p), q in zip(gpu.model.named_parameters(), cpu.params):
+        _rel_close(p, q)
+
+
+@pytest.mark.parametrize("kind", HOMO_KINDS)
+def test_homo_step_on_card_matches_cpu(cuda, kind):
+    """Loss and gradients of a baseline on the card against the CPU."""
+    adj, adj_t, x, y, n_cell = homogenize(
+        generate_design(3, "small", SCALE)[0])
+    gpu = HomoGNN(x.shape[1], HIDDEN, kind=kind, nnz=adj.nnz, device=cuda)
+    cpu = HomoGNN(x.shape[1], HIDDEN, kind=kind, nnz=adj.nnz, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    if kind == "gat_edge":
+        with torch.no_grad():
+            for m in (gpu, cpu):
+                for layer in m.layers:
+                    layer.s.copy_(torch.linspace(-1, 1, adj.nnz))
+    counters = [tk.spmm_arena] if kind in ("gcn", "sage") else [
+        tk.drspmm_fwd_learnable, tk.drspmm_bwd_learnable,
+        tk.drspmm_dw_learnable]
+    before = [f.launches for f in counters]
+    losses = []
+    for m, dev in ((gpu, cuda), (cpu, "cpu")):
+        loss = torch.mean((homo_forward(m, adj, adj_t, x.to(dev), n_cell)
+                           - y.to(dev)) ** 2)
+        loss.backward()
+        losses.append(loss.item())
+    assert all(f.launches > b for f, b in zip(counters, before))
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+    for p, q in zip(gpu.parameters(), cpu.parameters()):
+        _rel_close(p.grad, q.grad)
+
+
+def test_run_fused_on_card_equals_sequential(cuda):
+    g = generate_design(1, "medium", SCALE)[0]
+    xc = torch.randn((g.n_cell, 64), device=cuda)
+    xn = torch.randn((g.n_net, 64), device=cuda)
+    fns = [lambda x, et=et: tops.spmm(g.edges[et].adj, g.edges[et].adj_t, x)
+           for et in ("near", "pin", "pinned")]
+    args = [(xc,), (xc,), (xn,)]
+    seq = parallel.run_sequential(fns, args)
+    fused = parallel.run_fused(fns, args)
+    torch.cuda.synchronize()
+    for a, b in zip(fused, seq):
+        assert torch.equal(a, b)

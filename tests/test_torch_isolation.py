@@ -19,7 +19,9 @@ from repro_torch.core.hetero_mp import HeteroMPConfig
 from repro_torch.graphs import collate as tcollate
 from repro_torch.graphs.generator import generate_design
 from repro_torch.kernels import drelu_topk, drspmm
-from repro_torch.models.hgnn import DRCircuitGNN
+from repro_torch.kernels import ops as tops
+from repro_torch.models.hgnn import (DRCircuitGNN, HomoGNN, homogenize,
+                                     learnable_edge_packing)
 from repro_torch.serve.circuit_engine import CircuitServeEngine
 from repro_torch.train.circuit_trainer import (CircuitTrainConfig,
                                                CircuitTrainer)
@@ -63,7 +65,8 @@ def test_training_stack_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
             "import repro_torch.train.circuit_trainer, "
-            "repro_torch.optim.schedules; "
+            "repro_torch.optim.schedules, repro_torch.kernels.learnable, "
+            "repro_torch.core.parallel; "
             "assert 'jax' not in {m.split('.')[0] for m, v in "
             "sys.modules.items() if v is not None}")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -89,6 +92,28 @@ def test_entry_points_refuse_missing_card(monkeypatch):
         CircuitTrainer(CircuitTrainConfig(hidden=32), 16, 16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         repro_torch.resolve_device("cuda:0")
+    adj, adj_t, x, _y, _n = homogenize(g[0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HomoGNN(x.shape[1], 32)
+    # spmm and drspmm_learnable place their arenas through device_arena
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tops.device_arena(adj, "cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tops.device_arena(adj, "cuda", eids=True)
+
+
+KERNEL_WRAPPERS = ("drspmm_fwd_arena", "drspmm_dense_tier_fwd",
+                   "drspmm_bwd_arena", "drspmm_dense_tier_bwd", "spmm_arena",
+                   "drspmm_fwd_learnable", "drspmm_bwd_learnable",
+                   "drspmm_dw_learnable")
+
+
+@pytest.mark.parametrize("name", KERNEL_WRAPPERS)
+def test_wrapper_counts_launches(name):
+    """Every kernel wrapper carries its launch counter (an int), and the
+    plain version beside it that CPU tensors run."""
+    assert isinstance(getattr(drspmm, name).launches, int)
+    assert callable(getattr(drspmm, name + "_plain"))
 
 
 @pytest.mark.cuda
@@ -100,6 +125,9 @@ def test_wrappers_never_run_plain_on_card(cuda, monkeypatch):
     monkeypatch.setattr(drspmm, "drspmm_bwd_arena_plain", boom)
     monkeypatch.setattr(drspmm, "drspmm_dense_tier_bwd_plain", boom)
     monkeypatch.setattr(drelu_topk, "drelu_bisect_plain", boom)
+    for name in ("spmm_arena_plain", "drspmm_fwd_learnable_plain",
+                 "drspmm_bwd_learnable_plain", "drspmm_dw_learnable_plain"):
+        monkeypatch.setattr(drspmm, name, boom)
     batch = tcollate.collate_graphs(generate_design(0, "small", 0.02),
                                     device=cuda)
     plan = batch.plan
@@ -116,4 +144,12 @@ def test_wrappers_never_run_plain_on_card(cuda, monkeypatch):
                                  torch.randn(plan.dense_bwd.shape[1], 64,
                                              device=cuda), xi)
     drelu_topk.drelu_bisect(torch.randn(n, 64, device=cuda), 8)
+    adj, adj_t, x, _y, _n = homogenize(generate_design(0, "small", 0.02)[0])
+    x = torch.randn((adj.n_src, 64), device=cuda, requires_grad=True)
+    tops.spmm(adj, adj_t, x).sum().backward()
+    w = torch.rand(adj.nnz, device=cuda, requires_grad=True)
+    xi = torch.arange(64, dtype=torch.int32,
+                      device=cuda).expand(adj.n_src, 64).contiguous()
+    fwd, bwd, *_rest, nnz = learnable_edge_packing(adj, cuda)
+    tops.drspmm_learnable(fwd, bwd, nnz, w, x, xi, 64).sum().backward()
     torch.cuda.synchronize()

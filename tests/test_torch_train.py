@@ -243,7 +243,7 @@ def test_trainer_skips_nonfinite_step(designs):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(auto_k=True), dict(use_drelu=False), dict(use_plan=False),
+    dict(auto_k=True), dict(k_cell=64), dict(use_plan=False),
     dict(n_shards=2)])
 def test_trainer_refuses_unported_fields(kw):
     with pytest.raises(NotImplementedError, match=next(iter(kw))):
