@@ -28,7 +28,23 @@ steps on the homogenized first Table-1 partition, 11,840 nodes):
 
 7. ``train-homo-gcn`` and ``train-homo-sage``: the arena SpMM kernel;
 8. ``train-homo-gat`` and ``train-homo-gat_edge``: the learnable-edge
-   forward, dx and dW kernels.
+   forward, dx and dW kernels;
+
+and trains on the serial per-relation path (single graphs, 2 epochs), each
+step held in lockstep against a CPU trainer that starts it from the same
+weights and optimizer state:
+
+9. ``train-table1-bucket``: ``backend="bucket"``, the per-bucket DR-SpMM
+   forward and backward kernels, one launch per degree bucket;
+10. ``train-table1-bucket-knet64``: the same with ``k_net=64``, so the
+    nets stay dense and ``pinned`` runs the per-bucket SpMM kernel;
+11. ``train-table1-serial`` / ``train-scale0.02-serial``:
+    ``use_plan=False`` on the fused family, one arena (or, below the
+    crossover, dense-tier) launch per relation;
+12. ``train-homo-gcn-bucket``: the GCN baseline on the per-bucket SpMM
+    kernel;
+13. ``learnable-slabs-bucket``: one call of the edge-id slab entry point
+    of ``drspmm_learnable`` under ``backend="bucket"``.
 
 Every kernel's launch count is zeroed just before each path and read just
 after; a kernel that the path should run and did not, or one it must not
@@ -59,6 +75,9 @@ H100_F32_PER_S = 67e12            # fp32 outside the tensor cores
 CELL_ATOL = 1e-4                  # served vs CPU forward, per cell
 CELL_SHARE = 0.999                # share of cells that must be within it
 LOSS_RTOL = 1e-4                  # training step loss, card vs CPU
+# lockstep step loss, card vs CPU from the same state: summation order
+# only, unless a near-tied D-ReLU pick flips (then LOSS_RTOL, reported)
+LOCKSTEP_RTOL = 1e-6
 GRAD_RTOL = 1e-4                  # first-step gradient, relative L2
 REPS = 20
 
@@ -402,6 +421,184 @@ def check_learnable_kernels(homo_gat, homo):
     return rows
 
 
+def bucket_csr(b, n_src):
+    """One degree bucket's slab as a bucket-local (R, n_src) CSR matrix
+    (the library yardstick)."""
+    warnings.filterwarnings("ignore", message="Sparse")
+    r, e = b.nbr.shape
+    mask = b.w != 0
+    rows = torch.arange(r, device=b.w.device)[:, None].expand(r, e)
+    return torch.sparse_coo_tensor(
+        torch.stack([rows[mask], b.nbr.long()[mask]]), b.w[mask],
+        (r, n_src)).coalesce().to_sparse_csr()
+
+
+def check_bucket_kernels(model, graph, bucket_cfg):
+    """Kernels 10-12 on every degree bucket of the first Table-1
+    partition's ``near`` relation, each against its plain version: kernel
+    10 on the first layer's cell CBSR operand, kernel 11 on the transposed
+    buckets with the cotangent the ``"bucket"`` training loss sends back to
+    that layer, kernel 12 on the first layer's dense cell embedding.  A
+    kernel's row sums the relation's buckets: its time, its plain version's
+    and its library yardstick's (``torch.sparse.mm`` of each bucket's CSR)
+    are summed over the buckets, its bound is the whole loop's (operand
+    rows counted once)."""
+    from repro_torch.kernels import drspmm as K1
+    from repro_torch.kernels import ops
+    from repro_torch.models.hgnn import loss_fn
+    near = graph.edges["near"]
+    bk = ops.device_buckets(near.adj, "cuda")
+    bk_t = ops.device_buckets(near.adj_t, "cuda")
+    fwd_calls = []
+
+    def run():
+        nonlocal fwd_calls
+        fwd_calls = record_calls(K1, "drspmm_fwd_bucket", lambda: loss_fn(
+            model, graph, bucket_cfg).backward())
+
+    bwd_calls = record_calls(K1, "drspmm_bwd_bucket", run)
+    model.zero_grad(set_to_none=True)
+    # layer 1 runs forward first and backward last
+    fwd_of = {id(b): next(a for a in fwd_calls if a[0] is b)
+              for b in bk.buckets}
+    bwd_of = {id(b): [a for a in bwd_calls if a[0] is b][-1]
+              for b in bk_t.buckets}
+    with torch.inference_mode():
+        h_cell = (graph.x_cell @ model.in_cell).contiguous()
+    n_src, dim = near.adj.n_src, HIDDEN
+    specs = {
+        "drspmm_fwd_bucket": (
+            "drspmm_bucket_fwd.cu", "src/repro/kernels/drspmm.py:122", bk,
+            lambda b: fwd_of[id(b)][1:3] + (dim,), 1.0),
+        "drspmm_bwd_bucket": (
+            "drspmm_bucket_bwd.cu", "src/repro/kernels/drspmm.py:178", bk_t,
+            lambda b: bwd_of[id(b)][1:3], 0.0),
+        "spmm_bucket": (
+            "spmm_bucket.cu", "src/repro/kernels/drspmm.py:231", bk,
+            lambda b: (h_cell,), 1.0)}
+    rows = {}
+    for name, (src, replaces, pack, args_of, floor) in specs.items():
+        kern = getattr(K1, name)
+        plain = getattr(K1, name + "_plain")
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, err=0.0,
+                   slab=0, out=0, real=0, ops=0.0)
+        used = set()
+        for b in pack.buckets:
+            args = args_of(b)
+            out, ref = kern(b, *args), plain(b, *args)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            tol = 1e-5 * max(floor, float(ref.abs().max()))
+            if not torch.allclose(out, ref, rtol=1e-5, atol=tol):
+                problem(f"{name} kernel disagrees with its plain version on "
+                        f"bucket {tuple(b.nbr.shape)}: {err}")
+            csr = bucket_csr(b, args[0].shape[0])
+            if name == "drspmm_fwd_bucket":
+                xd = K1._densify(args[0], args[1], dim)
+                lib = lambda: csr @ xd
+                width, row_bytes = args[0].shape[1], 8 * args[0].shape[1]
+            elif name == "drspmm_bwd_bucket":
+                gy, xi_rows = args
+                xl = xi_rows.long()
+                lib = lambda: torch.gather(csr @ gy, 1, xl)
+                width, row_bytes = xi_rows.shape[1], 4 * gy.shape[1]
+            else:
+                lib = lambda: csr @ h_cell
+                width, row_bytes = dim, 4 * dim
+            real = b.w != 0
+            used.update(b.nbr[real].unique().tolist())
+            r, e = b.nbr.shape
+            extra = 4 * r * width if name == "drspmm_bwd_bucket" else 0
+            slab = 8 * r * e + extra            # + xi_rows (kernel 11)
+            n_real = int(real.sum())
+            b_ms, b_by = bound(slab + row_bytes * int(b.nbr[real].unique()
+                                                      .numel())
+                               + 4 * r * out.shape[1], 2.0 * n_real * width)
+            t = dict(ms=cuda_ms(lambda: kern(b, *args)),
+                     plain_ms=cuda_ms(lambda: plain(b, *args)),
+                     library_ms=cuda_ms(lib))
+            log(f"kernel {name} bucket R={r} E={e} real_slots={n_real}: "
+                f"max_abs_err={err} (max |ref| {float(ref.abs().max())}) "
+                f"ms={t['ms']} plain_ms={t['plain_ms']} bound_ms={b_ms} "
+                f"({b_by}) library_ms={t['library_ms']}")
+            for key in ("ms", "plain_ms", "library_ms"):
+                tot[key] += t[key]
+            tot["err"] = max(tot["err"], err)
+            tot["slab"] += slab
+            tot["out"] += 4 * r * out.shape[1]
+            tot["real"] += n_real
+            tot["ops"] += 2.0 * n_real * width
+        n_bytes = tot["slab"] + row_bytes * len(used) + tot["out"]
+        b_ms, b_by = bound(n_bytes, tot["ops"])
+        rows[name] = dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
+            replaces=replaces, max_abs_err=tot["err"], ms=tot["ms"],
+            plain_ms=tot["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+            library_ms=tot["library_ms"])
+        log(f"kernel {name}: {len(pack.buckets)} buckets of near "
+            f"(n_src {n_src}), {tot['real']} real slots, {n_bytes} bytes: "
+            f"max_abs_err={tot['err']} ms={tot['ms']} "
+            f"plain_ms={tot['plain_ms']} bound_ms={b_ms} ({b_by}) "
+            f"library_ms={tot['library_ms']} (sums over the buckets)")
+    return rows
+
+
+def learnable_slabs_path(model, graph, wrappers):
+    """One call of the edge-id slab entry point ``drspmm_learnable``
+    under ``backend="bucket"`` on the first Table-1 partition's ``near``
+    relation (weights gathered from ``w_canon``, kernels 10/11): the
+    output and both gradients against the same call on the CPU (the plain
+    versions).  Returns the launch counts of the card's call."""
+    import numpy as np
+    from repro_torch.core.hetero_mp import HeteroMPConfig, _sparsify_types
+    from repro_torch.graphs.ell import ell_to_coo, pack_eid_slabs
+    from repro_torch.kernels.learnable import drspmm_learnable
+    near = graph.edges["near"].adj
+    d, s_, w = ell_to_coo(near)
+    fs, bs, order, nnz = pack_eid_slabs(d, s_, near.n_dst, near.n_src)
+    with torch.no_grad():
+        c_cell, _ = _sparsify_types(
+            graph.x_cell @ model.in_cell, graph.x_net @ model.in_net,
+            HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K))
+    xv0, xi0 = c_cell.values, c_cell.idx
+    gy0 = torch.randn((near.n_dst, HIDDEN),
+                      generator=torch.Generator().manual_seed(SEED))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        wc = torch.from_numpy(np.ascontiguousarray(w[order])).to(
+            dev).requires_grad_()
+        xv = xv0.to(dev, copy=True).requires_grad_()
+        if dev == "cuda":
+            for wr in wrappers.values():
+                wr.launches = 0
+        y = drspmm_learnable(fs, bs, nnz, wc, xv, xi0.to(dev), HIDDEN,
+                             backend="bucket")
+        y.backward(gy0.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = {k: wr.launches for k, wr in wrappers.items()}
+        outs.append([t.detach().cpu() for t in (y, wc.grad, xv.grad)])
+    log(f"path learnable-slabs-bucket: nnz={nnz}, "
+        f"{len(fs.buckets)} forward / {len(bs.buckets)} transposed slabs, "
+        f"launches={launches}")
+    check_launches("learnable-slabs-bucket", launches,
+                   ["drspmm_fwd_bucket", "drspmm_bwd_bucket"],
+                   ["drspmm_fwd_learnable", "drspmm_bwd_learnable",
+                    "drspmm_dw_learnable", "spmm_bucket"])
+    if (launches["drspmm_fwd_bucket"], launches["drspmm_bwd_bucket"]) != \
+            (len(fs.buckets), len(bs.buckets)):
+        problem("path learnable-slabs-bucket: not one launch per slab")
+    for nm, a, r in zip(("y", "dL/dw", "dL/dx_vals"), *outs):
+        err = float((a - r).abs().max())
+        log(f"path learnable-slabs-bucket: {nm} max_abs_err={err} "
+            f"(max |ref| {float(r.abs().max())})")
+        if not torch.allclose(a, r, rtol=1e-5,
+                              atol=1e-5 * float(r.abs().max())):
+            problem(f"path learnable-slabs-bucket: {nm} differs from the "
+                    f"CPU by {err}")
+    return launches
+
+
 def backward_operands(model, batch, cfg):
     """(gY, xi) that the first layer's DR-SpMM backward receives from the
     batch's training loss: the loss is run backward once with the op's
@@ -650,12 +847,189 @@ def train_path(name, cfg, graphs, state, wrappers, expect, forbid=(),
     return launches
 
 
-def homo_path(name, kind, homo, wrappers, expect, forbid, steps=3):
+def drelu_masks(model, graph, cfg):
+    """The keep mask of every D-ReLU the model's forward of ``graph``
+    applies, in order, on the host."""
+    from repro_torch.core import drelu as D
+    masks = []
+    orig = D._DReLU.__dict__["forward"]
+
+    def forward(ctx, x, k):
+        th = torch.topk(x, k, dim=-1).values[..., -1:]
+        masks.append((x >= th).cpu())
+        return orig.__func__(ctx, x, k)
+
+    D._DReLU.forward = staticmethod(forward)
+    try:
+        with torch.no_grad():
+            model(graph, cfg)
+    finally:
+        D._DReLU.forward = orig
+    return masks
+
+
+def lockstep_path(name, cfg, graphs, state, wrappers, expect, forbid,
+                  count_of):
+    """Train single graphs on the card for ``cfg.epochs`` epochs, each step
+    in lockstep with a CPU trainer that takes it from the card's weights
+    and optimizer state, on the same graph.  A step's losses must agree
+    within LOCKSTEP_RTOL; where they do not, both forwards' D-ReLU masks
+    are compared, and a step whose masks differ (a near-tied pick that
+    GPU-vs-CPU rounding flips) is held to LOSS_RTOL instead and reported.
+    ``count_of(g)`` gives each kernel's launches for a step on ``g``; the
+    run's counts must equal their sum.  Returns the card's launch
+    counts."""
+    from repro_torch.models.hgnn import DRCircuitGNN, loss_fn
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.train.circuit_trainer import CircuitTrainer
+    trainers = []
+    for dev in ("cuda", "cpu"):
+        m = DRCircuitGNN(FEAT, FEAT, HIDDEN, LAYERS, device=dev)
+        m.load_state_dict(state)
+        trainers.append(CircuitTrainer(cfg, FEAT, FEAT, model=m, device=dev))
+    gpu, cpu = trainers
+
+    def first_loss(tr):
+        return loss_fn(tr.model, tr._planned(graphs[0]), tr.mp_cfg, tr.spec)
+
+    grads = []
+    for tr in trainers:
+        first_loss(tr).backward()
+        grads.append({n: (torch.zeros_like(p) if p.grad is None
+                          else p.grad).detach().cpu()
+                      for n, p in tr.model.named_parameters()})
+        tr.model.zero_grad(set_to_none=True)
+    g_err = {n: rel_l2(grads[0][n], grads[1][n]) for n in grads[1]}
+    worst = max(g_err, key=g_err.get)
+    log(f"path {name}: first-step gradients, worst relative L2 "
+        f"{g_err[worst]} ({worst})")
+    if g_err[worst] > GRAD_RTOL:
+        problem(f"path {name}: first-step gradient of {worst} differs from "
+                f"the CPU by {g_err[worst]} (relative L2)")
+
+    expected = {}
+    for w in wrappers.values():
+        w.launches = 0
+    launches = dict.fromkeys(wrappers, 0)
+    diffs, flips = [], []
+    t = time.perf_counter()
+    for ep in range(cfg.epochs):
+        for g in graphs:
+            for k, v in count_of(g).items():
+                expected[k] = expected.get(k, 0) + v
+            # the CPU trainer takes this step from the card's state
+            with torch.no_grad():
+                for p, q in zip(cpu.params, gpu.params):
+                    p.copy_(q)
+                for a, b in zip(cpu.opt_state.m + cpu.opt_state.v,
+                                gpu.opt_state.m + gpu.opt_state.v):
+                    a.copy_(b)
+            cpu.opt_state.step = gpu.opt_state.step
+            pre_state = {k: v.detach().clone()
+                         for k, v in cpu.model.state_dict().items()}
+            before = {k: w.launches for k, w in wrappers.items()}
+            lg = gpu.train_epoch([g])
+            for k, w in wrappers.items():      # the step's own launches
+                launches[k] += w.launches - before[k]
+            lc = cpu.train_epoch([g])
+            d = abs(lg - lc) / abs(lc)
+            diffs.append(d)
+            if not d <= LOCKSTEP_RTOL:
+                # the step's forward from the pre-step state, both sides
+                pre = DRCircuitGNN(FEAT, FEAT, HIDDEN, LAYERS, device="cpu")
+                pre.load_state_dict(pre_state)
+                card = DRCircuitGNN(FEAT, FEAT, HIDDEN, LAYERS,
+                                    device="cuda")
+                card.load_state_dict(pre_state)
+                ma = drelu_masks(card, gpu._planned(g), gpu.mp_cfg)
+                mb = drelu_masks(pre, cpu._planned(g), cpu.mp_cfg)
+                n_flip = sum(int((a != b).any(-1).sum())
+                             for a, b in zip(ma, mb))
+                flips.append((len(diffs) - 1, n_flip, d))
+                if n_flip == 0 or not d <= LOSS_RTOL:
+                    problem(f"path {name}: step {len(diffs) - 1} loss {lg} "
+                            f"on the card, {lc} on the CPU ({n_flip} "
+                            f"D-ReLU mask rows differ)")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    log(f"path {name}: {len(diffs)} lockstep steps in {fit_s:.3f} s, "
+        f"losses {gpu.step_loss}, {json.dumps(gpu.stats())} "
+        f"launches={launches}")
+    log(f"path {name}: relative loss difference to the CPU per step "
+        f"{diffs}; steps beyond {LOCKSTEP_RTOL} (step, D-ReLU mask rows "
+        f"that differ, difference): {flips}")
+    check_launches(name, launches, expect, forbid)
+    for k, v in expected.items():
+        if launches[k] != v:
+            problem(f"path {name}: {launches[k]} launches of {k}, expected "
+                    f"{v} from the graphs' bucket and relation counts")
+    ev = gpu.evaluate(graphs)
+    log(f"path {name}: evaluate pearson={ev['pearson']} "
+        f"spearman={ev['spearman']} mae={ev['mae']}")
+    if not all(map(lambda v: v == v, ev.values())):
+        problem(f"path {name}: evaluate gave non-finite metrics {ev}")
+    fwd_ms = cuda_ms(lambda: first_loss(gpu), 5)
+    fb_ms = cuda_ms(lambda: first_loss(gpu).backward(), 5)
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in gpu.params]
+    opt_ms = cuda_ms(lambda: adamw_update(gpu.params, grads, gpu.opt_state,
+                                          0.0), 5)
+    gpu.model.zero_grad(set_to_none=True)
+    log(f"path {name}: step breakdown on the card: forward+loss {fwd_ms} "
+        f"ms, forward+backward {fb_ms} ms, AdamW {opt_ms} ms; host step "
+        f"p50 {gpu.stats()['step_p50_ms']} ms")
+    return launches
+
+
+def n_buckets(*packs):
+    return sum(len(p.buckets) for p in packs)
+
+
+def bucket_counts(g, k_net):
+    """Per-step launches of kernels 10-12 on ``g`` under ``"bucket"`` (2
+    layers): forward every relation's buckets in both layers; backward
+    every relation's transposed buckets but the last layer's ``pin``,
+    whose output never reaches the loss.  With k_net >= hidden ``pinned``
+    runs the SpMM kernel (forward over A, backward over Aᵀ)."""
+    e = g.edges
+    c = {"drspmm_fwd_bucket": 2 * n_buckets(e["near"].adj, e["pin"].adj),
+         "drspmm_bwd_bucket": 2 * n_buckets(e["near"].adj_t)
+         + n_buckets(e["pin"].adj_t), "spmm_bucket": 0}
+    pinned = 2 * n_buckets(e["pinned"].adj)
+    pinned_t = 2 * n_buckets(e["pinned"].adj_t)
+    if k_net >= HIDDEN:
+        c["spmm_bucket"] = pinned + pinned_t
+    else:
+        c["drspmm_fwd_bucket"] += pinned
+        c["drspmm_bwd_bucket"] += pinned_t
+    return c
+
+
+def serial_counts(g):
+    """Per-step launches of kernels 1/2/4/5 on ``g`` under ``use_plan=False``
+    with the fused family (2 layers): one launch per relation and layer,
+    the dense tier for a relation at or below the crossover, no backward
+    for the last layer's ``pin``."""
+    from repro_torch.kernels.ops import _dense_tier_single
+    c = dict.fromkeys(("drspmm_fwd_arena", "drspmm_bwd_arena",
+                       "drspmm_dense_tier_fwd", "drspmm_dense_tier_bwd"), 0)
+    for et in ("near", "pin", "pinned"):
+        dense = _dense_tier_single(g.edges[et].adj)
+        fwd, bwd = (("drspmm_dense_tier_fwd", "drspmm_dense_tier_bwd")
+                    if dense else ("drspmm_fwd_arena", "drspmm_bwd_arena"))
+        c[fwd] += 2
+        c[bwd] += 1 if et == "pin" else 2
+    return c
+
+
+def homo_path(name, kind, homo, wrappers, expect, forbid, steps=3,
+              backend="fused", per_step=None):
     """A homogeneous baseline (hidden 64, 3 layers, seeded weights) trained
     ``steps`` AdamW steps on the card (lr 1e-3, weight decay 2e-4, as
-    ``benchmarks/bench_table2.py::train_homo``), held against the same
-    steps on the CPU: the first step's gradients and every step's loss.
-    Returns the kernels' launch counts of the card's steps."""
+    ``benchmarks/bench_table2.py::train_homo``) with ``backend``, held
+    against the same steps on the CPU: the first step's gradients and
+    every step's loss.  ``per_step`` pins the launches of ``expect[0]`` a
+    step.  Returns the kernels' launch counts of the card's steps."""
     from repro_torch.models.hgnn import HomoGNN, homo_forward
     from repro_torch.optim.adamw import adamw_init, adamw_update
     adj, adj_t, x, y, n_cell = homo
@@ -666,7 +1040,8 @@ def homo_path(name, kind, homo, wrappers, expect, forbid, steps=3):
         models.append((m, x.to(dev), y.to(dev)))
 
     def loss_of(m, xd, yd):
-        return torch.mean((homo_forward(m, adj, adj_t, xd, n_cell) - yd) ** 2)
+        return torch.mean((homo_forward(m, adj, adj_t, xd, n_cell,
+                                        backend=backend) - yd) ** 2)
 
     def grads_of(m):
         return [torch.zeros_like(p) if p.grad is None else p.grad
@@ -711,6 +1086,9 @@ def homo_path(name, kind, homo, wrappers, expect, forbid, steps=3):
     log(f"path {name}: {steps} steps, losses {losses[0]} (CPU {losses[1]}), "
         f"host step ms {step_ms}, launches={launches}")
     check_launches(name, launches, expect, forbid)
+    if per_step is not None and launches[expect[0]] != per_step * steps:
+        problem(f"path {name}: {launches[expect[0]]} launches of "
+                f"{expect[0]} in {steps} steps, expected {per_step} a step")
     worst = max(abs(a - b) / abs(b) for a, b in zip(*losses))
     log(f"path {name}: worst relative loss difference to the CPU {worst}")
     if not worst <= LOSS_RTOL:
@@ -774,13 +1152,15 @@ def main() -> None:
         from repro_torch.kernels import _build
         from repro_torch.kernels.drelu_topk import drelu_bisect
         from repro_torch.kernels.drspmm import (drspmm_bwd_arena,
+                                                drspmm_bwd_bucket,
                                                 drspmm_bwd_learnable,
                                                 drspmm_dense_tier_bwd,
                                                 drspmm_dense_tier_fwd,
                                                 drspmm_dw_learnable,
                                                 drspmm_fwd_arena,
+                                                drspmm_fwd_bucket,
                                                 drspmm_fwd_learnable,
-                                                spmm_arena)
+                                                spmm_arena, spmm_bucket)
         from repro_torch.models.hgnn import (DRCircuitGNN, HomoGNN,
                                              homogenize)
         from repro_torch.train.circuit_trainer import CircuitTrainConfig
@@ -835,6 +1215,16 @@ def main() -> None:
     rows.update(check_learnable_kernels(
         homo_gat, (homo[0], homo[1], homo[2].cuda(), homo[3].cuda(),
                    homo[4])))
+    part0 = table1[0].to("cuda")
+    bucket = HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K,
+                            backend="bucket")
+    log(f"phase buckets: partition 0 (R, E) near "
+        f"{[b.nbr.shape for b in part0.edges['near'].adj.buckets]}, near "
+        f"transposed "
+        f"{[b.nbr.shape for b in part0.edges['near'].adj_t.buckets]}, "
+        f"pinned {[b.nbr.shape for b in part0.edges['pinned'].adj.buckets]},"
+        f" pin {[b.nbr.shape for b in part0.edges['pin'].adj.buckets]}")
+    rows.update(check_bucket_kernels(model, part0, bucket))
     log(f"phase kernels: {time.perf_counter() - t:.1f} s")
 
     # where a batch's time goes: host collation (numpy packing + the
@@ -857,9 +1247,13 @@ def main() -> None:
                 "spmm_arena": spmm_arena,
                 "drspmm_fwd_learnable": drspmm_fwd_learnable,
                 "drspmm_bwd_learnable": drspmm_bwd_learnable,
-                "drspmm_dw_learnable": drspmm_dw_learnable}
+                "drspmm_dw_learnable": drspmm_dw_learnable,
+                "drspmm_fwd_bucket": drspmm_fwd_bucket,
+                "drspmm_bwd_bucket": drspmm_bwd_bucket,
+                "spmm_bucket": spmm_bucket}
     drelu_kernels = list(wrappers)[:5]
-    learnable_kernels = list(wrappers)[6:]
+    learnable_kernels = list(wrappers)[6:9]
+    bucket_kernels = list(wrappers)[9:]
     fwd_kernels = ["drspmm_fwd_arena", "drspmm_dense_tier_fwd",
                    "drelu_bisect"]
     total = dict.fromkeys(wrappers, 0)
@@ -913,6 +1307,62 @@ def main() -> None:
         for k, v in launches.items():
             total[k] += v
         log(f"phase train-homo-{kind}: {time.perf_counter() - t:.1f} s")
+
+    # the serial per-relation path: single graphs, every step in lockstep
+    # with the CPU
+    serial = dict(hidden=HIDDEN, n_layers=LAYERS, k_cell=K, k_net=K,
+                  epochs=2, batch_size=1)
+    fused_only = ["drspmm_fwd_arena", "drspmm_dense_tier_fwd",
+                  "drspmm_bwd_arena", "drspmm_dense_tier_bwd", "spmm_arena"]
+    from repro_torch.core.drelu import drelu
+    h_net = torch.randn((part0.n_net, HIDDEN), device="cuda")
+    if drelu(h_net, HIDDEN) is not h_net:
+        problem("D-ReLU with k = width is not the identity")
+    for name, cfg, graphs, expect, forbid, count_of in (
+            ("train-table1-bucket",
+             CircuitTrainConfig(**serial, backend="bucket"), table1,
+             ["drspmm_fwd_bucket", "drspmm_bwd_bucket"],
+             fused_only + ["spmm_bucket"] + learnable_kernels,
+             lambda g: bucket_counts(g, K)),
+            ("train-table1-bucket-knet64",
+             CircuitTrainConfig(**dict(serial, k_net=HIDDEN),
+                                backend="bucket"), table1,
+             bucket_kernels, fused_only + learnable_kernels,
+             lambda g: bucket_counts(g, HIDDEN)),
+            ("train-table1-serial",
+             CircuitTrainConfig(**serial, use_plan=False), table1,
+             ["drspmm_fwd_arena", "drspmm_bwd_arena"],
+             bucket_kernels + ["spmm_arena"] + learnable_kernels,
+             serial_counts),
+            ("train-scale0.02-serial",
+             CircuitTrainConfig(**serial, use_plan=False), tiny,
+             ["drspmm_fwd_arena", "drspmm_bwd_arena",
+              "drspmm_dense_tier_fwd", "drspmm_dense_tier_bwd"],
+             bucket_kernels + ["spmm_arena"] + learnable_kernels,
+             serial_counts)):
+        t = time.perf_counter()
+        launches = lockstep_path(name, cfg, graphs, state, wrappers, expect,
+                                 forbid, count_of)
+        for k, v in launches.items():
+            total[k] += v
+        log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    n_homo = len(homo[0].buckets) + len(homo[1].buckets)
+    launches = homo_path("train-homo-gcn-bucket", "gcn", homo, wrappers,
+                         ["spmm_bucket"],
+                         ["spmm_arena"] + learnable_kernels + drelu_kernels
+                         + bucket_kernels[:2],
+                         backend="bucket", per_step=3 * n_homo)
+    for k, v in launches.items():
+        total[k] += v
+    log(f"phase train-homo-gcn-bucket: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    launches = learnable_slabs_path(model, part0, wrappers)
+    for k, v in launches.items():
+        total[k] += v
+    log(f"phase learnable-slabs-bucket: {time.perf_counter() - t:.1f} s")
 
     for k, r in rows.items():
         r["launches"] = total[k]

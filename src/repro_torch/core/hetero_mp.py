@@ -7,15 +7,19 @@ One HeteroConv layer (paper Fig. 1 / Fig. 5) = three edge-type modules::
     pin    : GraphConv  cell -> net
 
 with the cell-side merge Y_cell = max(near_out, pinned_out) (Eq. 8) and
-Y_net = pin_out (Eq. 9).
+Y_net = pin_out (Eq. 9).  Each node type is sparsified once per layer
+(D-ReLU -> CBSR) and shared by every relation consuming it; a type whose
+k is at least the width, or every type with D-ReLU off, stays dense.
 
-* With D-ReLU on, each node type is sparsified once per layer (D-ReLU ->
-  CBSR) and the whole message passing runs over the graph's
-  :class:`RelationPlan` in one ``drspmm_multi`` call: one arena-kernel
-  launch plus at most one dense-tier launch.
-* With D-ReLU off (``use_drelu=False``, the paper's dense-SpMM baseline),
-  the layer runs the reference's serial per-relation loop: one
-  ``ops.spmm`` per edge type over ``graph.edges``, then the same merge.
+* **plan path** (:func:`plan_applicable`: ``use_plan``, D-ReLU on,
+  ``backend="fused"`` and k < width on both types): the whole message
+  passing runs over the graph's :class:`RelationPlan` in one
+  ``drspmm_multi`` call, one arena-kernel launch plus at most one
+  dense-tier launch.
+* **serial path** (every other config): the reference's per-relation loop
+  over ``graph.edges``, one ``ops.drspmm`` per CBSR-sourced relation and
+  one ``ops.spmm`` per dense-sourced one, each with ``cfg.backend``, then
+  the same merge.
 """
 
 from __future__ import annotations
@@ -50,15 +54,18 @@ class HeteroMPConfig:
     dense_threshold: Optional[int] = None
     # False: the dense baseline (plain SpMM per relation, ReLU activation)
     use_drelu: bool = True
+    # executor family of the serial path's single-relation ops: "fused"
+    # (the reference's pallas_fused / xla_fused) or "bucket" (its pallas /
+    # xla: one launch per degree bucket); the plan path needs "fused"
+    backend: str = "fused"
+    # False pins the serial per-relation path
+    use_plan: bool = True
 
     def __post_init__(self):
         if self.drelu_backend not in DRELU_BACKENDS:
             raise ValueError(f"unknown drelu_backend {self.drelu_backend!r}; "
                              f"expected one of {DRELU_BACKENDS}")
-        if self.use_drelu and not (0 < self.k_cell < self.hidden
-                                   and 0 < self.k_net < self.hidden):
-            raise ValueError("the plan path needs 0 < k < hidden for both "
-                             "node types")
+        ops.check_backend(self.backend)
 
 
 class HeteroLayer(nn.Module):
@@ -95,10 +102,47 @@ def _sparsify(x_src: torch.Tensor, k: int, cfg: HeteroMPConfig) -> CBSR:
 
 
 def _sparsify_types(x_cell: torch.Tensor, x_net: torch.Tensor,
-                    cfg: HeteroMPConfig) -> Tuple[CBSR, CBSR]:
+                    cfg: HeteroMPConfig
+                    ) -> Tuple[Optional[CBSR], Optional[CBSR]]:
     """Per-type CBSR, computed once per layer and shared by every relation
-    consuming the type (``near`` and ``pin`` both read the cell slab)."""
-    return _sparsify(x_cell, cfg.k_cell, cfg), _sparsify(x_net, cfg.k_net, cfg)
+    consuming the type (``near`` and ``pin`` both read the cell slab);
+    None where the type stays dense (k >= width, or D-ReLU off)."""
+    c_cell = _sparsify(x_cell, cfg.k_cell, cfg) \
+        if cfg.use_drelu and cfg.k_cell < x_cell.shape[-1] else None
+    c_net = _sparsify(x_net, cfg.k_net, cfg) \
+        if cfg.use_drelu and cfg.k_net < x_net.shape[-1] else None
+    return c_cell, c_net
+
+
+def plan_applicable(cfg: HeteroMPConfig, hidden: int) -> bool:
+    """True iff the plan path serves this config: ``use_plan``, the fused
+    backend and CBSR aggregation on both node types.  The one gate shared
+    by the model and the trainer's plan attachment."""
+    return (cfg.use_plan and cfg.use_drelu and cfg.backend == "fused"
+            and cfg.k_cell < hidden and cfg.k_net < hidden)
+
+
+def single_graph_field(cfg) -> Optional[str]:
+    """The field of ``cfg`` (a :class:`HeteroMPConfig` or a trainer config)
+    that confines it to single graphs, or None: ``backend="bucket"`` and
+    ``use_plan=False`` run the per-relation ops over a graph's own
+    packings.  The reference collates batches into fused arenas, which
+    upgrade both to the fused kernels; the port's collation packs bucket
+    slabs, so batches and serving refuse both."""
+    if cfg.backend != "fused":
+        return "backend"
+    return None if cfg.use_plan else "use_plan"
+
+
+def _aggregate(graph: CircuitGraph, etype: str, x_src: torch.Tensor,
+               c: Optional[CBSR], cfg: HeteroMPConfig) -> torch.Tensor:
+    """A^ψ · D-ReLU(x_src) for one edge type: DR-SpMM over the source
+    type's shared CBSR ``c``, or the dense SpMM where ``c`` is None."""
+    es = graph.edges[etype]
+    if c is not None:
+        return ops.drspmm(es.adj, es.adj_t, c.values, c.idx,
+                          x_src.shape[-1], backend=cfg.backend)
+    return ops.spmm(es.adj, es.adj_t, x_src, backend=cfg.backend)
 
 
 def _merge(layer: HeteroLayer, x_cell: torch.Tensor, agg_near: torch.Tensor,
@@ -117,20 +161,18 @@ def hetero_conv(layer: HeteroLayer, over: Union[RelationPlan, CircuitGraph],
                 cfg: HeteroMPConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """One HeteroConv layer.  Returns (y_cell, y_net).
 
-    With D-ReLU on, ``over`` is the layer's :class:`RelationPlan` (tables
-    on the features' device).  With it off, ``over`` is the
-    :class:`CircuitGraph` whose edge packings the serial loop runs: three
-    ``ops.spmm`` calls (their arenas are memoised on the features'
-    device)."""
-    if not cfg.use_drelu:
-        es = over.edges
-        agg_near = ops.spmm(es["near"].adj, es["near"].adj_t, x_cell)
-        agg_pinned = ops.spmm(es["pinned"].adj, es["pinned"].adj_t, x_net)
-        agg_pin = ops.spmm(es["pin"].adj, es["pin"].adj_t, x_cell)
-        return _merge(layer, x_cell, agg_near, agg_pinned, agg_pin)
-    plan = over
+    ``over`` is the layer's :class:`RelationPlan` (tables on the features'
+    device) on the plan path, or the :class:`CircuitGraph` whose edge
+    packings the serial loop runs (their device tables are memoised per
+    adjacency)."""
     c_cell, c_net = _sparsify_types(x_cell, x_net, cfg)
-    aggs = ops.drspmm_multi(plan, {"cell": (c_cell.values, c_cell.idx),
-                                   "net": (c_net.values, c_net.idx)},
-                            x_cell.shape[-1])
-    return _merge(layer, x_cell, aggs["near"], aggs["pinned"], aggs["pin"])
+    if isinstance(over, RelationPlan):
+        aggs = ops.drspmm_multi(over, {"cell": (c_cell.values, c_cell.idx),
+                                       "net": (c_net.values, c_net.idx)},
+                                x_cell.shape[-1])
+        return _merge(layer, x_cell, aggs["near"], aggs["pinned"],
+                      aggs["pin"])
+    agg_near = _aggregate(over, "near", x_cell, c_cell, cfg)    # cell->cell
+    agg_pinned = _aggregate(over, "pinned", x_net, c_net, cfg)  # net->cell
+    agg_pin = _aggregate(over, "pin", x_cell, c_cell, cfg)      # cell->net
+    return _merge(layer, x_cell, agg_near, agg_pinned, agg_pin)

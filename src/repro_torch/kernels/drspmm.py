@@ -1,5 +1,5 @@
-"""DR-SpMM kernels: the chunk arena and the dense tier, forward and
-sampled backward.
+"""DR-SpMM kernels: the chunk arena, the dense tier and the degree
+buckets, forward and sampled backward.
 
 Forward (Alg. 1):   Y[i, :] += w_ij * scatter(x_vals[j], x_idx[j])  over j ∈ N(i)
 Backward (Alg. 2):  dV[j, t] = Σ_i w_ij * gY[i, x_idx[j, t]]  (SSpMM: Aᵀ·gY
@@ -33,6 +33,21 @@ Backward (Alg. 2):  dV[j, t] = Σ_i w_ij * gY[i, x_idx[j, t]]  (SSpMM: Aᵀ·gY
   its scatter to canonical order: the per-edge weight gradient ``(nnz,)``.
   CUDA source: ``csrc/drspmm_learnable_dw.cu``.
 
+Per-degree-bucket kernels (``ops``' ``backend="bucket"``): each takes one
+:class:`~repro_torch.graphs.ell.ELLBucket` whose ``(R, E)`` ``nbr``/``w``
+slabs are tensors on the operands' device and returns bucket-local rows,
+which the caller adds at the bucket's ``rows``.
+
+* :func:`drspmm_fwd_bucket` replaces ``drspmm_fwd_bucket``: the fp32
+  ``(R, dim)`` DR-SpMM of one bucket.  CUDA source:
+  ``csrc/drspmm_bucket_fwd.cu``.
+* :func:`drspmm_bwd_bucket` replaces ``drspmm_bwd_bucket``: the fp32
+  ``(R, k)`` sampled backward of one transposed bucket at ``xi_rows``.
+  CUDA source: ``csrc/drspmm_bucket_bwd.cu``.
+* :func:`spmm_bucket` replaces ``spmm_dense_bucket``: the fp32 ``(R, D)``
+  product of one bucket with a dense operand.  CUDA source:
+  ``csrc/spmm_bucket.cu``.
+
 Each wrapper runs its plain PyTorch version (``*_plain``) for a tensor on
 the CPU and launches its kernel for a tensor on a card; it never falls back
 from one to the other.  ``<wrapper>.launches`` counts kernel launches.
@@ -45,7 +60,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.graphs.ell import FusedELL
+from repro_torch.graphs.ell import ELLBucket, FusedELL
 from repro_torch.kernels import _build
 
 _c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
@@ -559,3 +574,129 @@ def drspmm_dw_learnable(f: FusedELL, nnz: int, gy: torch.Tensor,
 
 
 drspmm_dw_learnable.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernels 10-12: one degree bucket's (R, E) slab
+# ---------------------------------------------------------------------------
+
+def _check_bucket(b: ELLBucket) -> None:
+    """The slab tables a bucket kernel walks: contiguous int32 ``nbr`` and
+    float32 ``w`` of one (R, E) shape, E >= 1."""
+    if b.nbr.dtype != torch.int32 or b.w.dtype != torch.float32:
+        raise TypeError(f"bucket slabs must be int32 nbr / float32 w, got "
+                        f"{b.nbr.dtype}/{b.w.dtype}")
+    if b.nbr.dim() != 2 or b.nbr.shape != b.w.shape or b.nbr.shape[1] < 1:
+        raise ValueError(f"bucket slabs {tuple(b.nbr.shape)} / "
+                         f"{tuple(b.w.shape)} must share one (R, E >= 1) "
+                         f"shape")
+    if not (b.nbr.is_contiguous() and b.w.is_contiguous()):
+        raise ValueError("bucket slabs must be contiguous")
+
+
+def drspmm_fwd_bucket_plain(b: ELLBucket, x_vals: torch.Tensor,
+                            x_idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """Bucket-local fp32 Y (R, dim): densify the CBSR operand, then
+    weight-sum each slab row's neighbours."""
+    xd = _densify(x_vals, x_idx, dim)
+    return (xd[b.nbr.long()] * b.w.float()[..., None]).sum(1)
+
+
+def drspmm_fwd_bucket(b: ELLBucket, x_vals: torch.Tensor,
+                      x_idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """Bucket-local fp32 Y (R, dim) = slab(A) · densify(CBSR) of one degree
+    bucket whose slabs are tensors on the operands' device."""
+    if not _on_card(x_vals, x_idx, b.nbr, b.w):
+        return drspmm_fwd_bucket_plain(b, x_vals, x_idx, dim)
+    _check_cbsr(x_vals, x_idx, dim)
+    _check_bucket(b)
+    r, e = b.nbr.shape
+    out = torch.empty((r, dim), dtype=torch.float32, device=x_vals.device)
+    lib = _bucket_lib("drspmm_bucket_fwd", 5, 4)
+    rc = lib.drspmm_bucket_fwd(
+        _build.ptr(b.nbr), _build.ptr(b.w), _build.ptr(x_vals),
+        _build.ptr(x_idx), _build.ptr(out), r, e, x_vals.shape[1], dim,
+        _build.stream_of(out))
+    _build.check(lib, rc, "drspmm_bucket_fwd")
+    drspmm_fwd_bucket.launches += 1
+    return out
+
+
+drspmm_fwd_bucket.launches = 0
+
+
+def _bucket_lib(name: str, n_ptr: int, n_int: int) -> ctypes.CDLL:
+    lib = _build.library(name)
+    fn = getattr(lib, name)
+    fn.argtypes = [_c_ptr] * n_ptr + [_c_int] * n_int + [_c_ptr]
+    fn.restype = _c_int
+    return lib
+
+
+def drspmm_bwd_bucket_plain(b: ELLBucket, gy: torch.Tensor,
+                            xi_rows: torch.Tensor) -> torch.Tensor:
+    """Bucket-local fp32 dV (R, k): each slot samples its target's gY row
+    at its slab row's CBSR columns ``xi_rows`` (R, k)."""
+    sampled = gy.float()[b.nbr.long()[..., None],
+                         xi_rows.long()[:, None, :]]           # (R, E, k)
+    return (sampled * b.w.float()[..., None]).sum(1)
+
+
+def drspmm_bwd_bucket(b: ELLBucket, gy: torch.Tensor,
+                      xi_rows: torch.Tensor) -> torch.Tensor:
+    """Bucket-local fp32 dV (R, k) = sample(slab(Aᵀ) · gY, xi_rows) of one
+    transposed degree bucket whose slabs are tensors on the operands'
+    device; ``xi_rows`` is the CBSR indices at the bucket's rows."""
+    if not _on_card(gy, xi_rows, b.nbr, b.w):
+        return drspmm_bwd_bucket_plain(b, gy, xi_rows)
+    _check_bwd(gy, xi_rows)
+    _check_bucket(b)
+    r, e = b.nbr.shape
+    if xi_rows.shape[0] != r:
+        raise ValueError(f"xi_rows has {xi_rows.shape[0]} rows, the bucket "
+                         f"{r}")
+    k = xi_rows.shape[1]
+    out = torch.empty((r, k), dtype=torch.float32, device=gy.device)
+    lib = _bucket_lib("drspmm_bucket_bwd", 5, 4)
+    rc = lib.drspmm_bucket_bwd(
+        _build.ptr(b.nbr), _build.ptr(b.w), _build.ptr(gy),
+        _build.ptr(xi_rows), _build.ptr(out), r, e, k, gy.shape[1],
+        _build.stream_of(out))
+    _build.check(lib, rc, "drspmm_bucket_bwd")
+    drspmm_bwd_bucket.launches += 1
+    return out
+
+
+drspmm_bwd_bucket.launches = 0
+
+
+def spmm_bucket_plain(b: ELLBucket, x: torch.Tensor) -> torch.Tensor:
+    """Bucket-local fp32 Y (R, D): weight-sum each slab row's neighbour
+    rows of ``x``."""
+    return (x.float()[b.nbr.long()] * b.w.float()[..., None]).sum(1)
+
+
+def spmm_bucket(b: ELLBucket, x: torch.Tensor) -> torch.Tensor:
+    """Bucket-local fp32 Y (R, D) = slab(A) · x of one degree bucket whose
+    slabs are tensors on ``x``'s device."""
+    if not _on_card(x, b.nbr, b.w):
+        return spmm_bucket_plain(b, x)
+    _check_bucket(b)
+    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        raise TypeError(f"the operand must be a contiguous float32 matrix, "
+                        f"got {x.dtype} {tuple(x.shape)}")
+    if not 0 < x.shape[1] <= 256:
+        raise ValueError(f"dim {x.shape[1]} outside the kernel's range "
+                         f"(1..256)")
+    r, e = b.nbr.shape
+    out = torch.empty((r, x.shape[1]), dtype=torch.float32, device=x.device)
+    lib = _bucket_lib("spmm_bucket", 4, 3)
+    rc = lib.spmm_bucket(_build.ptr(b.nbr), _build.ptr(b.w), _build.ptr(x),
+                         _build.ptr(out), r, e, x.shape[1],
+                         _build.stream_of(out))
+    _build.check(lib, rc, "spmm_bucket")
+    spmm_bucket.launches += 1
+    return out
+
+
+spmm_bucket.launches = 0

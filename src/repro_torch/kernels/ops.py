@@ -3,11 +3,28 @@
 * ``drspmm_multi``: one hetero layer's whole message passing over a
   :class:`~repro_torch.graphs.ell.RelationPlan`, forward and sampled
   backward (the D-ReLU path);
+* ``drspmm``: one relation's DR-SpMM with the sampled backward (the serial
+  per-relation D-ReLU path);
 * ``spmm``: one relation's SpMM with a dense operand and the full backward
-  over the transposed arena (the D-ReLU-off DR-CircuitGNN and the GCN /
-  SAGE baselines);
+  over the transposed packing (the D-ReLU-off DR-CircuitGNN, a node type
+  with k >= width, and the GCN / SAGE baselines);
 * ``drspmm_learnable``: DR-SpMM whose edge weights are a differentiable
   canonical vector (the GAT baselines).
+
+The single-relation ops take a ``backend``, the reference's executor
+family without its device half:
+
+* ``"fused"`` (the reference's ``pallas_fused`` / ``xla_fused``): one
+  launch per direction over the relation's fused arena (kernels 1/4, 6,
+  7-9); ``drspmm`` sends a relation at or below the dense-tier crossover to
+  the dense-tier kernels 2/5 instead;
+* ``"bucket"`` (the reference's ``pallas`` / ``xla``): one launch per
+  degree bucket over the :class:`~repro_torch.graphs.ell.BucketedELL`
+  slabs (kernels 10-12), each bucket's rows added at ``rows``.
+
+A pre-fused adjacency (:class:`~repro_torch.graphs.ell.FusedELL`) has no
+bucket slabs, so it upgrades ``"bucket"`` to ``"fused"``, as in the
+reference (:func:`_effective_backend`).
 
 ``drspmm_multi``:
 
@@ -28,13 +45,33 @@ from __future__ import annotations
 import weakref
 from typing import Dict, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.graphs.ell import (BucketedELL, FusedELL, RelationPlan,
-                                    fuse_bucketed)
+from repro_torch.graphs.ell import (DENSE_TIER_AREA, DENSE_TIER_NNZ,
+                                    BucketedELL, ELLBucket, FusedELL,
+                                    RelationPlan, fuse_bucketed)
 from repro_torch.kernels import drspmm as _k
+from repro_torch.kernels import learnable as _learn
+
+BACKENDS = ("fused", "bucket")
+
+
+def check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{BACKENDS}")
+
+
+def _effective_backend(adj, backend: str) -> str:
+    """The executor family that runs ``adj``: a pre-fused arena has no
+    bucket slabs to loop over, so it upgrades ``"bucket"`` to ``"fused"``
+    (the reference's rule, without its traced-argument downgrade: the
+    port runs eagerly, so fusing is always possible)."""
+    check_backend(backend)
+    return "fused" if isinstance(adj, FusedELL) else backend
 
 
 def _multi_concat(plan: RelationPlan, vals, idxs):
@@ -178,10 +215,22 @@ def drspmm_multi(plan: RelationPlan,
 # device arenas of single adjacencies (spmm, drspmm_learnable)
 # ---------------------------------------------------------------------------
 
-# (id(pack), eids, device) -> (weakref to pack, device arena): fusing and
-# the copy to the card happen once per adjacency, so an epoch after the
-# first pays neither; an entry goes when its adjacency dies
-_DEVICE_ARENAS: Dict[tuple, tuple] = {}
+# (what, id(pack), device) -> (weakref to pack, device tables): fusing,
+# densifying and the copy to the card happen once per adjacency, so an
+# epoch after the first pays none of them; an entry goes when its
+# adjacency dies
+_DEVICE_TABLES: Dict[tuple, tuple] = {}
+
+
+def _memo(what, pack, device: torch.device, build):
+    key = (what, id(pack), str(device))
+    hit = _DEVICE_TABLES.get(key)
+    if hit is not None and hit[0]() is pack:
+        return hit[1]
+    val = build()
+    _DEVICE_TABLES[key] = (
+        weakref.ref(pack, lambda _: _DEVICE_TABLES.pop(key, None)), val)
+    return val
 
 
 def device_arena(pack: Union[BucketedELL, FusedELL], device, *,
@@ -194,19 +243,41 @@ def device_arena(pack: Union[BucketedELL, FusedELL], device, *,
     if isinstance(pack, FusedELL) and isinstance(pack.nbr, torch.Tensor) \
             and pack.nbr.device == device:
         return pack
-    key = (id(pack), eids, str(device))
-    hit = _DEVICE_ARENAS.get(key)
-    if hit is not None and hit[0]() is pack:
-        return hit[1]
-    f = pack if isinstance(pack, FusedELL) else fuse_bucketed(pack,
-                                                             eids=eids)
-    if eids and f.eid is None:
-        raise ValueError("drspmm_learnable needs an edge-id packing "
-                         "(pack_eid_slabs / pack_fused_eid_pair)")
-    f = f.to(device)
-    _DEVICE_ARENAS[key] = (
-        weakref.ref(pack, lambda _: _DEVICE_ARENAS.pop(key, None)), f)
-    return f
+
+    def build():
+        f = pack if isinstance(pack, FusedELL) else fuse_bucketed(pack,
+                                                                 eids=eids)
+        if eids and f.eid is None:
+            raise ValueError("drspmm_learnable needs an edge-id packing "
+                             "(pack_eid_slabs / pack_fused_eid_pair)")
+        return f.to(device)
+    return _memo(("arena", eids), pack, device, build)
+
+
+def device_buckets(adj: BucketedELL, device) -> BucketedELL:
+    """``adj`` with every bucket's slabs on ``device``: int32 ``nbr``,
+    float32 ``w`` and int64 ``rows`` (the ``index_add_`` index), copied
+    once per adjacency and device."""
+    device = resolve_device(device)
+
+    def build():
+        t = lambda a, dt: torch.from_numpy(np.asarray(a, dt)).to(device)
+        return BucketedELL(
+            buckets=tuple(ELLBucket(rows=t(b.rows, np.int64),
+                                    nbr=t(b.nbr, np.int32),
+                                    w=t(b.w, np.float32))
+                          for b in adj.buckets),
+            n_dst=adj.n_dst, n_src=adj.n_src, nnz=adj.nnz)
+    return _memo("buckets", adj, device, build)
+
+
+def device_dense(adj: Union[BucketedELL, FusedELL], device) -> torch.Tensor:
+    """``adj`` as a contiguous float32 (n_dst, n_src) matrix on
+    ``device`` (the single-relation dense tier), built once per adjacency
+    and device."""
+    device = resolve_device(device)
+    return _memo("dense", adj, device,
+                 lambda: torch.from_numpy(adj.to_dense()).to(device))
 
 
 def _dense_of(f: FusedELL, w: torch.Tensor) -> torch.Tensor:
@@ -220,37 +291,155 @@ def _dense_of(f: FusedELL, w: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# spmm: dense-operand SpMM, full backward
+# drspmm: one relation's DR-SpMM, sampled backward
 # ---------------------------------------------------------------------------
 
-class _SpMM(torch.autograd.Function):
-    """Caller-ordered Y = A·x; the backward is the same kernel over the
-    arena of Aᵀ with gY as the operand (full, not sampled)."""
+def _bucket_fwd(bk: BucketedELL, x_vals, x_idx, dim: int) -> torch.Tensor:
+    """Caller-ordered Y (n_dst, dim): kernel 10 per bucket, each bucket's
+    rows added at ``rows`` (its padding rows repeat row 0 with zero
+    weights, so the add must accumulate)."""
+    y = torch.zeros((bk.n_dst, dim), dtype=torch.float32,
+                    device=x_vals.device)
+    for b in bk.buckets:
+        y.index_add_(0, b.rows, _k.drspmm_fwd_bucket(b, x_vals, x_idx, dim))
+    return y
+
+
+def _bucket_bwd(bk_t: BucketedELL, gy, x_idx) -> torch.Tensor:
+    """dV (n_src, k) over the transposed buckets: kernel 11 per bucket at
+    the CBSR indices of the bucket's source rows."""
+    gv = torch.zeros((bk_t.n_dst, x_idx.shape[1]), dtype=torch.float32,
+                     device=gy.device)
+    for b in bk_t.buckets:
+        xi_rows = x_idx.index_select(0, b.rows)
+        gv.index_add_(0, b.rows, _k.drspmm_bwd_bucket(b, gy, xi_rows))
+    return gv
+
+
+class _DRSpMM(torch.autograd.Function):
+    """Caller-ordered Y = A·densify(CBSR) of one relation; the backward is
+    the sampled dV over the transposed packing, none for the indices.
+    ``kind`` picks the executor: ``"arena"`` (kernels 1/4 over the two
+    arenas), ``"dense"`` (kernels 2/5 over the two dense matrices) or
+    ``"bucket"`` (kernels 10/11 over the two bucket packings)."""
 
     @staticmethod
-    def forward(ctx, fa, fa_t, x):
-        ctx.fa_t = fa_t
-        return _k.spmm_arena(fa, x.float().contiguous()).index_select(
-            0, fa.gather)
+    def forward(ctx, kind, a, a_t, dim, x_vals, x_idx):
+        xv = x_vals.float().contiguous()
+        xi = x_idx.to(torch.int32).contiguous()
+        ctx.kind, ctx.a_t = kind, a_t
+        ctx.save_for_backward(xi)
+        if kind == "arena":
+            return _k.drspmm_fwd_arena(a, xv, xi, dim).index_select(
+                0, a.gather)
+        if kind == "dense":
+            return _k.drspmm_dense_tier_fwd(a, xv, xi, dim)
+        return _bucket_fwd(a, xv, xi, dim)
 
     @staticmethod
     def backward(ctx, gy):
-        if not ctx.needs_input_grad[2]:
-            return None, None, None
-        gx = _k.spmm_arena(ctx.fa_t, gy.float().contiguous())
-        return None, None, gx.index_select(0, ctx.fa_t.gather)
+        (xi,) = ctx.saved_tensors
+        gy = gy.float().contiguous()
+        a_t = ctx.a_t
+        if ctx.kind == "arena":
+            gv = _k.drspmm_bwd_arena(a_t, a_t.rows, gy, xi).index_select(
+                0, a_t.gather)
+        elif ctx.kind == "dense":
+            gv = _k.drspmm_dense_tier_bwd(a_t, gy, xi)
+        else:
+            gv = _bucket_bwd(a_t, gy, xi)
+        return None, None, None, None, gv, None
+
+
+def _dense_tier_single(adj) -> bool:
+    """A fused-family relation at or below the dense-tier crossover with a
+    small enough dense table runs as the dense tier (a collated arena,
+    nnz -1, never does)."""
+    return (0 <= adj.nnz <= DENSE_TIER_NNZ
+            and adj.n_dst * adj.n_src <= DENSE_TIER_AREA)
+
+
+def drspmm(adj: Union[BucketedELL, FusedELL],
+           adj_t: Union[BucketedELL, FusedELL], x_vals: torch.Tensor,
+           x_idx: torch.Tensor, dim: int, *, backend: str = "fused",
+           dense: bool = False) -> torch.Tensor:
+    """Y = A·densify(CBSR(x_vals, x_idx)) (n_dst, dim) of one relation,
+    differentiable in ``x_vals`` (the backward samples Aᵀ·gY at ``x_idx``,
+    Alg. 2).  ``adj``/``adj_t`` are the host packings of A and Aᵀ; their
+    device tables are built once per adjacency and device.
+
+    Under ``"fused"`` a relation at or below the dense-tier crossover runs
+    the dense-tier kernels on its own dense matrix, any other the arena
+    kernels on its own arena; under ``"bucket"`` (never dense) kernels 10/11
+    run once per degree bucket.  ``dense=True`` runs the oracle
+    ``A_dense @ densify(x)`` instead, for tests."""
+    dev = x_vals.device
+    if dense:                        # host packings only
+        return torch.from_numpy(adj.to_dense()).to(dev) @ _k._densify(
+            x_vals, x_idx, dim)
+    if _effective_backend(adj, backend) == "bucket":
+        return _DRSpMM.apply("bucket", device_buckets(adj, dev),
+                             device_buckets(adj_t, dev), dim, x_vals, x_idx)
+    if _dense_tier_single(adj):
+        return _DRSpMM.apply("dense", device_dense(adj, dev),
+                             device_dense(adj_t, dev), dim, x_vals, x_idx)
+    return _DRSpMM.apply("arena", device_arena(adj, dev),
+                         device_arena(adj_t, dev), dim, x_vals, x_idx)
+
+
+# ---------------------------------------------------------------------------
+# spmm: dense-operand SpMM, full backward
+# ---------------------------------------------------------------------------
+
+def _bucket_spmm(bk: BucketedELL, x: torch.Tensor) -> torch.Tensor:
+    """Caller-ordered Y (n_dst, D): kernel 12 per bucket, each bucket's
+    rows added at ``rows``."""
+    y = torch.zeros((bk.n_dst, x.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    for b in bk.buckets:
+        y.index_add_(0, b.rows, _k.spmm_bucket(b, x))
+    return y
+
+def _spmm_exec(kind: str, a, x: torch.Tensor) -> torch.Tensor:
+    if kind == "arena":
+        return _k.spmm_arena(a, x).index_select(0, a.gather)
+    return _bucket_spmm(a, x)
+
+
+class _SpMM(torch.autograd.Function):
+    """Caller-ordered Y = A·x; the backward is the same executor over Aᵀ
+    with gY as the operand (full, not sampled): kernel 6 over the two
+    arenas (``kind="arena"``) or kernel 12 over the two bucket packings
+    (``kind="bucket"``)."""
+
+    @staticmethod
+    def forward(ctx, kind, a, a_t, x):
+        ctx.kind, ctx.a_t = kind, a_t
+        return _spmm_exec(kind, a, x.float().contiguous())
+
+    @staticmethod
+    def backward(ctx, gy):
+        if not ctx.needs_input_grad[3]:
+            return None, None, None, None
+        return None, None, None, _spmm_exec(ctx.kind, ctx.a_t,
+                                            gy.float().contiguous())
 
 
 def spmm(adj: Union[BucketedELL, FusedELL], adj_t: Union[BucketedELL,
                                                          FusedELL],
-         x: torch.Tensor, *, dense: bool = False) -> torch.Tensor:
+         x: torch.Tensor, *, backend: str = "fused",
+         dense: bool = False) -> torch.Tensor:
     """Y = A·x (n_dst, D), differentiable in ``x``.  ``adj``/``adj_t`` are
-    the host packings of A and Aᵀ; their fused arenas are built and copied
-    to ``x``'s device once (:func:`device_arena`).  ``dense=True`` runs the
-    oracle ``A_dense @ x`` instead, for tests."""
+    the host packings of A and Aᵀ; their fused arenas (``"fused"``) or
+    bucket slabs (``"bucket"``) are copied to ``x``'s device once
+    (:func:`device_arena`, :func:`device_buckets`).  ``dense=True`` runs
+    the oracle ``A_dense @ x`` instead, for tests."""
     if dense:                        # host packings only
         return torch.from_numpy(adj.to_dense()).to(x.device) @ x
-    return _SpMM.apply(device_arena(adj, x.device),
+    if _effective_backend(adj, backend) == "bucket":
+        return _SpMM.apply("bucket", device_buckets(adj, x.device),
+                           device_buckets(adj_t, x.device), x)
+    return _SpMM.apply("arena", device_arena(adj, x.device),
                        device_arena(adj_t, x.device), x)
 
 
@@ -259,8 +448,9 @@ def spmm(adj: Union[BucketedELL, FusedELL], adj_t: Union[BucketedELL,
 # ---------------------------------------------------------------------------
 
 class _DRSpMMLearnable(torch.autograd.Function):
-    """Caller-ordered Y = A(w)·densify(CBSR); the backward gives dL/dw
-    (kernel 9) and dL/dx_vals (kernel 8), none for the indices."""
+    """Caller-ordered Y = A(w)·densify(CBSR) over the forward and
+    transposed edge-id arenas; the backward gives dL/dw (kernel 9) and
+    dL/dx_vals (kernel 8), none for the indices."""
 
     @staticmethod
     def forward(ctx, f, ft, nnz, dim, w_canon, x_vals, x_idx):
@@ -284,8 +474,57 @@ class _DRSpMMLearnable(torch.autograd.Function):
         return None, None, None, None, gw, gx, None
 
 
+def _slab_weights(wp: torch.Tensor, b: ELLBucket) -> ELLBucket:
+    """``b`` with its edge-id slab (``w`` = f32(id + 1), 0 on padding)
+    replaced by the weights ``wp[id]`` (``wp``: canonical weights plus a
+    trailing 0 that padding reads)."""
+    ids = b.w.long() - 1
+    nnz = wp.shape[0] - 1
+    return ELLBucket(rows=b.rows, nbr=b.nbr,
+                     w=wp[torch.where(ids < 0, nnz, ids)].contiguous())
+
+
+class _DRSpMMLearnableBucket(torch.autograd.Function):
+    """The per-bucket counterpart of :class:`_DRSpMMLearnable` over edge-id
+    slabs: each bucket's weights are gathered from ``w_canon``, then
+    kernel 10 (forward) and kernel 11 (dL/dx_vals over the transposed
+    slabs) run on them; dL/dw is the bucketed plain reduction
+    (``kernels/learnable.py::_bwd_w``), as in the reference."""
+
+    @staticmethod
+    def forward(ctx, fs, ts, nnz, dim, w_canon, x_vals, x_idx):
+        wp = torch.cat([w_canon.float(),
+                        w_canon.new_zeros(1, dtype=torch.float32)])
+        x_vals = x_vals.float().contiguous()
+        ctx.fs, ctx.ts, ctx.nnz = fs, ts, nnz
+        ctx.save_for_backward(wp, x_vals, x_idx)
+        y = torch.zeros((fs.n_dst, dim), dtype=torch.float32,
+                        device=x_vals.device)
+        for b in fs.buckets:
+            y.index_add_(0, b.rows, _k.drspmm_fwd_bucket(
+                _slab_weights(wp, b), x_vals, x_idx, dim))
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        wp, x_vals, x_idx = ctx.saved_tensors
+        gy = gy.float().contiguous()
+        gw = gx = None
+        if ctx.needs_input_grad[4]:
+            gw = _learn._bwd_w(ctx.fs, gy, x_vals, x_idx, ctx.nnz)
+        if ctx.needs_input_grad[5]:
+            gx = torch.zeros(x_idx.shape, dtype=torch.float32,
+                             device=gy.device)
+            for b in ctx.ts.buckets:
+                xi_rows = x_idx.index_select(0, b.rows)
+                gx.index_add_(0, b.rows, _k.drspmm_bwd_bucket(
+                    _slab_weights(wp, b), gy, xi_rows))
+        return None, None, None, None, gw, gx, None
+
+
 def drspmm_learnable(fwd, bwd, nnz: int, w_canon: torch.Tensor,
                      x_vals: torch.Tensor, x_idx: torch.Tensor, dim: int, *,
+                     backend: str = "fused",
                      dense: bool = False) -> torch.Tensor:
     """Y = A(w)·densify(CBSR(x)) (n_dst, dim), differentiable in both
     ``w_canon`` (nnz,) and ``x_vals`` (N, k).
@@ -293,14 +532,22 @@ def drspmm_learnable(fwd, bwd, nnz: int, w_canon: torch.Tensor,
     ``fwd``/``bwd`` are the forward and transposed edge-id packings: fused
     arenas (:func:`~repro_torch.graphs.ell.pack_fused_eid_pair`), on the
     host or already on the operands' device, or edge-id slabs
-    (:func:`~repro_torch.graphs.ell.pack_eid_slabs`).  ``dense=True`` runs
-    the oracle: the dense A(w) times the densified operand, differentiated
-    by autograd."""
+    (:func:`~repro_torch.graphs.ell.pack_eid_slabs`).  Under ``"fused"``
+    the slabs are fused into arenas (kernels 7-9); under ``"bucket"`` they
+    run bucket by bucket (kernels 10/11 and the plain dW reduction), and
+    fused arenas upgrade to ``"fused"``.  ``dense=True`` runs the oracle:
+    the dense A(w) times the densified operand, differentiated by
+    autograd."""
     dev = x_vals.device
-    f = device_arena(fwd, dev, eids=True)
+    xi = x_idx.to(torch.int32).contiguous()
     if dense:
+        f = device_arena(fwd, dev, eids=True)
         wa = _k._canon_slot_weights(f, nnz, w_canon)
         return _dense_of(f, wa) @ _k._densify(x_vals, x_idx, dim)
-    ft = device_arena(bwd, dev, eids=True)
-    return _DRSpMMLearnable.apply(f, ft, nnz, dim, w_canon, x_vals,
-                                  x_idx.to(torch.int32).contiguous())
+    if _effective_backend(fwd, backend) == "bucket":
+        return _DRSpMMLearnableBucket.apply(
+            device_buckets(fwd, dev), device_buckets(bwd, dev), nnz, dim,
+            w_canon, x_vals, xi)
+    return _DRSpMMLearnable.apply(device_arena(fwd, dev, eids=True),
+                                  device_arena(bwd, dev, eids=True), nnz,
+                                  dim, w_canon, x_vals, xi)

@@ -1,20 +1,23 @@
 """DR-CircuitGNN (paper Fig. 1) and the homogeneous baselines of Table 2.
 
 DR-CircuitGNN: per-type input projection -> N x HeteroConv -> per-cell
-linear head (congestion regression in [0, 1]).  With D-ReLU on, every
-layer runs its whole message passing over the graph's
-:class:`RelationPlan` (``core/hetero_mp.py``) and the inter-layer
-activation is D-ReLU in its dense form, as in the paper; with it off (the
-dense-SpMM baseline) each layer runs the serial per-relation SpMM loop and
-the activation is ReLU.  ``loss_fn`` and ``batched_loss_fn`` are the
-training objectives.
+linear head (congestion regression in [0, 1]).  Where the plan path
+applies (``core/hetero_mp.py::plan_applicable``) every layer runs its whole
+message passing over the graph's :class:`RelationPlan`; otherwise
+(``use_plan=False``, ``backend="bucket"``, k >= width on a node type, or
+D-ReLU off) each layer runs the serial per-relation loop over the graph's
+edge packings.  The inter-layer activation is D-ReLU in its dense form
+whenever D-ReLU is on, as in the paper (the identity for a type whose k
+is at least the width), and ReLU with it off (the dense-SpMM baseline).
+``loss_fn`` and ``batched_loss_fn`` are the training objectives.
 
 Baselines: GCN / GraphSAGE / GAT stacks on the homogenized graph
 (:func:`homogenize`: one node space, every edge, self-loops,
 mean-normalised) -- :class:`HomoGNN` and :func:`homo_forward`.  GCN and
 SAGE aggregate through ``ops.spmm``; the two GAT kinds through
 ``ops.drspmm_learnable`` with the dense hidden state as a CBSR operand
-(k = hidden, indices = iota).
+(k = hidden, indices = iota) over fused edge-id arenas, which run the
+fused kernels under either ``backend``.
 
 Weights keep the reference's ``(in, out)`` layout, so ``from_jax_params``
 copies a reference parameter tree over as it is.
@@ -33,7 +36,8 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.core.drelu import drelu
-from repro_torch.core.hetero_mp import HeteroLayer, HeteroMPConfig, hetero_conv
+from repro_torch.core.hetero_mp import (HeteroLayer, HeteroMPConfig,
+                                        hetero_conv, plan_applicable)
 from repro_torch.graphs.circuit import CircuitGraph, relation_plan_of
 from repro_torch.graphs.ell import (BucketedELL, RelationPlan, ell_to_coo,
                                     pack_ell_pair, pack_fused_eid_pair)
@@ -101,11 +105,13 @@ class DRCircuitGNN(nn.Module):
         if spec is None:
             spec = spec_for(self.layers, self.hidden)
         h = (graph.x_cell @ self.in_cell, graph.x_net @ self.in_net)
+        # the serial path reads the graph's edge packings: no plan is
+        # built or read
+        over = _device_plan(graph, dev, cfg.dense_threshold) \
+            if plan_applicable(cfg, self.hidden) else graph
         if cfg.use_drelu:
-            over = _device_plan(graph, dev, cfg.dense_threshold)
             act = lambda hc, hn: (drelu(hc, cfg.k_cell), drelu(hn, cfg.k_net))
-        else:                   # dense baseline: no plan is built or read
-            over = graph
+        else:                   # the dense baseline
             act = lambda hc, hn: (torch.relu(hc), torch.relu(hn))
 
         def body(layer, state, over):
@@ -285,8 +291,10 @@ class HomoGNN(nn.Module):
         return self.w_in.device
 
     def forward(self, adj, adj_t, x, n_cell: int,
-                spec: Optional[BackboneSpec] = None) -> torch.Tensor:
-        return homo_forward(self, adj, adj_t, x, n_cell, spec)
+                spec: Optional[BackboneSpec] = None, *,
+                backend: str = "fused") -> torch.Tensor:
+        return homo_forward(self, adj, adj_t, x, n_cell, spec,
+                            backend=backend)
 
     @classmethod
     def from_jax_params(cls, p, kind: str, *, device="cuda") -> "HomoGNN":
@@ -307,15 +315,16 @@ class HomoGNN(nn.Module):
         return model
 
 
-def _homo_body(kind: str, adj, adj_t):
+def _homo_body(kind: str, adj, adj_t, backend: str):
     """One baseline layer (ReLU included) over the host packings
-    ``adj``/``adj_t``; their device arenas are memoised."""
+    ``adj``/``adj_t``; their device tables are memoised."""
     def body(layer, state, _const):
         (h,) = state
         if kind == "gcn":
-            return (torch.relu(ops.spmm(adj, adj_t, h) @ layer.w),)
+            return (torch.relu(ops.spmm(adj, adj_t, h, backend=backend)
+                               @ layer.w),)
         if kind == "sage":
-            agg = ops.spmm(adj, adj_t, h)
+            agg = ops.spmm(adj, adj_t, h, backend=backend)
             return (torch.relu(agg @ layer.w + h @ layer.w_self),)
         fwd_e, bwd_e, dst_c, src_c, w_c, nnz = \
             learnable_edge_packing(adj, h.device)
@@ -336,7 +345,7 @@ def _homo_body(kind: str, adj, adj_t):
             att = w_c * torch.exp(e_log - m[dst_c])
             s_self = torch.exp(lr_self - m)
             num = ops.drspmm_learnable(fwd_e, bwd_e, nnz, att, hw,
-                                       _iota_idx(hw), hd)
+                                       _iota_idx(hw), hd, backend=backend)
             num = num + s_self[:, None] * hw
             den = _segment_sum(att, dst_c, n) + s_self
         else:
@@ -347,21 +356,25 @@ def _homo_body(kind: str, adj, adj_t):
             m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
             att = torch.exp(logit - m[dst_c])
             num = ops.drspmm_learnable(fwd_e, bwd_e, nnz, att, hw,
-                                       _iota_idx(hw), hw.shape[1])
+                                       _iota_idx(hw), hw.shape[1],
+                                       backend=backend)
             den = _segment_sum(att, dst_c, n)
         return (torch.relu(num / torch.clamp(den, min=1e-6)[:, None]),)
     return body
 
 
 def homo_forward(model: HomoGNN, adj, adj_t, x: torch.Tensor, n_cell: int,
-                 spec: Optional[BackboneSpec] = None) -> torch.Tensor:
+                 spec: Optional[BackboneSpec] = None, *,
+                 backend: str = "fused") -> torch.Tensor:
     """Per-cell prediction (n_cell,) of a baseline stack on the
     homogenized graph ``(adj, adj_t, x)`` (:func:`homogenize`); ``x`` must
-    live on the model's device."""
+    live on the model's device.  ``backend`` picks the aggregation's
+    executor family (``kernels/ops.py``)."""
     if x.device != model.device:
         raise ValueError(f"features on {x.device}, model on {model.device}")
+    ops.check_backend(backend)
     if spec is None:
         spec = spec_for(model.layers, model.hidden)
     (h,) = apply_stack(model.layers, (x @ model.w_in,),
-                       _homo_body(model.kind, adj, adj_t), spec)
+                       _homo_body(model.kind, adj, adj_t, backend), spec)
     return torch.sigmoid(h @ model.head_w + model.head_b)[:n_cell, 0]

@@ -18,7 +18,8 @@ block-diagonal collation (``graphs/collate.py``):
   instead of being served.
 
 ``stats()`` reports requests, batches, graphs/s, p50/p95 latency and the
-collated cell padding.  The online loop, healing, chaos hooks, multi-tenant
+collated cell padding.  The engine serves ``backend="fused"`` with
+``use_plan=True`` and refuses other configs at construction.  The online loop, healing, chaos hooks, multi-tenant
 heads, the device ring and tracing come later in the port.
 """
 
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.hetero_mp import HeteroMPConfig
+from repro_torch.core.hetero_mp import HeteroMPConfig, single_graph_field
 from repro_torch.core.parallel import prefetch
 from repro_torch.graphs.circuit import CircuitGraph
 from repro_torch.graphs.collate import collate_graphs, quantize_up
@@ -81,6 +82,12 @@ class CircuitServeEngine:
 
     def __init__(self, model: DRCircuitGNN, cfg: HeteroMPConfig, *,
                  max_batch: int = 8, n_pack_threads: int = 3, device="cuda"):
+        field = single_graph_field(cfg)
+        if field is not None:
+            raise NotImplementedError(
+                f"serving with {field}={getattr(cfg, field)!r} is not "
+                f"ported yet: the reference serves collated fused arenas, "
+                f"which run the fused kernels under it")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, engine on "

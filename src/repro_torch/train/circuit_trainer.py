@@ -10,11 +10,16 @@ moments and the step counter stay) and counted in ``nonfinite_grad_steps``.
 
 Plans and collated batches are built once on the host and cached on the
 card, per graph and per member-id tuple, so an epoch after the first pays
-no host packing.  With ``use_drelu=False`` (the paper's dense-SpMM
-baseline) no plan is built: each layer runs one ``ops.spmm`` per relation,
-whose arenas are memoised on the card per edge packing.  The reference's
-observability, chaos, data-parallel and K-profiling hooks are not ported:
-setting them raises.
+no host packing.  Where the plan path does not apply
+(``core/hetero_mp.py::plan_applicable``: ``use_plan=False``,
+``backend="bucket"``, k >= hidden on a node type, or ``use_drelu=False``,
+the paper's dense-SpMM baseline) no plan is built: each layer runs one
+single-relation op per relation, whose device tables are memoised on the
+card per edge packing.  ``backend="bucket"`` and ``use_plan=False`` train
+single graphs only: the reference collates batches into fused arenas,
+which run the fused kernels under either setting, and the port's
+collation does not pack those yet.  The reference's observability, chaos,
+data-parallel and K-profiling hooks are not ported: setting them raises.
 """
 
 from __future__ import annotations
@@ -27,9 +32,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.hetero_mp import DRELU_BACKENDS, HeteroMPConfig
+from repro_torch.core.hetero_mp import (DRELU_BACKENDS, HeteroMPConfig,
+                                        plan_applicable, single_graph_field)
 from repro_torch.graphs.circuit import CircuitGraph, relation_plan_of
 from repro_torch.graphs.collate import collate_graphs
+from repro_torch.kernels import ops
 from repro_torch.models.backbone import BackboneSpec
 from repro_torch.models.hgnn import DRCircuitGNN, batched_loss_fn, loss_fn
 from repro_torch.optim.adamw import adamw_init, adamw_update
@@ -49,7 +56,9 @@ class CircuitTrainConfig:
     epochs: int = 10
     drelu_backend: str = "topk"       # "topk" | "bisect" (CUDA kernel)
     use_drelu: bool = True            # False: the dense-SpMM baseline
-    use_plan: bool = True             # not ported: must stay True
+    # "fused" | "bucket" (per-degree-bucket kernels, single graphs only)
+    backend: str = "fused"
+    use_plan: bool = True             # False: serial path, single graphs
     n_shards: int = 0                 # not ported: must stay 0 or 1
     # dense-tier crossover for single-graph plans (None: DENSE_TIER_NNZ);
     # collated batches are tiered at pack time with the constant
@@ -60,22 +69,28 @@ class CircuitTrainConfig:
     wiring: str = "plain"             # plain | residual | dense
 
     def __post_init__(self):
-        unported = {"auto_k": self.auto_k, "use_plan": not self.use_plan,
-                    "n_shards": self.n_shards > 1}
+        unported = {"auto_k": self.auto_k, "n_shards": self.n_shards > 1}
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(
                 f"CircuitTrainConfig fields {bad} are set away from their "
                 f"defaults; the port does not have these paths yet")
-        if self.use_drelu and not (self.k_cell < self.hidden
-                                   and self.k_net < self.hidden):
-            raise NotImplementedError(
-                f"D-ReLU with k_cell={self.k_cell} or k_net={self.k_net} >= "
-                f"hidden={self.hidden} needs the serial per-relation "
-                f"DR-SpMM path, which the port does not have yet")
         if self.drelu_backend not in DRELU_BACKENDS:
             raise ValueError(f"unknown drelu_backend {self.drelu_backend!r}; "
                              f"expected one of {DRELU_BACKENDS}")
+        ops.check_backend(self.backend)
+        check_batchable(self, self.batch_size)
+
+
+def check_batchable(cfg: CircuitTrainConfig, batch_size: int) -> None:
+    """Raise for batches of more than one graph under a single-graph
+    setting (:func:`~repro_torch.core.hetero_mp.single_graph_field`)."""
+    field = single_graph_field(cfg)
+    if batch_size > 1 and field is not None:
+        raise NotImplementedError(
+            f"{field}={getattr(cfg, field)!r} with batch_size={batch_size}:"
+            f" batched training under it is not ported yet (train single "
+            f"graphs, batch_size=1)")
 
 
 class CircuitTrainer:
@@ -110,7 +125,10 @@ class CircuitTrainer:
                                      k_net=cfg.k_net,
                                      drelu_backend=cfg.drelu_backend,
                                      dense_threshold=cfg.dense_threshold,
-                                     use_drelu=cfg.use_drelu)
+                                     use_drelu=cfg.use_drelu,
+                                     backend=cfg.backend,
+                                     use_plan=cfg.use_plan)
+        self._with_plan = plan_applicable(self.mp_cfg, cfg.hidden)
         self.spec = BackboneSpec(depth=cfg.n_layers, hidden=cfg.hidden,
                                  wiring=cfg.wiring, remat=cfg.remat)
         self.params = list(model.parameters())
@@ -133,13 +151,13 @@ class CircuitTrainer:
 
     def _planned(self, g: CircuitGraph) -> CircuitGraph:
         """``g`` on the device with its relation plan attached (cached).
-        With D-ReLU off no plan is built: the layers read ``g``'s edge
-        packings, whose device arenas ``ops.spmm`` memoises."""
+        Where the plan path does not apply no plan is built: the layers
+        read ``g``'s edge packings, whose device tables the ops memoise."""
         hit = self._plan_cache.get(id(g))
         if hit is not None and hit[0] is g:
             return hit[1]
         pg = g
-        if self.cfg.use_drelu:
+        if self._with_plan:
             pg = dataclasses.replace(
                 g, plan=relation_plan_of(g, self.cfg.dense_threshold))
         pg = pg.to(self.device)
@@ -153,7 +171,7 @@ class CircuitTrainer:
         hit = self._batch_cache.get(key)
         if hit is not None and all(a is b for a, b in zip(hit[0], graphs)):
             return hit[1]
-        batch = collate_graphs(graphs, with_plan=self.cfg.use_drelu,
+        batch = collate_graphs(graphs, with_plan=self._with_plan,
                                device=self.device)
         entry = (batch.graph, batch.cell_weight, batch.n_real)
         self._batch_cache[key] = (tuple(graphs), entry)
@@ -190,6 +208,7 @@ class CircuitTrainer:
             raise NotImplementedError("data-parallel steps (devices=) are "
                                       "not ported yet")
         b = self.cfg.batch_size if batch_size is None else batch_size
+        check_batchable(self.cfg, b)
         losses, weights = [], []
         if b <= 1:
             for g in graphs:

@@ -1,8 +1,9 @@
 """PyTorch port on a card: each CUDA kernel against its plain PyTorch
 version, the serve engine on the card against the port's CPU forward, one
 training step on the card against the same step on the CPU (the D-ReLU
-trainer, the dense-SpMM trainer and the homogeneous baselines), and the
-concurrent relation modules against the sequential ones.
+trainer, the dense-SpMM trainer, the serial per-bucket trainer and the
+homogeneous baselines), and the concurrent relation modules against the
+sequential ones.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs on a machine with the card
@@ -22,8 +23,9 @@ from repro_torch.core import parallel
 from repro_torch.core.hetero_mp import HeteroMPConfig
 from repro_torch.graphs.circuit import (EDGE_SCHEMA, EDGE_TYPES,
                                         relation_plan_of)
-from repro_torch.graphs.ell import (build_relation_plan, ell_to_coo,
-                                    fuse_bucketed, pack_fused_eid_pair)
+from repro_torch.graphs.ell import (ELLBucket, build_relation_plan,
+                                    ell_to_coo, fuse_bucketed,
+                                    pack_ell, pack_fused_eid_pair)
 from repro_torch.graphs.generator import generate_design
 from repro_torch.kernels import drelu_topk
 from repro_torch.kernels import drspmm as tk
@@ -340,6 +342,108 @@ def test_homo_step_on_card_matches_cpu(cuda, kind):
     assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
     for p, q in zip(gpu.parameters(), cpu.parameters()):
         _rel_close(p.grad, q.grad)
+
+
+def _bucket_cases(device):
+    """The buckets of a scale-0.02 ``near`` relation (and its transpose),
+    plus one row of 300 slots, as device slabs."""
+    g = generate_design(1, "medium", SCALE)[0]
+    rng = np.random.default_rng(4)
+    n = 60
+    dst = np.concatenate([np.full(300, 7), rng.integers(0, n, 200)])
+    src = rng.integers(0, n, dst.shape[0])
+    wide = pack_ell(dst, src, rng.random(dst.shape[0]).astype(np.float32)
+                    + 0.1, n, n)
+    out = []
+    for adj in (g.edges["near"].adj, g.edges["near"].adj_t, wide):
+        bk = tops.device_buckets(adj, device)
+        out += [(adj.n_src, b) for b in bk.buckets]
+    assert max(b.nbr.shape[1] for _n, b in out) > 256
+    return out
+
+
+@pytest.mark.parametrize("k,dim", [(8, 32), (16, 64), (40, 64), (16, 96),
+                                   (40, 96), (8, 256)])
+def test_bucket_fwd_kernel_matches_plain(cuda, k, dim):
+    """Kernel 10 on every bucket; every fifth operand row repeats a column
+    (the broadcast fallback), and k 40 takes the wide-row branch."""
+    for n_src, b in _bucket_cases(cuda):
+        xv, xi = _learnable_operand(n_src, k, dim, k, cuda)
+        before = tk.drspmm_fwd_bucket.launches
+        y = tk.drspmm_fwd_bucket(b, xv, xi, dim)
+        torch.cuda.synchronize()
+        assert tk.drspmm_fwd_bucket.launches == before + 1
+        assert_close(y.cpu().numpy(), tk.drspmm_fwd_bucket_plain(
+            b, xv, xi, dim).cpu().numpy())
+
+
+@pytest.mark.parametrize("k", [4, 16, 32, 40, 64])
+def test_bucket_bwd_kernel_matches_plain(cuda, k):
+    """Kernel 11 on every bucket at ``xi_rows`` of the bucket's rows;
+    k > 32 runs the wide variant."""
+    for n_src, b in _bucket_cases(cuda):
+        _, xi = _learnable_operand(int(b.rows.max()) + 1, k, 64, k, cuda)
+        xi_rows = xi.index_select(0, b.rows).contiguous()
+        gy = torch.randn((n_src, 64),
+                         generator=torch.Generator().manual_seed(k)).to(cuda)
+        before = tk.drspmm_bwd_bucket.launches
+        dv = tk.drspmm_bwd_bucket(b, gy, xi_rows)
+        torch.cuda.synchronize()
+        assert tk.drspmm_bwd_bucket.launches == before + 1
+        assert_close(dv.cpu().numpy(), tk.drspmm_bwd_bucket_plain(
+            b, gy, xi_rows).cpu().numpy())
+
+
+@pytest.mark.parametrize("dim", [32, 64, 96, 256])
+def test_spmm_bucket_kernel_matches_plain(cuda, dim):
+    for n_src, b in _bucket_cases(cuda):
+        x = torch.randn((n_src, dim),
+                        generator=torch.Generator().manual_seed(dim)).to(cuda)
+        before = tk.spmm_bucket.launches
+        y = tk.spmm_bucket(b, x)
+        torch.cuda.synchronize()
+        assert tk.spmm_bucket.launches == before + 1
+        assert_close(y.cpu().numpy(), tk.spmm_bucket_plain(b, x).cpu().numpy())
+
+
+def test_bucket_kernels_on_an_inert_bucket(cuda):
+    """An empty matrix's one all-zero bucket writes zeros."""
+    b = ELLBucket(rows=torch.zeros(8, dtype=torch.int64, device=cuda),
+                  nbr=torch.zeros((8, 1), dtype=torch.int32, device=cuda),
+                  w=torch.zeros((8, 1), device=cuda))
+    xv, xi = _learnable_operand(3, 4, 64, 0, cuda)
+    assert not tk.drspmm_fwd_bucket(b, xv, xi, 64).any()
+    assert not tk.drspmm_bwd_bucket(b, torch.randn(3, 64, device=cuda),
+                                    xi[[0] * 8]).any()
+    assert not tk.spmm_bucket(b, torch.randn(3, 64, device=cuda)).any()
+
+
+@pytest.mark.parametrize("k_net", [K, HIDDEN])
+def test_trainer_bucket_step_on_card_matches_cpu(cuda, k_net):
+    """A single-graph ``backend="bucket"`` step on the card launches
+    kernels 10/11 (and 12 for the dense net type at k_net = hidden) and
+    none of the fused family, and matches the CPU step."""
+    g = generate_design(1, "medium", SCALE)[:1]
+    cfg = CircuitTrainConfig(hidden=HIDDEN, k_cell=K, k_net=k_net, lr=1e-3,
+                             backend="bucket")
+    gpu = CircuitTrainer(cfg, 16, 16, device=cuda)
+    cpu_model = DRCircuitGNN(16, 16, HIDDEN, LAYERS, device="cpu")
+    cpu_model.load_state_dict(gpu.model.state_dict())
+    cpu = CircuitTrainer(cfg, 16, 16, model=cpu_model, device="cpu")
+    fused = [tk.drspmm_fwd_arena, tk.drspmm_bwd_arena,
+             tk.drspmm_dense_tier_fwd, tk.drspmm_dense_tier_bwd,
+             tk.spmm_arena]
+    bucket = [tk.drspmm_fwd_bucket, tk.drspmm_bwd_bucket, tk.spmm_bucket]
+    before = [f.launches for f in fused + bucket]
+    loss_gpu = gpu.train_epoch(g)
+    loss_cpu = cpu.train_epoch(g)
+    after = [f.launches for f in fused + bucket]
+    assert after[:5] == before[:5]
+    assert after[5] > before[5] and after[6] > before[6]
+    assert (after[7] > before[7]) == (k_net == HIDDEN)
+    assert abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    for (n, p), q in zip(gpu.model.named_parameters(), cpu.params):
+        _rel_close(p, q)
 
 
 def test_run_fused_on_card_equals_sequential(cuda):

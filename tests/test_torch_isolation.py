@@ -100,12 +100,18 @@ def test_entry_points_refuse_missing_card(monkeypatch):
         tops.device_arena(adj, "cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tops.device_arena(adj, "cuda", eids=True)
+    # and the serial path's bucket slabs and dense matrices theirs
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tops.device_buckets(adj, "cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tops.device_dense(adj, "cuda")
 
 
 KERNEL_WRAPPERS = ("drspmm_fwd_arena", "drspmm_dense_tier_fwd",
                    "drspmm_bwd_arena", "drspmm_dense_tier_bwd", "spmm_arena",
                    "drspmm_fwd_learnable", "drspmm_bwd_learnable",
-                   "drspmm_dw_learnable")
+                   "drspmm_dw_learnable", "drspmm_fwd_bucket",
+                   "drspmm_bwd_bucket", "spmm_bucket")
 
 
 @pytest.mark.parametrize("name", KERNEL_WRAPPERS)
@@ -126,7 +132,9 @@ def test_wrappers_never_run_plain_on_card(cuda, monkeypatch):
     monkeypatch.setattr(drspmm, "drspmm_dense_tier_bwd_plain", boom)
     monkeypatch.setattr(drelu_topk, "drelu_bisect_plain", boom)
     for name in ("spmm_arena_plain", "drspmm_fwd_learnable_plain",
-                 "drspmm_bwd_learnable_plain", "drspmm_dw_learnable_plain"):
+                 "drspmm_bwd_learnable_plain", "drspmm_dw_learnable_plain",
+                 "drspmm_fwd_bucket_plain", "drspmm_bwd_bucket_plain",
+                 "spmm_bucket_plain"):
         monkeypatch.setattr(drspmm, name, boom)
     batch = tcollate.collate_graphs(generate_design(0, "small", 0.02),
                                     device=cuda)
@@ -152,4 +160,8 @@ def test_wrappers_never_run_plain_on_card(cuda, monkeypatch):
                       device=cuda).expand(adj.n_src, 64).contiguous()
     fwd, bwd, *_rest, nnz = learnable_edge_packing(adj, cuda)
     tops.drspmm_learnable(fwd, bwd, nnz, w, x, xi, 64).sum().backward()
+    tops.spmm(adj, adj_t, x, backend="bucket").sum().backward()
+    v = torch.randn((adj.n_src, 8), device=cuda, requires_grad=True)
+    vi = xi[:, :8].contiguous()
+    tops.drspmm(adj, adj_t, v, vi, 64, backend="bucket").sum().backward()
     torch.cuda.synchronize()

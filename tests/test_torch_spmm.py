@@ -158,9 +158,12 @@ def test_model_dense_matches(params, designs, k):
 
 
 def test_config_rejects_large_k_only_with_drelu():
-    with pytest.raises(ValueError, match="0 < k < hidden"):
-        HeteroMPConfig(hidden=HIDDEN, k_cell=HIDDEN)
+    """k >= hidden is accepted with D-ReLU on (that type stays dense on
+    the serial path); an unknown backend is what the config rejects."""
+    HeteroMPConfig(hidden=HIDDEN, k_cell=HIDDEN)
     HeteroMPConfig(hidden=HIDDEN, k_cell=HIDDEN, use_drelu=False)
+    with pytest.raises(ValueError, match="backend"):
+        HeteroMPConfig(hidden=HIDDEN, backend="nope")
 
 
 def test_collate_without_plan(designs):

@@ -243,8 +243,8 @@ def test_trainer_skips_nonfinite_step(designs):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(auto_k=True), dict(k_cell=64), dict(use_plan=False),
-    dict(n_shards=2)])
+    dict(auto_k=True), dict(backend="bucket", batch_size=2),
+    dict(use_plan=False, batch_size=2), dict(n_shards=2)])
 def test_trainer_refuses_unported_fields(kw):
     with pytest.raises(NotImplementedError, match=next(iter(kw))):
         CircuitTrainConfig(**kw)
