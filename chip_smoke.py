@@ -44,7 +44,24 @@ weights and optimizer state:
 12. ``train-homo-gcn-bucket``: the GCN baseline on the per-bucket SpMM
     kernel;
 13. ``learnable-slabs-bucket``: one call of the edge-id slab entry point
-    of ``drspmm_learnable`` under ``backend="bucket"``.
+    of ``drspmm_learnable`` under ``backend="bucket"``;
+
+and serves the dense LM at qwen3-0.6b's full width (random weights from a
+seed, fp32 on the card, computed in bf16):
+
+14. ``kernel-flash``: the flash-attention kernel against its plain version
+    at the q/k/v of a prefill's first layer (captured), at S 1000 (ragged
+    tails, bf16 and fp32), in fp32, at head dims 32 and 128, and
+    non-causal (Sq 128, Sk 256); timed beside
+    ``scaled_dot_product_attention``;
+15. ``serve-lm-qwen3-0.6b``: ``examples/serve_lm.py`` at depth 28: 4
+    prompts of 1,008 tokens padded to 1,024, prefill (28 flash launches),
+    16 greedy decode steps (none); decode at S-1 reproduces the prefill's
+    last logits; a profiler breakdown of a prefill and a decode step;
+16. ``serve-lm-fp32-depth2``: full width, 2 layers, fp32: the card's
+    prefill + 8 decode steps against the port's CPU path;
+17. ``serve-lm-engine``: ``ServeEngine`` (4 slots, s_max 128) over 8 ragged
+    requests, slots reused, no flash launch.
 
 Every kernel's launch count is zeroed just before each path and read just
 after; a kernel that the path should run and did not, or one it must not
@@ -60,6 +77,7 @@ non-zero.  Needs one card; imports no JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -72,6 +90,7 @@ HIDDEN, K, LAYERS, FEAT = 64, 16, 2, 16
 SEED = 0
 H100_BYTES_PER_S = 3.35e12        # HBM3, SXM part
 H100_F32_PER_S = 67e12            # fp32 outside the tensor cores
+H100_BF16_PER_S = 989e12          # bf16 on the tensor cores, dense
 CELL_ATOL = 1e-4                  # served vs CPU forward, per cell
 CELL_SHARE = 0.999                # share of cells that must be within it
 LOSS_RTOL = 1e-4                  # training step loss, card vs CPU
@@ -118,8 +137,10 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, n_ops: float):
-    t_b, t_o = n_bytes / H100_BYTES_PER_S, n_ops / H100_F32_PER_S
+def bound(n_bytes: float, n_ops: float, peak: float = H100_F32_PER_S):
+    """The least time (ms) for the bytes and operations at the card's
+    memory rate and ``peak`` operation rate, and which of the two binds."""
+    t_b, t_o = n_bytes / H100_BYTES_PER_S, n_ops / peak
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -267,14 +288,15 @@ def coo_csr(dst, src, w, shape):
 
 def record_calls(module, name, run):
     """Run ``run()`` with the kernel wrapper ``module.name`` wrapped to
-    record every call's arguments; returns the list of argument tuples.
+    record every call's positional arguments; returns the list of argument
+    tuples.
     The wrapper counts its launches on the module-level name, so the
     stand-in carries the counter while it is installed."""
     seen, fn = [], getattr(module, name)
 
-    def rec(*args):
+    def rec(*args, **kw):
         seen.append(args)
-        return fn(*args)
+        return fn(*args, **kw)
 
     rec.launches = fn.launches
     setattr(module, name, rec)
@@ -1140,6 +1162,302 @@ def modules_time(g, reps=REPS):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the dense LM (qwen3-0.6b at full width): kernel 13 and the serving paths
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-0.6b"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 1008, 16   # examples/serve_lm.py's layout
+# bf16, 28 layers: decode at S-1 against the prefill's last logits, rel L2
+# (the two round the same numbers through differently shaped products)
+DECODE_RTOL = 5e-2
+FP32_LM_RTOL = 1e-4          # fp32 depth 2: the card's logits vs the CPU's
+CARD = ""                    # nvidia-smi's name and power limit
+
+
+def lm_tokens(vocab, batch, prompt, total, seed):
+    """``examples/serve_lm.py``'s prompts: ``prompt`` random tokens padded
+    with zeros to the generation horizon ``total``."""
+    toks = torch.randint(0, vocab, (batch, total),
+                         generator=torch.Generator().manual_seed(seed))
+    toks[:, prompt:] = 0
+    return toks
+
+
+def flash_cases(q, k, v):
+    """(label, q, k, v, causal): the prefill's own operands, their first
+    1000 rows (ragged last tiles) in bf16 and fp32, fp32, head dims 32 and
+    128, and a non-causal Sq 128 x Sk 256 call."""
+    g = torch.Generator("cuda").manual_seed(SEED)
+    b, s, h, hd = q.shape
+
+    def rnd(*shape, dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    cases = [("prefill bf16 causal", q, k, v, True),
+             ("S1000 bf16 causal", q[:, :1000], k[:, :1000], v[:, :1000],
+              True),
+             ("S1000 fp32 causal", q[:, :1000].float(), k[:, :1000].float(),
+              v[:, :1000].float(), True),
+             ("prefill fp32 causal", q.float(), k.float(), v.float(), True)]
+    for d in (32, 128):
+        for dt in (torch.float32, torch.bfloat16):
+            cases.append((f"S1000 hd{d} {str(dt)[6:]} causal",
+                          *(rnd(b, 1000, 8, d, dtype=dt) for _ in range(3)),
+                          True))
+    for dt in (torch.float32, torch.bfloat16):
+        cases.append((f"Sq128 Sk256 {str(dt)[6:]} full",
+                      rnd(b, 128, h, hd, dtype=dt),
+                      rnd(b, 256, h, hd, dtype=dt),
+                      rnd(b, 256, h, hd, dtype=dt), False))
+    return cases
+
+
+def bf16_limit(ref):
+    """Per element: one bf16 ulp of the reference value (the kernel and the
+    plain version each round one fp32 result to bf16) plus the fp32 slack
+    of 1e-5 scaled by the magnitude, for values near zero."""
+    ref = ref.float()
+    ulp = torch.exp2((torch.frexp(ref).exponent - 8).float())
+    ulp = torch.where(ref == 0, torch.zeros_like(ulp), ulp)
+    return ulp + 1e-5 * max(1.0, float(ref.abs().max()))
+
+
+def check_flash_kernel(q, k, v, n_kv):
+    """Kernel 13 against its plain version: at the prefill's q/k/v (k and v
+    tiled from ``n_kv`` heads) and the cases above; timed at the prefill's
+    shape beside SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    err_main = None
+    for label, a, b_, c, causal in flash_cases(q, k, v):
+        y = FA.flash_attention(a, b_, c, causal=causal)
+        ref = FA.flash_attention_plain(a, b_, c, causal=causal)
+        torch.cuda.synchronize()
+        diff = (y.float() - ref.float()).abs()
+        err = float(diff.max())
+        if a.dtype == torch.bfloat16:
+            lim = bf16_limit(ref)
+        else:
+            lim = 1e-5 * (ref.abs() + max(1.0, float(ref.abs().max())))
+        worst = float((diff / lim).max())
+        ok = worst <= 1.0
+        log(f"kernel flash_attention {label}: q {tuple(a.shape)} k "
+            f"{tuple(b_.shape)} max_abs_err={err} (worst err/limit {worst}, "
+            f"max|ref| {float(ref.float().abs().max())})")
+        if not ok or not torch.isfinite(y).all():
+            problem(f"flash kernel ({label}) disagrees with its plain "
+                    f"version: {err}")
+        err_main = err if err_main is None else err_main
+    b, s, h, hd = q.shape
+    # q and the n_kv untiled heads of k and v read once, o written once;
+    # QK and PV over the causal half
+    b_ms, b_by = bound((2 * h + 2 * n_kv) * b * s * hd * q.element_size(),
+                       4.0 * hd * b * h * (s * (s + 1) // 2), H100_BF16_PER_S)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    log(f"  SDPA against the kernel at the prefill's shape: max_abs_diff="
+        f"{float((sdpa().transpose(1, 2).float() - FA.flash_attention(q, k, v).float()).abs().max())}")
+    row = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_fwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:71",
+        max_abs_err=err_main,
+        ms=cuda_ms(lambda: FA.flash_attention(q, k, v)),
+        plain_ms=cuda_ms(lambda: FA.flash_attention_plain(q, k, v)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(sdpa))
+    log(f"  flash_attention (B {b}, S {s}, H {h}, hd {hd}, bf16, causal): "
+        f"ms={row['ms']} plain_ms={row['plain_ms']} bound_ms={b_ms} "
+        f"({b_by}) library_ms(SDPA)={row['library_ms']} [{CARD}]")
+    return row
+
+
+def device_breakdown(run, top=8):
+    """Wall ms of ``run()`` under ``torch.profiler``, the summed time of
+    the device activities (kernels, copies, sets) it traced, and the
+    ``top`` of them by name (ms, count).  Only device-side events count,
+    so no kernel is counted twice through the operator that launched it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(e.name[:60], (0.0, 0))
+            by_name[e.name[:60]] = (ms + e.time_range.elapsed_us() / 1e3,
+                                    n + 1)
+    rows = sorted(((ms, n, k) for k, (ms, n) in by_name.items()),
+                  reverse=True)
+    return wall, sum(ms for ms, _, _ in rows), rows[:top]
+
+
+def lm_counts(wrappers):
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def zero_counts(wrappers):
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def serve_lm_path(lm, tokens, wrappers):
+    """serve-lm-qwen3-0.6b: ``examples/serve_lm.py`` at full width and
+    depth: prefill the padded prompts, then greedy decode."""
+    from repro_torch.models.lm import serve
+    params, vocab = lm.params(), lm.cfg.vocab
+    b, total = tokens.shape
+    s = total - LM_NEW
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    zero_counts(wrappers)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cache, logits = serve.prefill(lm, params, tokens)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    n_prefill = wrappers["flash_attention"].launches
+    # decode at S-1 reproduces the prefill's last logits (the invariant of
+    # tests/test_serve.py); it rewrites position S-1 with the same token,
+    # which the greedy decode below rewrites before it reads it
+    _, again = serve.decode_step(lm, params, cache, tokens[:, -1:], total - 1)
+    rel = rel_l2(again, logits)
+    finite &= torch.isfinite(logits).all() & torch.isfinite(again).all()
+    tok = logits[:, -1:, :vocab].argmax(-1)
+    gen = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(LM_NEW):
+        cache, logits = serve.decode_step(lm, params, cache, tok, s + i)
+        finite &= torch.isfinite(logits).all()
+        tok = logits[:, :, :vocab].argmax(-1)
+        gen.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    launches = lm_counts(wrappers)
+    log(f"path serve-lm-{LM_ARCH}: {b} prompts of {s} tokens padded to "
+        f"{total}, {lm.cfg.n_layers} layers, bf16: prefill {prefill_ms:.3f} "
+        f"ms, {LM_NEW} decode steps {decode_s * 1e3 / LM_NEW:.3f} ms a step "
+        f"= {b * LM_NEW / decode_s:.1f} tokens/s [{CARD}]; decode at S-1 vs "
+        f"prefill rel L2 {rel} (limit {DECODE_RTOL}); launches={launches}; "
+        f"sample {torch.cat(gen, 1)[:2].tolist()}")
+    if n_prefill != lm.cfg.n_layers:
+        problem(f"path serve-lm: {n_prefill} flash launches in the prefill, "
+                f"expected {lm.cfg.n_layers}")
+    if launches["flash_attention"] != n_prefill:
+        problem("path serve-lm: the decode steps launched the flash kernel")
+    check_launches("serve-lm", launches, ["flash_attention"],
+                   [k for k in wrappers if k != "flash_attention"])
+    if not bool(finite):
+        problem("path serve-lm: non-finite logits")
+    if not rel <= DECODE_RTOL:
+        problem(f"path serve-lm: decode at S-1 differs from the prefill by "
+                f"{rel} relative L2")
+    # where a prefill's and a decode step's device time goes
+    for what, run in (
+            ("prefill", lambda: serve.prefill(lm, params, tokens)),
+            ("decode step", lambda: serve.decode_step(
+                lm, params, cache, tok, total - 1))):
+        wall, busy, top = device_breakdown(run)
+        log(f"breakdown serve-lm {what}: wall {wall:.3f} ms under the "
+            f"profiler, device busy {busy:.3f} ms ({busy / wall:.3f}) "
+            f"[{CARD}]; top kernels (ms, calls): "
+            + "; ".join(f"{n} {ms:.3f} x{c}" for ms, c, n in top))
+    return launches
+
+
+def serve_lm_fp32_path(wrappers, n_steps=8):
+    """serve-lm-fp32-depth2: full width, 2 layers, fp32 (TF32 off); the
+    card's prefill + greedy decode against the port's CPU path from the
+    same weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import serve
+    from repro_torch.models.lm.model import build_lm
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2,
+                              dtype="float32")
+    lm = build_lm(cfg, device="cuda")
+    lm.init(torch.Generator("cuda").manual_seed(SEED + 1))
+    cpu = build_lm(cfg, device="cpu")
+    cpu.load_state_dict(lm.state_dict())
+    prompt, total = 120, 128
+    tokens = lm_tokens(cfg.vocab, 2, prompt, total, SEED + 1)
+    out, launches = {}, None
+    for model, dev in ((lm, "cuda"), (cpu, "cpu")):
+        params = model.params()
+        if dev == "cuda":
+            zero_counts(wrappers)
+        cache, logits = serve.prefill(model, params, tokens.to(dev))
+        steps, toks = [logits], []
+        tok = logits[:, -1:, :cfg.vocab].argmax(-1)
+        for i in range(n_steps):
+            cache, logits = serve.decode_step(model, params, cache, tok,
+                                              prompt + i)
+            tok = logits[:, :, :cfg.vocab].argmax(-1)
+            steps.append(logits)
+            toks.append(tok)
+        out[dev] = ([x.cpu() for x in steps], torch.cat(toks, 1).cpu())
+        if dev == "cuda":
+            launches = lm_counts(wrappers)
+    rels = [rel_l2(a, b) for a, b in zip(out["cuda"][0], out["cpu"][0])]
+    same = torch.equal(out["cuda"][1], out["cpu"][1])
+    log(f"path serve-lm-fp32-depth2: 2 x {prompt} tokens padded to {total}, "
+        f"prefill + {n_steps} decode steps: card vs CPU logits rel L2 max "
+        f"{max(rels)} (limit {FP32_LM_RTOL}), greedy tokens equal: {same}; "
+        f"launches={launches}")
+    if launches["flash_attention"] != cfg.n_layers:
+        problem(f"path serve-lm-fp32-depth2: {launches['flash_attention']} "
+                f"flash launches, expected {cfg.n_layers}")
+    check_launches("serve-lm-fp32-depth2", launches, ["flash_attention"],
+                   [k for k in wrappers if k != "flash_attention"])
+    if not max(rels) <= FP32_LM_RTOL or not same:
+        problem("path serve-lm-fp32-depth2: the card disagrees with the CPU")
+    return launches
+
+
+def serve_lm_engine_path(lm, wrappers):
+    """serve-lm-engine: ``ServeEngine`` (4 slots, s_max 128) over 8 ragged
+    requests; prefill-by-decode, so no flash launch."""
+    from repro_torch.serve.engine import ServeEngine
+    g = torch.Generator().manual_seed(SEED + 2)
+    lens = torch.randint(8, 49, (8,), generator=g).tolist()
+    prompts = [torch.randint(1, lm.cfg.vocab, (n,), generator=g).tolist()
+               for n in lens]
+    eng = ServeEngine(lm, lm.params(), max_batch=4, s_max=128)
+    zero_counts(wrappers)
+    rids = [eng.submit(p, LM_NEW) for p in prompts]
+    served = {i: set() for i in range(eng.b)}
+    n_steps = 0
+    t = time.perf_counter()
+    while eng.n_active or eng.queue:
+        eng.step()
+        n_steps += 1
+        for i, r in enumerate(eng.slots):
+            if r is not None:
+                served[i].add(r.rid)
+    dt = time.perf_counter() - t
+    launches = lm_counts(wrappers)
+    n_gen = sum(len(eng.finished[r].generated) for r in rids
+                if r in eng.finished)
+    log(f"path serve-lm-engine: prompts {lens}, {n_steps} steps in "
+        f"{dt * 1e3:.1f} ms ({dt * 1e3 / n_steps:.3f} ms a step, "
+        f"{n_gen / dt:.1f} generated tokens/s) [{CARD}]; requests per slot "
+        f"{[len(v) for v in served.values()]}; launches={launches}")
+    if set(eng.finished) != set(rids) or n_gen != LM_NEW * len(rids):
+        problem("path serve-lm-engine: not every request finished")
+    if sum(len(v) for v in served.values()) != len(rids) or \
+            max(len(v) for v in served.values()) < 2:
+        problem("path serve-lm-engine: slots were not reused")
+    check_launches("serve-lm-engine", launches, [], list(wrappers))
+    return launches
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device visible")
@@ -1164,6 +1482,10 @@ def main() -> None:
         from repro_torch.models.hgnn import (DRCircuitGNN, HomoGNN,
                                              homogenize)
         from repro_torch.train.circuit_trainer import CircuitTrainConfig
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.models.lm import serve as lm_serve
+        from repro_torch.models.lm.model import build_lm
     except ImportError as e:
         fail(f"the port is not importable next to this script: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1174,6 +1496,8 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    global CARD
+    CARD = smi
 
     t = time.perf_counter()
     out_dir = _build.build_all()
@@ -1363,6 +1687,36 @@ def main() -> None:
     for k, v in launches.items():
         total[k] += v
     log(f"phase learnable-slabs-bucket: {time.perf_counter() - t:.1f} s")
+
+    # the dense LM at qwen3-0.6b's full width and depth (bf16)
+    t = time.perf_counter()
+    wrappers["flash_attention"] = FA.flash_attention
+    total["flash_attention"] = 0
+    lm = build_lm(get_config(LM_ARCH), device="cuda")
+    lm.init(torch.Generator("cuda").manual_seed(SEED))
+    tokens = lm_tokens(lm.cfg.vocab, LM_BATCH, LM_PROMPT, LM_PROMPT + LM_NEW,
+                       SEED).cuda()
+    # a first prefill (the warm-up) hands kernel 13 its operands
+    calls = record_calls(FA, "flash_attention",
+                         lambda: lm_serve.prefill(lm, lm.params(), tokens))
+    if len(calls) != lm.cfg.n_layers:
+        problem(f"a prefill made {len(calls)} flash calls, expected "
+                f"{lm.cfg.n_layers}")
+    q, k, v = calls[0][:3]
+    del calls
+    rows["flash_attention"] = check_flash_kernel(q, k, v, lm.cfg.n_kv)
+    del q, k, v
+    log(f"phase kernel-flash: {LM_ARCH} ({sum(p.numel() for p in lm.parameters())}"
+        f" parameters, fp32 on the card) in {time.perf_counter() - t:.1f} s")
+    for name, run in (
+            (f"serve-lm-{LM_ARCH}", lambda: serve_lm_path(lm, tokens, wrappers)),
+            ("serve-lm-fp32-depth2", lambda: serve_lm_fp32_path(wrappers)),
+            ("serve-lm-engine", lambda: serve_lm_engine_path(lm, wrappers))):
+        t = time.perf_counter()
+        launches = run()
+        for k, v in launches.items():
+            total[k] += v
+        log(f"phase {name}: {time.perf_counter() - t:.1f} s")
 
     for k, r in rows.items():
         r["launches"] = total[k]

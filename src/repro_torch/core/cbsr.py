@@ -45,12 +45,13 @@ def cbsr_from_dense(x: torch.Tensor, k: int) -> CBSR:
     ranked in IEEE total order (-0.0 below +0.0) and ties go to the lower
     column index.  ``torch.topk`` promises neither, so the rank comes from
     a stable descending sort of the fp32 bit patterns mapped to a
-    monotonic int32 key.  Survivors are then re-sorted by column index."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"cbsr_from_dense takes float32, got {x.dtype}")
+    monotonic int32 key (bf16 and fp16 widen to fp32 exactly, so they rank
+    the same way).  Survivors are then re-sorted by column index."""
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise TypeError(f"cbsr_from_dense takes a float matrix, got {x.dtype}")
     n, d = x.shape
     k = min(k, d)
-    bits = x.detach().contiguous().view(torch.int32)
+    bits = x.detach().float().contiguous().view(torch.int32)
     key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
     idx = torch.sort(key, dim=1, descending=True, stable=True).indices
     idx = torch.sort(idx[:, :k], dim=1).values

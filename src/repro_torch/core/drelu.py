@@ -34,3 +34,18 @@ def drelu(x: torch.Tensor, k: int) -> torch.Tensor:
     if k >= x.shape[-1]:
         return x
     return _DReLU.apply(x, k)
+
+
+def drelu_grouped(x: torch.Tensor, k: int, groups: int) -> torch.Tensor:
+    """Split the row into ``groups`` contiguous blocks and keep the
+    top-(k/groups) of each (the reference's shard-local D-ReLU of a
+    tensor-sharded FFN hidden).  With ``groups = 1``, or a split that does
+    not divide, it is :func:`drelu`."""
+    f = x.shape[-1]
+    if k >= f:
+        return x
+    if groups <= 1 or f % groups or k % groups:
+        return drelu(x, k)
+    lead = x.shape[:-1]
+    return drelu(x.reshape(*lead, groups, f // groups),
+                 k // groups).reshape(*lead, f)

@@ -32,6 +32,20 @@ def assert_close(actual, ref, msg=""):
                                err_msg=msg)
 
 
+def assert_bf16_close(actual, ref, msg=""):
+    """A bf16 output against a reference: every element within one bf16
+    ulp of its reference value (each side rounds an fp32 result to bf16
+    once), plus ``assert_close``'s fp32 slack (1e-5 scaled by the
+    magnitude) for values near zero."""
+    actual, ref = np.asarray(actual, np.float64), np.asarray(ref, np.float64)
+    ulp = np.where(ref == 0, 0.0, np.ldexp(1.0, np.frexp(ref)[1] - 8))
+    slack = 1e-5 * max(1.0, float(np.abs(ref).max()) if ref.size else 1.0)
+    excess = np.abs(actual - ref) - (ulp + slack)
+    assert (excess <= 0).all(), (
+        f"{msg} {int((excess > 0).sum())} elements beyond one bf16 ulp; "
+        f"worst by {float(excess.max())}")
+
+
 def assert_fused_equal(a, b):
     """Port arena ``b`` has exactly the reference arena ``a``'s tables."""
     for f in ("nbr", "w", "block_of", "start", "rows", "gather", "rel"):

@@ -2,8 +2,9 @@
 version, the serve engine on the card against the port's CPU forward, one
 training step on the card against the same step on the CPU (the D-ReLU
 trainer, the dense-SpMM trainer, the serial per-bucket trainer and the
-homogeneous baselines), and the concurrent relation modules against the
-sequential ones.
+homogeneous baselines), the concurrent relation modules against the
+sequential ones, and the flash-attention kernel and the reduced dense LM
+(prefill, decode, ``ServeEngine``) on the card against the CPU.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs on a machine with the card
@@ -13,12 +14,18 @@ their plain versions (rtol 1e-5, atol 1e-5 scaled by magnitude); the
 bisection is bit-exact; served predictions may differ from the CPU forward
 where a GPU-vs-CPU rounding flips a near-tied top-k pick, so 99.9 % of
 cells must be within 1e-4; a training step's loss and parameters must be
-within 1e-4 relative (L2 for the parameters) of the CPU step."""
+within 1e-4 relative (L2 for the parameters) of the CPU step; the
+flash-attention kernel in fp32 as the DR-SpMM kernels and in bf16 within
+one bf16 ulp of each element of its plain version (each rounds one fp32
+result), plus the fp32 slack."""
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config, reduced
 from repro_torch.core import parallel
 from repro_torch.core.hetero_mp import HeteroMPConfig
 from repro_torch.graphs.circuit import (EDGE_SCHEMA, EDGE_TYPES,
@@ -27,15 +34,19 @@ from repro_torch.graphs.ell import (ELLBucket, build_relation_plan,
                                     ell_to_coo, fuse_bucketed,
                                     pack_ell, pack_fused_eid_pair)
 from repro_torch.graphs.generator import generate_design
-from repro_torch.kernels import drelu_topk
+from repro_torch.kernels import drelu_topk, flash_attention
 from repro_torch.kernels import drspmm as tk
 from repro_torch.kernels import ops as tops
 from repro_torch.models.hgnn import (HOMO_KINDS, DRCircuitGNN, HomoGNN,
                                      homo_forward, homogenize)
+from repro_torch.models.lm import serve as lm_serve
+from repro_torch.models.lm.model import build_lm
 from repro_torch.serve.circuit_engine import CircuitServeEngine
+from repro_torch.serve.engine import ServeEngine
 from repro_torch.train.circuit_trainer import (CircuitTrainConfig,
                                                CircuitTrainer)
-from _torch_port import (HIDDEN, K, LAYERS, SCALE, assert_close,
+from _torch_port import (HIDDEN, K, LAYERS, SCALE, assert_bf16_close,
+                         assert_close,
                          cbsr_operands, cuda)  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.cuda
@@ -458,3 +469,102 @@ def test_run_fused_on_card_equals_sequential(cuda):
     torch.cuda.synchronize()
     for a, b in zip(fused, seq):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# kernel 13 (flash attention) and the dense LM
+# ---------------------------------------------------------------------------
+
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal,q_offset", [
+    (128, 128, True, 0), (1000, 1000, True, 0), (200, 200, False, 0),
+    (128, 256, False, 0), (37, 101, True, 64), (1, 77, True, 76)])
+def test_flash_kernel_matches_plain(cuda, dtype, hd, sq, sk, causal,
+                                    q_offset):
+    """fp32 and bf16, ragged q and kv tails, a q offset, causal or not."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(hd + sq + sk)
+    q, k, v = (torch.randn((2, s, 3, hd), generator=g).to(cuda, dt)
+               for s in (sq, sk, sk))
+    before = flash_attention.flash_attention.launches
+    out = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          q_offset=q_offset)
+    ref = flash_attention.flash_attention_plain(q, k, v, causal=causal,
+                                                q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    if dt == torch.float32:
+        assert_close(out.cpu().numpy(), ref.cpu().numpy())
+    else:
+        assert_bf16_close(out.float().cpu().numpy(),
+                          ref.float().cpu().numpy())
+
+
+def test_flash_kernel_rejects_unsupported(cuda):
+    q = torch.zeros((1, 8, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q, q, q)
+
+
+def _lm_pair(cuda, dtype="float32"):
+    cfg = dataclasses.replace(reduced(get_config("qwen3-0.6b")), dtype=dtype)
+    lm = build_lm(cfg, device=cuda)
+    lm.init(torch.Generator(cuda).manual_seed(0))
+    cpu = build_lm(cfg, device="cpu")
+    cpu.load_state_dict(lm.state_dict())
+    return lm, cpu
+
+
+def test_lm_prefill_decode_on_card_matches_cpu(cuda):
+    """The reduced qwen3-0.6b in fp32: prefill (2 launches of kernel 13, one
+    a layer) and two decode steps (none) within 1e-4 relative L2 of the
+    CPU, and the same greedy tokens."""
+    lm, cpu = _lm_pair(cuda)
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, lm.cfg.vocab, (2, 40)))
+    before = flash_attention.flash_attention.launches
+    c_gpu, l_gpu = lm_serve.prefill(lm, lm.params(), tok.to(cuda))
+    assert flash_attention.flash_attention.launches == before + 2
+    c_cpu, l_cpu = lm_serve.prefill(cpu, cpu.params(), tok)
+    _rel_close(l_gpu, l_cpu)
+    _rel_close(c_gpu["k"], c_cpu["k"])
+    for pos, t in ((39, tok[:, -1:]), (12, tok[:, :1])):
+        c_gpu, l_gpu = lm_serve.decode_step(lm, lm.params(), c_gpu,
+                                            t.to(cuda), pos)
+        c_cpu, l_cpu = lm_serve.decode_step(cpu, cpu.params(), c_cpu, t, pos)
+        _rel_close(l_gpu, l_cpu)
+        assert torch.equal(l_gpu.argmax(-1).cpu(), l_cpu.argmax(-1))
+    assert flash_attention.flash_attention.launches == before + 2
+
+
+def test_lm_engine_on_card_matches_cpu(cuda):
+    lm, cpu = _lm_pair(cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, lm.cfg.vocab, n).tolist() for n in (3, 7, 5)]
+    out = []
+    for model, dev in ((lm, cuda), (cpu, "cpu")):
+        eng = ServeEngine(model, model.params(), max_batch=2, s_max=32,
+                          device=dev)
+        rids = [eng.submit(p, 6) for p in prompts]
+        res = eng.run()
+        out.append([res[r].generated for r in rids])
+    assert out[0] == out[1]
+
+
+def test_lm_bf16_prefill_on_card(cuda):
+    """bf16 on the card: finite logits, and decode at S-1 reproduces the
+    prefill's last logits within 5e-2 relative L2."""
+    lm, _ = _lm_pair(cuda, "bfloat16")
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        0, lm.cfg.vocab, (2, 64))).to(cuda)
+    cache, lp = lm_serve.prefill(lm, lm.params(), tok)
+    assert cache["k"].dtype == torch.bfloat16 and torch.isfinite(lp).all()
+    _, ld = lm_serve.decode_step(lm, lm.params(), cache, tok[:, -1:], 63)
+    _rel_close(ld, lp, 5e-2)

@@ -1,0 +1,125 @@
+"""Kernel 13 of the PyTorch port: the flash-attention forward.
+
+On the CPU: the plain version beside the kernel against the reference's
+Pallas ``flash_attention`` (interpret mode, as ``tests/test_flash_kernel.py``
+runs it) at that file's four shapes, and the port's ``chunked_attention``
+against the reference's at S 200 (the reference's chunk schedules, brick
+and masked, causal and not, GQA heads 4 / KV 2; the port has no schedule).  The kernel itself is held against
+the plain version on a card in ``tests/test_torch_cuda.py`` (which imports
+no JAX, so it runs where the card is).  Tolerances: fp32 parity as
+``_torch_port.assert_close`` (rtol 1e-5, atol 1e-5 scaled by the
+magnitude); bf16 against the float64 oracle within two bf16 ulps at the
+oracle's largest magnitude (``_torch_port.assert_bf16_close``)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as j_flash
+from repro.models.lm.attention import chunked_attention as j_chunked
+from repro.models.lm.attention import tile_kv as j_tile_kv
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models.lm.attention import chunked_attention, tile_kv
+from _torch_port import assert_bf16_close, assert_close
+
+
+def _qkv(rng, b, sq, sk, h, hd, kv=None):
+    kv = kv or h
+    return (rng.normal(size=(b, sq, h, hd)).astype(np.float32),
+            rng.normal(size=(b, sk, kv, hd)).astype(np.float32),
+            rng.normal(size=(b, sk, kv, hd)).astype(np.float32))
+
+
+def _naive(q, k, v, causal, q_offset=0):
+    """float64 softmax attention with the causal mask by absolute position."""
+    q, k, v = (np.asarray(t, np.float64) for t in (q, k, v))
+    s = np.einsum("bqhd,bshd->bhqs", q, k) / np.sqrt(q.shape[-1])
+    if causal:
+        qp = q_offset + np.arange(q.shape[1])
+        s = np.where((qp[:, None] >= np.arange(k.shape[1])[None, :])[None, None],
+                     s, -1e30)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return np.einsum("bhqs,bshd->bqhd", p / p.sum(-1, keepdims=True), v)
+
+
+# the four shapes of tests/test_flash_kernel.py::test_flash_vs_naive
+@pytest.mark.parametrize("sq,sk,causal", [
+    (128, 128, True), (128, 128, False), (256, 256, True),
+    (128, 256, False),
+])
+def test_plain_matches_pallas_kernel(sq, sk, causal):
+    rng = np.random.default_rng(sq + sk)
+    q, k, v = _qkv(rng, 2, sq, sk, 2, 64)
+    ref = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  causal=causal, interpret=True)
+    out = fa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), causal=causal)
+    assert out.dtype == torch.float32
+    assert_close(out.numpy(), np.asarray(ref))
+
+
+def test_tile_kv_is_jnp_tile():
+    """q head h reads kv head h % KV (``jnp.tile``), not h // reps."""
+    k = np.random.default_rng(0).normal(size=(2, 5, 2, 8)).astype(np.float32)
+    out = tile_kv(torch.from_numpy(k), 4).numpy()
+    np.testing.assert_array_equal(out, np.asarray(j_tile_kv(jnp.asarray(k), 4)))
+    np.testing.assert_array_equal(out[:, :, 3], k[:, :, 1])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("mode,chunk", [("brick", 1024), ("brick", 64),
+                                        ("brick", 40), ("masked", 1024),
+                                        ("masked", 64), ("masked", 40)])
+def test_chunked_attention_matches_reference(causal, mode, chunk):
+    """S 200 under each of the reference's schedules (chunks of 200, 50 or
+    40), GQA heads 4 / KV 2 tiled as the attention block tiles them."""
+    rng = np.random.default_rng(7)
+    q, k, v = _qkv(rng, 2, 200, 200, 4, 32, kv=2)
+    kt, vt = (j_tile_kv(jnp.asarray(a), 4) for a in (k, v))
+    ref = j_chunked(jnp.asarray(q), kt, vt, causal=causal, q_chunk=chunk,
+                    kv_chunk=chunk, causal_mode=mode)
+    out = chunked_attention(
+        torch.from_numpy(q), tile_kv(torch.from_numpy(k), 4),
+        tile_kv(torch.from_numpy(v), 4), causal=causal)
+    assert_close(out.numpy(), np.asarray(ref))
+
+
+def test_chunked_attention_q_offset_matches_reference():
+    """A q block placed after a prefix (the mask by absolute position)."""
+    rng = np.random.default_rng(8)
+    q, k, v = _qkv(rng, 1, 64, 192, 2, 32)
+    ref = j_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    causal=True, q_chunk=32, kv_chunk=64, q_offset=128)
+    out = chunked_attention(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), causal=True, q_offset=128)
+    assert_close(out.numpy(), np.asarray(ref))
+
+
+def test_plain_any_length_matches_oracle():
+    """S 1000: the last kv tile of 64 is ragged (1000 = 15 x 64 + 40)."""
+    rng = np.random.default_rng(9)
+    q, k, v = _qkv(rng, 1, 1000, 1000, 2, 32)
+    out = fa.flash_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), causal=True)
+    assert_close(out.numpy(), _naive(q, k, v, True))
+
+
+def test_plain_keeps_bf16():
+    rng = np.random.default_rng(10)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(rng, 1, 96, 96, 2, 64))
+    out = fa.flash_attention_plain(q, k, v, causal=True)
+    assert out.dtype == torch.bfloat16
+    ref = _naive(q.float().numpy(), k.float().numpy(), v.float().numpy(), True)
+    assert_bf16_close(out.float().numpy(), ref)
+
+
+def test_cpu_path_is_differentiable():
+    """On the CPU the plain version carries autograd (the card raises)."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _qkv(rng, 1, 32, 32, 2, 32))
+    chunked_attention(q, k, v, causal=True).sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in (q, k, v))

@@ -18,11 +18,15 @@ import repro_torch
 from repro_torch.core.hetero_mp import HeteroMPConfig
 from repro_torch.graphs import collate as tcollate
 from repro_torch.graphs.generator import generate_design
-from repro_torch.kernels import drelu_topk, drspmm
+from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import drelu_topk, drspmm, flash_attention
 from repro_torch.kernels import ops as tops
 from repro_torch.models.hgnn import (DRCircuitGNN, HomoGNN, homogenize,
                                      learnable_edge_packing)
+from repro_torch.models.lm import attention as lm_attention
+from repro_torch.models.lm.model import build_lm
 from repro_torch.serve.circuit_engine import CircuitServeEngine
+from repro_torch.serve.engine import ServeEngine
 from repro_torch.train.circuit_trainer import (CircuitTrainConfig,
                                                CircuitTrainer)
 from _torch_port import cuda  # noqa: F401  (fixture)
@@ -165,3 +169,65 @@ def test_wrappers_never_run_plain_on_card(cuda, monkeypatch):
     vi = xi[:, :8].contiguous()
     tops.drspmm(adj, adj_t, v, vi, 64, backend="bucket").sum().backward()
     torch.cuda.synchronize()
+
+
+def test_lm_stack_imports_without_jax():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "import repro_torch.models.lm.serve, repro_torch.serve.engine, "
+            "repro_torch.configs; "
+            "assert 'jax' not in {m.split('.')[0] for m, v in "
+            "sys.modules.items() if v is not None}")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_lm_entry_points_refuse_missing_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_config("qwen3-0.6b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_lm(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_lm(cfg, device="cuda")
+    lm = build_lm(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(lm, lm.params(), max_batch=2, s_max=16)
+
+
+def test_flash_wrapper_counts_launches():
+    assert isinstance(flash_attention.flash_attention.launches, int)
+    assert callable(flash_attention.flash_attention_plain)
+
+
+def test_flash_refuses_gradients_on_card(monkeypatch):
+    """The kernel has no backward: tensors that need a gradient raise
+    before any launch instead of running the plain version.  The device
+    test is made to answer "card" for CPU tensors, so this runs here."""
+    monkeypatch.setattr(flash_attention, "_on_card", lambda *ts: True)
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a card tensor")
+    monkeypatch.setattr(flash_attention, "flash_attention_plain", boom)
+    q = torch.zeros((1, 8, 2, 64), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lm_attention.chunked_attention(q, q.detach(), q.detach())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attention.flash_attention(q, q.detach(), q.detach())
+
+
+@pytest.mark.cuda
+def test_flash_never_runs_plain_on_card(cuda, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+    monkeypatch.setattr(flash_attention, "flash_attention_plain", boom)
+    q = torch.randn((2, 100, 4, 64), device=cuda, dtype=torch.bfloat16)
+    before = flash_attention.flash_attention.launches
+    flash_attention.flash_attention(q, q, q)
+    lm_attention.chunked_attention(q, q, q, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 2
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lm_attention.chunked_attention(q.float().requires_grad_(), q.float(),
+                                       q.float())

@@ -1,0 +1,333 @@
+"""The PyTorch port's dense LM against the reference, on the CPU.
+
+Configs and templates (all four dense configs at full size, built on the
+meta device: no allocation), the numerics (``rms_norm``, ``head_rms_norm``,
+``rope``, ``drelu_grouped``, bf16 CBSR), and, from the reduced qwen3-0.6b
+config with the reference's weights carried by ``LM.from_jax_params``:
+the SwiGLU FFN with D-ReLU, ``forward``, ``prefill`` (logits and cache),
+``decode_step`` at a scalar and at a per-slot ``pos``, decode reproducing
+prefill, the sparse decode FFN, and ``ServeEngine`` against the reference
+engine.  fp32 tolerances as ``_torch_port.assert_close``; where a test
+says bf16, one bf16 rounding (2^-7 relative) or, for a whole model whose
+two frameworks round at other places, 5e-2 relative L2."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jbase
+from repro.core.cbsr import cbsr_from_dense as j_cbsr
+from repro.core.drelu import drelu_grouped as j_drelu_grouped
+from repro.models.lm import common as jcommon
+from repro.models.lm import ffn as jffn
+from repro.models.lm import serve as jserve
+from repro.models.lm.model import build_lm as j_build_lm
+from repro.serve import ServeEngine as JServeEngine
+from repro_torch.configs import base as tbase
+from repro_torch.core.cbsr import cbsr_from_dense
+from repro_torch.core.drelu import drelu_grouped
+from repro_torch.models.lm import common as tcommon
+from repro_torch.models.lm import ffn as tffn
+from repro_torch.models.lm import serve
+from repro_torch.models.lm.model import LM, build_lm
+from repro_torch.serve.engine import ServeEngine
+from _torch_port import assert_close
+
+DENSE = ("qwen3-0.6b", "qwen3-1.7b", "minitron-4b", "minicpm-2b")
+BF16_RTOL = 2.0 ** -7
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+# ---------------------------------------------------------------------------
+# configs and templates
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", jbase.ARCH_IDS)
+def test_configs_match_reference(arch):
+    assert tbase.ARCH_IDS == jbase.ARCH_IDS
+    ours, ref = tbase.get_config(arch), jbase.get_config(arch)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(tbase.reduced(ours)) == \
+        dataclasses.asdict(jbase.reduced(ref))
+    assert ours.param_count() == ref.param_count()
+    assert {k: dataclasses.astuple(v) for k, v in tbase.SHAPES.items()} == \
+        {k: dataclasses.astuple(v) for k, v in jbase.SHAPES.items()}
+
+
+@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("tp", [1, 16])
+def test_templates_match_reference(arch, tp):
+    """Full size, compared as specs and as the module's (meta) tensors."""
+    ours = LM(tbase.get_config(arch), tp, device="meta")
+    ref = j_build_lm(jbase.get_config(arch), tp)
+    flat = {}
+    for k, v in ref.template.items():
+        for n, s in (v.items() if isinstance(v, dict) else [(None, v)]):
+            flat[k if n is None else f"{k}.{n}"] = dataclasses.astuple(s)
+    mine = {}
+    for k, v in ours.template.items():
+        for n, s in (v.items() if isinstance(v, dict) else [(None, v)]):
+            mine[k if n is None else f"{k}.{n}"] = dataclasses.astuple(s)
+    assert mine == flat
+    shapes = {k: tuple(t.shape) for k, t in ours.state_dict().items()}
+    assert shapes == {k: s[0] for k, s in flat.items()}
+    assert (ours.h_pad, ours.kv_pad, ours.v_pad) == \
+        (ref.h_pad, ref.kv_pad, ref.v_pad)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "granite-moe-1b-a400m",
+                                  "zamba2-1.2b", "whisper-large-v3",
+                                  "llama-3.2-vision-90b"])
+def test_other_families_raise(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_lm(tbase.reduced(tbase.get_config(arch)), device="cpu")
+
+
+def test_init_follows_template():
+    lm = build_lm(tbase.reduced(tbase.get_config("qwen3-0.6b")), device="cpu")
+    p = lm.init(torch.Generator().manual_seed(3))
+    assert torch.equal(p["final_norm"], torch.ones_like(p["final_norm"]))
+    assert torch.equal(p["layers"]["qk_q"], torch.ones_like(p["layers"]["qk_q"]))
+    assert abs(float(p["layers"]["wq"].detach().std()) - 0.02) < 2e-3
+    again = build_lm(lm.cfg, device="cpu")
+    again.init(torch.Generator().manual_seed(3))        # the same draws
+    ref = again.state_dict()
+    for k, v in lm.state_dict().items():
+        assert torch.equal(v, ref[k]), k
+
+
+# ---------------------------------------------------------------------------
+# numerics
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_norms_match_reference(dtype):
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 5, 4, 32)).astype(np.float32) * 3
+    g = rng.normal(size=(32,)).astype(np.float32)
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    tx = _t(x).to(getattr(torch, dtype))
+    for jf, tf in ((jcommon.rms_norm, tcommon.rms_norm),
+                   (jcommon.head_rms_norm, tcommon.head_rms_norm)):
+        ref = np.asarray(jf(jx, jnp.asarray(g)), np.float32)
+        out = tf(tx, _t(g))
+        assert out.dtype == tx.dtype
+        if dtype == "float32":
+            assert_close(out.numpy(), ref)
+        else:
+            np.testing.assert_allclose(out.float().numpy(), ref,
+                                       rtol=BF16_RTOL, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [32, 64])
+def test_rope_matches_reference(dtype, hd):
+    rng = np.random.default_rng(hd)
+    x = rng.normal(size=(2, 9, 3, hd)).astype(np.float32)
+    pos = np.stack([np.arange(9), np.arange(100, 109)]).astype(np.int32)
+    ref = np.asarray(jcommon.rope(jnp.asarray(x, getattr(jnp, dtype)),
+                                  jnp.asarray(pos), 1e6), np.float32)
+    out = tcommon.rope(_t(x).to(getattr(torch, dtype)), _t(pos), 1e6)
+    if dtype == "float32":
+        assert_close(out.numpy(), ref)
+    else:
+        np.testing.assert_allclose(out.float().numpy(), ref,
+                                   rtol=BF16_RTOL, atol=1e-2)
+
+
+@pytest.mark.parametrize("groups", [1, 4])
+def test_drelu_grouped_matches_reference(groups):
+    x = np.random.default_rng(groups).normal(size=(3, 4, 64)).astype(np.float32)
+    ref = j_drelu_grouped(jnp.asarray(x), 16, groups)
+    assert_close(drelu_grouped(_t(x), 16, groups).numpy(), np.asarray(ref))
+
+
+def test_cbsr_bf16_matches_reference():
+    """bf16 rows rank as ``lax.top_k`` ranks them, ties included."""
+    x = np.random.default_rng(0).normal(size=(8, 64)).astype(np.float32)
+    x[:, 5] = x[:, 9]                                   # ties
+    xb = jnp.asarray(x, jnp.bfloat16)
+    ref = j_cbsr(xb, 12)
+    ours = cbsr_from_dense(_t(x).to(torch.bfloat16), 12)
+    np.testing.assert_array_equal(ours.idx.numpy(), np.asarray(ref.idx))
+    np.testing.assert_array_equal(ours.values.float().numpy(),
+                                  np.asarray(ref.values, np.float32))
+
+
+# ---------------------------------------------------------------------------
+# the reduced qwen3-0.6b with the reference's weights
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def pair():
+    jcfg = jbase.reduced(jbase.get_config("qwen3-0.6b"))
+    jlm = j_build_lm(jcfg)
+    jp = jlm.init(jax.random.PRNGKey(0))
+    lm = LM.from_jax_params(tbase.reduced(tbase.get_config("qwen3-0.6b")),
+                            jax.tree.map(np.asarray, jp), device="cpu")
+    tokens = np.random.default_rng(1).integers(
+        0, jcfg.vocab, (2, 16)).astype(np.int32)
+    return jlm, jp, lm, lm.params(), tokens
+
+
+def test_from_jax_params_carries_weights(pair):
+    jlm, jp, lm, p, _ = pair
+    np.testing.assert_array_equal(p["embed"].detach().numpy(), jp["embed"])
+    np.testing.assert_array_equal(p["layers"]["wq"].detach().numpy(),
+                                  jp["layers"]["wq"])
+    assert set(p["layers"]) == set(jp["layers"])
+
+
+def test_swiglu_ffn_drelu_matches_reference(pair):
+    jlm, jp, lm, p, _ = pair
+    x = np.random.default_rng(2).normal(size=(2, 7, 128)).astype(np.float32)
+    w = [np.asarray(jp["layers"][n][0]) for n in ("w_gate", "w_up", "w_down")]
+    k = lm.cfg.drelu_k
+    ref = jffn.swiglu_ffn(jnp.asarray(x), *map(jnp.asarray, w), drelu_k=k)
+    out = tffn.swiglu_ffn(_t(x), *map(_t, w), drelu_k=k)
+    assert_close(out.numpy(), np.asarray(ref))
+
+
+def test_forward_matches_reference(pair):
+    jlm, jp, lm, p, tokens = pair
+    ref, _ = jlm.forward(jp, jnp.asarray(tokens))
+    with torch.no_grad():
+        out, aux = lm(p, _t(tokens).long())
+    assert_close(out.numpy(), np.asarray(ref))
+    assert float(aux) == 0.0
+
+
+def test_cache_template_matches_reference(pair):
+    jlm, jp, lm, p, _ = pair
+    ref = jserve.cache_template(jlm, 3, 24)
+    ours = serve.cache_template(lm, 3, 24)
+    assert {k: v[:2] for k, v in ours.items()} == \
+        {k: v[:2] for k, v in ref.items()}
+    assert all(t.shape == ref[k][0] and t.dtype == torch.float32
+               for k, t in serve.cache_zeros(lm, 3, 24).items())
+
+
+def test_prefill_matches_reference(pair):
+    jlm, jp, lm, p, tokens = pair
+    jc, jl = jserve.prefill(jlm, jp, jnp.asarray(tokens))
+    c, lg = serve.prefill(lm, p, _t(tokens).long())
+    assert lg.shape == jl.shape and c["k"].shape == jc["k"].shape
+    assert_close(lg.numpy(), np.asarray(jl))
+    assert_close(c["k"].numpy(), np.asarray(jc["k"]))
+    assert_close(c["v"].numpy(), np.asarray(jc["v"]))
+
+
+@pytest.mark.parametrize("vector", [False, True])
+def test_decode_step_matches_reference(pair, vector):
+    """Two decode steps after the prefill: a scalar position, or every
+    slot at its own position (the engine's vector ``pos``)."""
+    jlm, jp, lm, p, tokens = pair
+    jc, _ = jserve.prefill(jlm, jp, jnp.asarray(tokens), s_max=16)
+    c, _ = serve.prefill(lm, p, _t(tokens).long(), s_max=16)
+    for step, tok in enumerate((tokens[:, -1:], tokens[:, :1])):
+        pos = (np.array([15 - step, 3 + step], np.int32) if vector
+               else np.int32(15 - step))
+        jc, jl = jserve.decode_step(jlm, jp, jc, jnp.asarray(tok),
+                                    jnp.asarray(pos))
+        c, lg = serve.decode_step(lm, p, c, _t(tok).long(),
+                                  _t(pos).long() if vector else int(pos))
+        assert_close(lg.numpy(), np.asarray(jl), f"step {step}")
+        assert_close(c["k"].numpy(), np.asarray(jc["k"]), f"step {step}")
+        assert_close(c["v"].numpy(), np.asarray(jc["v"]), f"step {step}")
+
+
+def test_decode_reproduces_prefill(pair):
+    """The invariant of tests/test_serve.py, on the port alone."""
+    jlm, jp, lm, p, tokens = pair
+    cache, lp = serve.prefill(lm, p, _t(tokens).long())
+    _, ld = serve.decode_step(lm, p, cache, _t(tokens[:, -1:]).long(), 15)
+    np.testing.assert_allclose(ld.numpy(), lp.numpy(), rtol=2e-3, atol=2e-3)
+
+
+def test_decode_from_scratch_matches_prefill(pair):
+    """Decode every token from a zero cache; each step's logits match a
+    prefill over that prefix."""
+    jlm, jp, lm, p, tokens = pair
+    tok = _t(tokens[:1, :8]).long()
+    cache = serve.cache_zeros(lm, 1, 8)
+    for pos in range(8):
+        cache, lg = serve.decode_step(lm, p, cache, tok[:, pos:pos + 1], pos)
+        if pos >= 2:
+            _, ref = serve.prefill(lm, p, tok[:, :pos + 1])
+            np.testing.assert_allclose(lg.numpy(), ref.numpy(),
+                                       rtol=3e-3, atol=3e-3)
+
+
+def test_sparse_decode_close_to_dense():
+    """The CBSR-gather decode FFN == the masked dense FFN (same math), and
+    both equal the reference's."""
+    rng = np.random.default_rng(0)
+    d, f, k = 16, 64, 16
+    x = rng.normal(size=(4, 1, d)).astype(np.float32)
+    w = [rng.normal(size=s).astype(np.float32) * 0.3
+         for s in ((d, f), (d, f), (f, d))]
+    dense = tffn.swiglu_ffn(_t(x), *map(_t, w), drelu_k=k)
+    sparse = tffn.swiglu_ffn_decode_sparse(_t(x), *map(_t, w), k)
+    np.testing.assert_allclose(sparse.numpy(), dense.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    ref = jffn.swiglu_ffn_decode_sparse(jnp.asarray(x), *map(jnp.asarray, w), k)
+    assert_close(sparse.numpy(), np.asarray(ref))
+
+
+def test_serve_engine_matches_reference(pair):
+    """Three ragged requests on two slots (a queue, slot reuse): the same
+    generations as the reference engine, and as each request alone."""
+    jlm, jp, lm, p, _ = pair
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, lm.cfg.vocab, n).tolist() for n in (3, 7, 5)]
+    ref = JServeEngine(jlm, jp, max_batch=2, s_max=32)
+    ours = ServeEngine(lm, p, max_batch=2, s_max=32, device="cpu")
+    jr = [ref.submit(q, 6) for q in prompts]
+    tr = [ours.submit(q, 6) for q in prompts]
+    jo, to = ref.run(), ours.run()
+    assert [to[r].generated for r in tr] == [jo[r].generated for r in jr]
+    for q, r in zip(prompts, tr):
+        alone = ServeEngine(lm, p, max_batch=1, s_max=32, device="cpu")
+        rid = alone.submit(q, 6)
+        assert alone.run()[rid].generated == to[r].generated
+
+
+def test_serve_engine_cache_bound(pair):
+    jlm, jp, lm, p, _ = pair
+    eng = ServeEngine(lm, p, max_batch=1, s_max=8, device="cpu")
+    rid = eng.submit([1, 2, 3, 4], 100)
+    out = eng.run()
+    assert len(out[rid].generated) <= 8
+
+
+def test_bf16_prefill_close_to_reference():
+    """The bf16 config end to end: the same weights give logits within
+    5e-2 relative L2 of the reference's bf16 prefill (the frameworks round
+    at other places), and decode stays finite."""
+    jcfg = dataclasses.replace(jbase.reduced(jbase.get_config("qwen3-0.6b")),
+                               dtype="bfloat16")
+    jlm = j_build_lm(jcfg)
+    jp = jlm.init(jax.random.PRNGKey(0))
+    lm = LM.from_jax_params(
+        dataclasses.replace(tbase.reduced(tbase.get_config("qwen3-0.6b")),
+                            dtype="bfloat16"),
+        jax.tree.map(np.asarray, jp), device="cpu")
+    tokens = np.random.default_rng(1).integers(0, jcfg.vocab, (2, 16))
+    jc, jl = jserve.prefill(jlm, jp, jnp.asarray(tokens, jnp.int32))
+    c, lg = serve.prefill(lm, lm.params(), _t(tokens).long())
+    assert c["k"].dtype == torch.bfloat16 and lg.dtype == torch.float32
+    assert _rel_l2(lg.numpy(), jl) < 5e-2
+    _, ld = serve.decode_step(lm, lm.params(), c, _t(tokens[:, -1:]).long(), 15)
+    assert torch.isfinite(ld).all()
