@@ -50,14 +50,16 @@ and serves the dense LM at qwen3-0.6b's full width (random weights from a
 seed, fp32 on the card, computed in bf16):
 
 14. ``kernel-flash``: the flash-attention kernel against its plain version
-    at the q/k/v of a prefill's first layer (captured), at S 1000 (ragged
-    tails, bf16 and fp32), in fp32, at head dims 32 and 128, and
-    non-causal (Sq 128, Sk 256); timed beside
-    ``scaled_dot_product_attention``;
+    at the q/k/v of a prefill's first layer (captured: k/v at their 8 KV
+    heads), at S 1000 (ragged tails, bf16 and fp32), in fp32, at head dims
+    32 and 128, non-causal (Sq 128, Sk 256), with one KV head for 16 and
+    at S 4,096 (GQA 16/8); timed beside ``scaled_dot_product_attention``
+    on the same operands (k/v tiled outside the timed call);
 15. ``serve-lm-qwen3-0.6b``: ``examples/serve_lm.py`` at depth 28: 4
     prompts of 1,008 tokens padded to 1,024, prefill (28 flash launches),
     16 greedy decode steps (none); decode at S-1 reproduces the prefill's
-    last logits; a profiler breakdown of a prefill and a decode step;
+    last logits; a profiler breakdown of a prefill and a decode step
+    (kernel 13's share, the count of device activities);
 16. ``serve-lm-fp32-depth2``: full width, 2 layers, fp32: the card's
     prefill + 8 decode steps against the port's CPU path;
 17. ``serve-lm-engine``: ``ServeEngine`` (4 slots, s_max 128) over 8 ragged
@@ -1185,9 +1187,10 @@ def lm_tokens(vocab, batch, prompt, total, seed):
 
 
 def flash_cases(q, k, v):
-    """(label, q, k, v, causal): the prefill's own operands, their first
-    1000 rows (ragged last tiles) in bf16 and fp32, fp32, head dims 32 and
-    128, and a non-causal Sq 128 x Sk 256 call."""
+    """(label, q, k, v, causal): the prefill's own operands (k/v at their
+    KV heads), their first 1000 rows (ragged last tiles) in bf16 and fp32,
+    fp32, head dims 32 and 128, a non-causal Sq 128 x Sk 256 call, one KV
+    head for all q heads, and S 4,096 at the prefill's 16 / 8 heads."""
     g = torch.Generator("cuda").manual_seed(SEED)
     b, s, h, hd = q.shape
 
@@ -1210,6 +1213,13 @@ def flash_cases(q, k, v):
                       rnd(b, 128, h, hd, dtype=dt),
                       rnd(b, 256, h, hd, dtype=dt),
                       rnd(b, 256, h, hd, dtype=dt), False))
+    cases.append(("S1000 bf16 causal KV 1", q[:, :1000], k[:, :1000, :1],
+                  v[:, :1000, :1], True))
+    n_kv = k.shape[2]
+    cases.append(("S4096 bf16 causal GQA", rnd(1, 4096, h, hd,
+                                                dtype=torch.bfloat16),
+                  *(rnd(1, 4096, n_kv, hd, dtype=torch.bfloat16)
+                    for _ in range(2)), True))
     return cases
 
 
@@ -1223,12 +1233,13 @@ def bf16_limit(ref):
     return ulp + 1e-5 * max(1.0, float(ref.abs().max()))
 
 
-def check_flash_kernel(q, k, v, n_kv):
+def check_flash_kernel(q, k, v):
     """Kernel 13 against its plain version: at the prefill's q/k/v (k and v
-    tiled from ``n_kv`` heads) and the cases above; timed at the prefill's
-    shape beside SDPA."""
+    at their KV heads) and the cases above; timed at the prefill's shape
+    beside SDPA."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.lm.attention import tile_kv
     err_main = None
     for label, a, b_, c, causal in flash_cases(q, k, v):
         y = FA.flash_attention(a, b_, c, causal=causal)
@@ -1250,12 +1261,19 @@ def check_flash_kernel(q, k, v, n_kv):
                     f"version: {err}")
         err_main = err if err_main is None else err_main
     b, s, h, hd = q.shape
-    # q and the n_kv untiled heads of k and v read once, o written once;
-    # QK and PV over the causal half
+    n_kv = k.shape[2]
+    # q and the n_kv heads of k and v read once, o written once; QK and PV
+    # over the causal half
     b_ms, b_by = bound((2 * h + 2 * n_kv) * b * s * hd * q.element_size(),
                        4.0 * hd * b * h * (s * (s + 1) // 2), H100_BF16_PER_S)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    # SDPA on the same operands: k/v tiled to the q heads outside the timed
+    # call (its fastest path), and with enable_gqa on the KV heads
+    qt = q.transpose(1, 2)
+    kt, vt = (tile_kv(t, h).transpose(1, 2) for t in (k, v))
+    kg, vg = (t.transpose(1, 2) for t in (k, v))
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa_gqa = lambda: F.scaled_dot_product_attention(
+        qt, kg, vg, is_causal=True, enable_gqa=True)
     log(f"  SDPA against the kernel at the prefill's shape: max_abs_diff="
         f"{float((sdpa().transpose(1, 2).float() - FA.flash_attention(q, k, v).float()).abs().max())}")
     row = dict(
@@ -1266,17 +1284,30 @@ def check_flash_kernel(q, k, v, n_kv):
         ms=cuda_ms(lambda: FA.flash_attention(q, k, v)),
         plain_ms=cuda_ms(lambda: FA.flash_attention_plain(q, k, v)),
         bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(sdpa))
-    log(f"  flash_attention (B {b}, S {s}, H {h}, hd {hd}, bf16, causal): "
-        f"ms={row['ms']} plain_ms={row['plain_ms']} bound_ms={b_ms} "
-        f"({b_by}) library_ms(SDPA)={row['library_ms']} [{CARD}]")
+    # the kernel's own device time (the events above also see the host's
+    # launch gaps)
+    _, _, names = device_breakdown(
+        lambda: [FA.flash_attention(q, k, v) for _ in range(REPS)])
+    dev = sum(ms / n for ms, n, name in names if "flash_attention_fwd" in name)
+    ratio = row["ms"] / row["library_ms"]
+    log(f"  flash_attention (B {b}, S {s}, H {h}, KV {n_kv}, hd {hd}, bf16, "
+        f"causal): ms={row['ms']} plain_ms={row['plain_ms']} bound_ms="
+        f"{b_ms} ({b_by}) library_ms(SDPA, tiled k/v)={row['library_ms']} "
+        f"SDPA enable_gqa ms={cuda_ms(sdpa_gqa)}; kernel device ms a launch "
+        f"(profiler) {dev}; kernel/SDPA {ratio} "
+        f"(target <= 1.5 and ms <= 0.096: "
+        f"{ratio <= 1.5 and row['ms'] <= 0.096}); "
+        f"{4.0 * hd * b * h * (s * (s + 1) // 2) / row['ms'] / 1e9:.1f} "
+        f"TFLOP/s on the causal FLOPs [{CARD}]")
     return row
 
 
-def device_breakdown(run, top=8):
+def device_breakdown(run):
     """Wall ms of ``run()`` under ``torch.profiler``, the summed time of
-    the device activities (kernels, copies, sets) it traced, and the
-    ``top`` of them by name (ms, count).  Only device-side events count,
-    so no kernel is counted twice through the operator that launched it."""
+    the device activities (kernels, copies, sets) it traced, and every
+    name's (ms, count, name), largest first.  Only device-side events
+    count, so no kernel is counted twice through the operator that
+    launched it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1294,7 +1325,7 @@ def device_breakdown(run, top=8):
                                     n + 1)
     rows = sorted(((ms, n, k) for k, (ms, n) in by_name.items()),
                   reverse=True)
-    return wall, sum(ms for ms, _, _ in rows), rows[:top]
+    return wall, sum(ms for ms, _, _ in rows), rows
 
 
 def lm_counts(wrappers):
@@ -1362,11 +1393,14 @@ def serve_lm_path(lm, tokens, wrappers):
             ("prefill", lambda: serve.prefill(lm, params, tokens)),
             ("decode step", lambda: serve.decode_step(
                 lm, params, cache, tok, total - 1))):
-        wall, busy, top = device_breakdown(run)
+        wall, busy, rows = device_breakdown(run)
+        k13 = sum(ms for ms, _, n in rows if "flash_attention_fwd" in n)
         log(f"breakdown serve-lm {what}: wall {wall:.3f} ms under the "
             f"profiler, device busy {busy:.3f} ms ({busy / wall:.3f}) "
-            f"[{CARD}]; top kernels (ms, calls): "
-            + "; ".join(f"{n} {ms:.3f} x{c}" for ms, c, n in top))
+            f"[{CARD}]; {sum(c for _, c, _ in rows)} device activities; "
+            f"kernel 13 {k13:.3f} ms ({k13 / busy:.3f} of busy); top "
+            f"kernels (ms, calls): "
+            + "; ".join(f"{n} {ms:.3f} x{c}" for ms, c, n in rows[:8]))
     return launches
 
 
@@ -1704,7 +1738,10 @@ def main() -> None:
                 f"{lm.cfg.n_layers}")
     q, k, v = calls[0][:3]
     del calls
-    rows["flash_attention"] = check_flash_kernel(q, k, v, lm.cfg.n_kv)
+    if k.shape[2] != lm.cfg.n_kv:
+        problem(f"the prefill handed kernel 13 k/v at {k.shape[2]} heads, "
+                f"expected the {lm.cfg.n_kv} KV heads")
+    rows["flash_attention"] = check_flash_kernel(q, k, v)
     del q, k, v
     log(f"phase kernel-flash: {LM_ARCH} ({sum(p.numel() for p in lm.parameters())}"
         f" parameters, fp32 on the card) in {time.perf_counter() - t:.1f} s")

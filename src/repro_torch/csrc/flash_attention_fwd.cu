@@ -1,59 +1,89 @@
 // Causal (or full) flash-attention forward for Hopper (sm_90a).
 //
-// Replaces the TPU kernel flash_attention (src/repro/kernels/flash_attention.py):
-// q (B, Sq, H, hd) and k/v (B, Sk, H, hd), KV heads already tiled, in fp32 or
-// bf16; s = (q . k) * 1/sqrt(hd) in fp32, masked to -1e30 where the key is
-// past Sk or, when causal, past the query's absolute position
-// (q_offset + i >= j); an online softmax over kv tiles keeps the running max
-// m, sum l and output sum in fp32; the output is acc / max(l, 1e-30) in q's
-// dtype.  Any Sq and Sk: the last q and kv tiles are masked.
+// Replaces the TPU kernel flash_attention (src/repro/kernels/flash_attention.py:
+// flash_attention :71, _flash_kernel :34): q (B, Sq, H, hd) and k/v
+// (B, Sk, KV, hd) with H % KV == 0, q head h reading KV head h % KV (the
+// order of jnp.tile), in fp32 or bf16; s = (q . k) * 1/sqrt(hd) in fp32,
+// masked to -1e30 where the key is past Sk or, when causal, past the
+// query's absolute position (q_offset + i >= j); an online softmax over kv
+// tiles keeps the running max m, sum l and output sum in fp32; the output
+// is acc / max(l, 1e-30) in q's dtype.  Any Sq and Sk: the last q and kv
+// tiles are masked.  Head dims 32, 64 and 128.
 //
-// One block of 4 warps per (b*h, 64-row q tile), heaviest (last) q tiles
-// first.  The q tile and one 64-row k/v tile at a time sit in shared memory
-// in fp32; the causal loop stops at the tile holding the q tile's last
-// diagonal key.  Each warp owns 16 q rows; lane (rg, cg) = (lane / 8,
-// lane % 8) holds rows rg + 4i (i < 4) and keys cg + 8j (j < 8) of the score
-// tile and columns cg + 8c (c < hd / 8) of the output, so a row's max and sum
-// reduce over the 8 lanes of its row group with three shuffles, and every
-// shared-memory access is conflict-free (padded strides).  Scalar fp32 FMAs.
+// Bound on the H100: at the qwen3-0.6b prefill (B 4, S 1024, H 16, KV 8,
+// hd 64, bf16, causal) the causal half of 4 * B * H * S^2 * hd operations
+// at the bf16 tensor-core peak (0.0087 ms) binds; q, o and the 8 KV heads
+// of k and v (25.2 MB) take 0.0075 ms.
 //
-// Bound on the H100: at the qwen3-0.6b prefill (B 4, S 1024, H 16, hd 64,
-// bf16) the bytes of q, k, v and o (33.5 MB) and the causal half of
-// 4 * B * H * S^2 * hd operations on the bf16 tensor cores are level
-// (0.010 and 0.0087 ms).  This kernel runs on the fp32 pipes without tensor
-// cores: it is right first; wgmma / TMA come later.
+// bf16 (the prefill's path): a warp-specialised tensor-core kernel.
+//  * One block per (b * h, 128-row q tile), heaviest (last) q tiles first:
+//    two consumer warpgroups own 64 q rows each; one thread of a producer
+//    warpgroup issues every load.  setmaxnreg moves registers from the
+//    producer (40) to the consumers (232).
+//  * Loads are TMA (cp.async.bulk.tensor, completion on an mbarrier) of
+//    bf16 tiles straight from the untiled (B, S, KV, hd) tensors, so K/V are
+//    read at their KV heads and never copied; rows past Sq or Sk arrive as
+//    zeros.  The tiles land in the 128-byte (hd 32: 64-byte) swizzle that
+//    wgmma reads without bank conflicts.  Q stays in shared memory for the
+//    whole block; K and V go through a ring of kStages 64-key stages, one
+//    full (TMA) and one empty (consumer) barrier a stage, so later tiles
+//    load while the current one is computed.
+//  * S = Q . K^T is wgmma m64n64k16, both operands from shared memory, the
+//    fp32 sum in registers.  The softmax runs in the accumulator's layout:
+//    a row lives in the 4 lanes of a quad, so a row max or sum is a tree in
+//    registers and two shuffles; the scale folds into one FFMA before
+//    ex2.  Only the diagonal tile and the ragged last tile are masked; the
+//    causal loop stops at each warpgroup's last diagonal key.
+//  * O += P . V is two wgmma m64nHDk16 passes over each 16-key slice, P
+//    from registers and V from shared memory (MN-major): first
+//    P_hi = bf16(P), then P_lo = bf16(P - P_hi).  Together they carry P to
+//    about 2^-16 relative, so the result stays within one bf16 rounding of
+//    the plain version, which keeps P in fp32 (a single bf16 P would not).
+//    The split costs 1.5x the function's tensor-core work.
+//  * Tile t's Q . K^T is issued together with tile t - 1's P . V, so that
+//    P . V runs on the tensor cores during tile t's softmax.  Every wait on
+//    a barrier is one asm loop, so ptxas sees no divergent branch between
+//    the wgmma instructions and keeps them asynchronous.
+// fp32 (the parity paths): the scalar kernel below, one block of 4 warps
+// per (b*h, 64-row q tile), fp32 tiles in shared memory, fp32 FMAs; it
+// matches the plain version to fp32 rounding, which TF32 would not.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr float kNegInf = -1e30f;
+
+// ---------------------------------------------------------------------------
+// fp32: the scalar kernel
+// ---------------------------------------------------------------------------
+
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kPStride = kBK + 8;  // rows of a warp's P tile: 8 banks apart
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 template <int HD>
 constexpr int smem_floats() {
   return 2 * kBQ * (HD + 1) + kBK * HD + kWarps * 16 * kPStride;
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, int n_heads, int sq, int sk,
-    int causal, int q_offset, float scale) {
+// Each warp owns 16 q rows; lane (rg, cg) = (lane / 8, lane % 8) holds rows
+// rg + 4i (i < 4) and keys cg + 8j (j < 8) of the score tile and columns
+// cg + 8c (c < hd / 8) of the output, so a row's max and sum reduce over
+// the 8 lanes of its row group with three shuffles, and every
+// shared-memory access is conflict-free (padded strides).
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_attention_fwd_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, int n_heads,
+    int n_kv, int sq, int sk, int causal, int q_offset, float scale) {
   constexpr int QS = HD + 1;  // padded row stride of the q and k tiles
   constexpr int NC = HD / 8;  // output columns per lane
   extern __shared__ float smem[];
@@ -66,15 +96,16 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int b = blockIdx.y / n_heads, h = blockIdx.y % n_heads;
-  const long long rs = (long long)n_heads * HD;  // sequence-row stride
-  const T* qb = q + ((long long)b * sq * n_heads + h) * HD;
-  const T* kb = k + ((long long)b * sk * n_heads + h) * HD;
-  const T* vb = v + ((long long)b * sk * n_heads + h) * HD;
-  T* ob = o + ((long long)b * sq * n_heads + h) * HD;
+  const long long rs = (long long)n_heads * HD;  // q / o sequence-row stride
+  const long long rk = (long long)n_kv * HD;     // k / v sequence-row stride
+  const float* qb = q + ((long long)b * sq * n_heads + h) * HD;
+  const float* kb = k + ((long long)b * sk * n_kv + h % n_kv) * HD;
+  const float* vb = v + ((long long)b * sk * n_kv + h % n_kv) * HD;
+  float* ob = o + ((long long)b * sq * n_heads + h) * HD;
 
   for (int e = threadIdx.x; e < kBQ * HD; e += kThreads) {
     const int r = e / HD, c = e % HD;
-    s_q[r * QS + c] = q0 + r < sq ? to_f32(qb[(q0 + r) * rs + c]) : 0.f;
+    s_q[r * QS + c] = q0 + r < sq ? qb[(q0 + r) * rs + c] : 0.f;
   }
 
   float m[4], l[4], acc[4][NC];
@@ -100,8 +131,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(
     for (int e = threadIdx.x; e < kBK * HD; e += kThreads) {
       const int r = e / HD, c = e % HD;
       const bool ok = k0 + r < sk;
-      s_k[r * QS + c] = ok ? to_f32(kb[(k0 + r) * rs + c]) : 0.f;
-      s_v[r * HD + c] = ok ? to_f32(vb[(k0 + r) * rs + c]) : 0.f;
+      s_k[r * QS + c] = ok ? kb[(k0 + r) * rk + c] : 0.f;
+      s_v[r * HD + c] = ok ? vb[(k0 + r) * rk + c] : 0.f;
     }
     __syncthreads();
 
@@ -177,16 +208,16 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(
     if (r >= sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) store(ob + r * rs + cg + 8 * c, acc[i][c] / den);
+    for (int c = 0; c < NC; ++c) ob[r * rs + cg + 8 * c] = acc[i][c] / den;
   }
 }
 
-template <typename T, int HD>
-static int launch(const void* q, const void* k, const void* v, void* o,
-                  int b, int h, int sq, int sk, int causal, int q_offset,
-                  cudaStream_t stream) {
+template <int HD>
+static int launch_f32(const void* q, const void* k, const void* v, void* o,
+                      int b, int h, int n_kv, int sq, int sk, int causal,
+                      int q_offset, cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * (int)sizeof(float);
-  auto kernel = flash_attention_fwd_kernel<T, HD>;
+  auto kernel = flash_attention_fwd_f32_kernel<HD>;
   static bool opted_in = false;
   if (!opted_in) {  // above 48 KB only as opted-in dynamic shared memory
     cudaError_t e = cudaFuncSetAttribute(
@@ -197,34 +228,649 @@ static int launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
   const float scale = (float)(1.0 / sqrt((double)(HD)));
   kernel<<<grid, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, h, sq, sk, causal,
-      q_offset, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, h, n_kv,
+      sq, sk, causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int dispatch(const void* q, const void* k, const void* v, void* o,
-                    int b, int h, int sq, int sk, int hd, int causal,
-                    int q_offset, cudaStream_t stream) {
-  switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, o, b, h, sq, sk, causal, q_offset, stream);
-    case 64: return launch<T, 64>(q, k, v, o, b, h, sq, sk, causal, q_offset, stream);
-    case 128: return launch<T, 128>(q, k, v, o, b, h, sq, sk, causal, q_offset, stream);
-    default: return (int)cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kStages = 4;  // K/V ring depth
+
+template <int HD>
+struct Tc {
+  static constexpr int TQ = 128;         // q rows per block
+  static constexpr int CONSUMERS = 256;  // two consumer warpgroups of 64 rows
+  static constexpr int THREADS = CONSUMERS + 128;  // + a producer warpgroup
+  // registers a thread after setmaxnreg: 256 x 232 + 128 x 40 <= 64 K
+  static constexpr int CONSUMER_REGS = 232;
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int BK = 64;                    // keys per kv tile
+  static constexpr int CW = HD < 64 ? HD : 64;     // columns per swizzle atom
+  static constexpr int NCH = HD / CW;              // atoms across hd
+  static constexpr int SWB = CW * 2;               // swizzle span, bytes
+  static constexpr int Q_BYTES = TQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;
+  // Q, then kStages x (K, V), then the barriers; + 1 KB to align the base
+  static constexpr int BAR_OFF = Q_BYTES + kStages * 2 * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * kStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait for the phase of the given parity to complete.  The loop lives in
+// one asm block, so the compiler sees no divergent branch between the
+// wgmma instructions around a wait.  A wait that lasts past 2^32 clocks
+// (about two seconds) traps: a fault in the pipeline ends the launch with
+// an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra.uni DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 p, t1, 4294967296;\n"
+      "@p trap;\n"
+      "bra.uni WAIT;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// TMA: the box at coordinates (c0, c1, c2, c3) of a 4-d tensor map into
+// shared memory; its bytes complete the barrier's transaction count.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle (1: 128 B, 2: 64 B).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int swb) {
+  return (uint64_t)((addr & 0x3ffff) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3fff) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3fff) << 32) |
+         ((uint64_t)(swb == 128 ? 1 : 2) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+// Pin registers that an in-flight wgmma reads or writes to this point of
+// the program, so the compiler neither reads them early nor reuses them.
+__device__ __forceinline__ void fence_regs(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// D (64 x 64, fp32) (+)= A (64 x 16) . B (16 x 64), A and B bf16 in
+// shared memory, both K-major (descriptors da, db)
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 32, fp32) += A (64 x 16, bf16 fragments in registers) .
+// B (16 x 32, bf16 in shared memory, MN-major: descriptor db)
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, bf16 fragments in registers) .
+// B (16 x 64, bf16 in shared memory, MN-major: descriptor db)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, "
+      "1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, bf16 fragments in registers) .
+// B (16 x 128, bf16 in shared memory, MN-major: descriptor db)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]),
+          "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+          "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+          "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]),
+          "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+          "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
+  __nv_bfloat162 x = __floats2bfloat162_rn(lo_col, hi_col);
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// One row's reduction over a score tile in the accumulator layout: the
+// pairs x[4 j], x[4 j + 1] for j < N (the row r + 8 starts at x + 2), as a
+// tree, so the dependent chain is log2(2 N) deep.
+template <int N, typename Op>
+__device__ __forceinline__ float tree(const float* x, Op op) {
+  float t[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) t[j] = op(x[4 * j], x[4 * j + 1]);
+#pragma unroll
+  for (int w = N / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int j = 0; j < w; ++j) t[j] = op(t[j], t[j + w]);
+  return t[0];
+}
+struct FmaxOp {
+  __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
+};
+struct AddOp {
+  __device__ float operator()(float a, float b) const { return a + b; }
+};
+constexpr FmaxOp fmaxf_op{};
+constexpr AddOp add_op{};
+
+// The split of one fragment register's two P values: hi = bf16(p),
+// lo = bf16(p - hi).
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+// The last key + 1 that rows [r0, r1) of the q tensor can see.
+__device__ __forceinline__ int kv_end(int r1, int sq, int sk, int causal,
+                                      int q_offset) {
+  if (!causal) return sk;
+  const long long last = (long long)q_offset + min(r1, sq);
+  return (int)max(0ll, min((long long)sk, last));
+}
+
+// The consumer warpgroups' part of the kernel.
+template <int HD>
+__device__ __forceinline__ void consumer(
+    __nv_bfloat16* __restrict__ o, uint32_t s_q, uint32_t s_k0,
+    uint32_t bar_q, uint32_t bar_f0, uint32_t bar_e0,
+    int n_heads, int sq, int sk, int causal, int q_offset, float scale_log2,
+    int q0, int b, int h, int n_tiles) {
+  using C = Tc<HD>;
+  constexpr int BK = C::BK, CW = C::CW, SWB = C::SWB;
+  constexpr int NS = BK / 2;   // score registers a thread: 64 x BK / 128
+  constexpr int NO = HD / 2;   // output registers a thread: 64 x HD / 128
+  constexpr int KS = BK / 16;  // 16-key slices of a kv tile
+  const int warp = __shfl_sync(kFullMask, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+
+  // a consumer warpgroup: 64 q rows; this thread holds rows r and r + 8 of
+  // them, and of every 8-column group of S and O the columns 2 (lane % 4)
+  // and 2 (lane % 4) + 1
+  const int wg = warp / 4;
+  const int qw = q0 + wg * 64;
+  const int r = (warp % 4) * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int my_tiles =
+      (kv_end(qw + 64, sq, sk, causal, q_offset) + BK - 1) / BK;
+  // this warpgroup's Q rows: K-major, 8-row groups 8 swizzled rows apart
+  const uint64_t dq = gmma_desc(s_q + wg * 64 * SWB, 16, 8 * SWB, SWB);
+  auto stage = [](unsigned t) { return t % kStages; };
+  auto parity = [](unsigned t) { return (t / kStages) & 1; };
+  auto k_tile = [&](unsigned t) { return s_k0 + stage(t) * 2 * C::KV_BYTES; };
+  // this warp is done with tile t's stage
+  auto release = [&](unsigned t) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_e0 + 8 * stage(t));
+  };
+  // tile t's K and V are in their stage
+  auto wait_full = [&](unsigned t) {
+    mbar_wait(bar_f0 + 8 * stage(t), parity(t));
+  };
+
+  float oacc[NO], sacc[NS];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) oacc[i] = 0.f;
+  // Scores stay in raw units until the exponent, exp(s * scale - m) =
+  // exp2(s * scale_log2 - m_log2), one FFMA; a masked score is
+  // -1e30 / scale_log2 (-1e30 in log2 units, as the reference masks).
+  // Key 0 is visible to every row, so each row's max is a real score from
+  // the first tile on.
+  const float mask_raw = kNegInf / scale_log2;
+  // running max (raw units) and sum of rows r and r + 8
+  float m[2] = {mask_raw, mask_raw}, l[2] = {0.f, 0.f};
+  uint32_t phi[KS][4], plo[KS][4];  // P of the tile whose P.V is pending
+
+  // S = Q K^T of tile t, issued (zeroed first: the last P is dead by then)
+  auto issue_qk = [&](unsigned t) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sacc[i] = 0.f;
+    const uint64_t dk = gmma_desc(k_tile(t), 16, 8 * SWB, SWB);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      // 16 columns on within the swizzle atom, or the next atom
+      const int step = (kk * 16 / CW) * C::TQ * SWB + (kk * 16 % CW) * 2;
+      const int kstep = (kk * 16 / CW) * BK * SWB + (kk * 16 % CW) * 2;
+      wgmma_ss_n64(sacc, dq + (step >> 4), dk + (kstep >> 4), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += P_hi V, then O += P_lo V for tile t, issued
+  auto issue_pv = [&](unsigned t) {
+    const uint64_t dv =
+        gmma_desc(k_tile(t) + C::KV_BYTES, BK * SWB, 8 * SWB, SWB);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_rs<HD>(oacc, phi[kk], dv + ((kk * 16 * SWB) >> 4));
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_rs<HD>(oacc, plo[kk], dv + ((kk * 16 * SWB) >> 4));
+    wgmma_commit();
+  };
+  // mask (MASK: the diagonal or ragged tile) and exponentiate tile t's
+  // scores in place; update m and l; return each row's correction of the
+  // output sum
+  auto softmax = [&](auto mask_tag, unsigned t, float* corr) {
+    constexpr bool MASK = decltype(mask_tag)::value;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) fence_regs(sacc[i]);
+    // row i sees the keys of this tile whose offset from t BK + cq is
+    // below vis[i]
+    int vis[2];
+    if (MASK) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        int lim = sk;
+        if (causal) lim = min(lim, q_offset + qw + r + 8 * i + 1);
+        vis[i] = lim - (int)(t * BK) - cq;
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * j + (e & 1) >= vis[e >> 1]) sacc[4 * j + e] = mask_raw;
+    }
+    float mx[2], mc[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(m[i], tree<BK / 8>(sacc + 2 * i, fmaxf_op));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFullMask, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFullMask, mx[i], 2));
+      mc[i] = mx[i] * scale_log2;
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sacc[4 * j + e] =
+            fast_exp2(fmaf(sacc[4 * j + e], scale_log2, -mc[e >> 1]));
+    float sum[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] = tree<BK / 8>(sacc + 2 * i, add_op);
+      sum[i] += __shfl_xor_sync(kFullMask, sum[i], 1);
+      sum[i] += __shfl_xor_sync(kFullMask, sum[i], 2);
+      corr[i] = fast_exp2(fmaf(m[i], scale_log2, -mc[i]));
+      l[i] = l[i] * corr[i] + sum[i];
+      m[i] = mx[i];
+    }
+  };
+  // the diagonal tile and the ragged last tile need the mask
+  auto softmax_tile = [&](unsigned t, float* corr) {
+    const bool masked = (int)((t + 1) * BK) > sk ||
+                        (causal && (int)((t + 1) * BK) - 1 > q_offset + qw);
+    if (masked) softmax(std::true_type(), t, corr);
+    else softmax(std::false_type(), t, corr);
+  };
+  // P as A fragments: slice kk is the score columns 16 kk .. 16 kk + 15,
+  // i.e. registers 8 kk .. 8 kk + 7 in pairs
+  auto split_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split_bf16(sacc[8 * kk + 2 * i], sacc[8 * kk + 2 * i + 1], phi[kk][i],
+                   plo[kk][i]);
+  };
+  // the pending P.V is done: its registers and stage are free
+  auto pv_done = [&](unsigned t) {
+#pragma unroll
+    for (int i = 0; i < NO; ++i) fence_regs(oacc[i]);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        fence_regs(phi[kk][i]);
+        fence_regs(plo[kk][i]);
+      }
+    release(t);
+  };
+
+  mbar_wait(bar_q, 0);
+  if (my_tiles > 0) {
+    float corr[2];
+    wait_full(0);
+    issue_qk(0);
+    wgmma_wait<0>();
+    softmax_tile(0, corr);
+    split_p();
+    // tile t's Q.K^T runs on the tensor cores beside tile t - 1's P.V, and
+    // its softmax beside that P.V
+    for (unsigned t = 1; t < (unsigned)my_tiles; ++t) {
+      wait_full(t);
+      issue_qk(t);
+      issue_pv(t - 1);
+      wgmma_wait<1>();
+      softmax_tile(t, corr);
+      wgmma_wait<0>();
+      pv_done(t - 1);
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oacc[4 * j + e] *= corr[e >> 1];
+      split_p();
+    }
+    wgmma_fence();
+    issue_pv(my_tiles - 1);
+    wgmma_wait<0>();
+    pv_done(my_tiles - 1);
   }
+  // the other warpgroup's tiles: the stage is released once loaded, so
+  // every release of a stage follows the one before it
+  for (unsigned t = my_tiles; t < (unsigned)n_tiles; ++t) {
+    wait_full(t);
+    release(t);
+  }
+
+  // O / max(l, 1e-30) in bf16, rows past Sq dropped
+  const long long rs = (long long)n_heads * HD;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = qw + r + 8 * i;
+    if (row >= sq) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    __nv_bfloat16* orow = o + ((long long)b * sq + row) * rs + (long long)h * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const __nv_bfloat162 x = __floats2bfloat162_rn(
+          oacc[4 * j + 2 * i] / den, oacc[4 * j + 2 * i + 1] / den);
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + cq) = x;
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(Tc<HD>::THREADS, 1) flash_attention_fwd_tc_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+    int n_heads, int n_kv, int sq, int sk, int causal, int q_offset,
+    float scale_log2) {
+  using C = Tc<HD>;
+  constexpr int BK = C::BK, CW = C::CW, NCH = C::NCH, SWB = C::SWB;
+  extern __shared__ uint8_t smem_raw[];
+  // every tile starts on a 1 KB boundary (the swizzle repeats every 1 KB)
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_q = base;
+  const uint32_t s_k0 = base + C::Q_BYTES;  // stage s: K, then V
+  const uint32_t bar_q = base + C::BAR_OFF;
+  const uint32_t bar_f0 = bar_q + 8;             // kStages full (K and V)
+  const uint32_t bar_e0 = bar_f0 + 8 * kStages;  // kStages empty
+
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::TQ;
+  const int b = blockIdx.x / n_heads, h = blockIdx.x % n_heads;
+  const int hk = h % n_kv;
+  const int n_tiles = (kv_end(q0 + C::TQ, sq, sk, causal, q_offset) + BK - 1) /
+                      BK;
+  // the warp index, broadcast so the compiler knows it is warp-uniform
+  const int warp = __shfl_sync(kFullMask, threadIdx.x / 32, 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_f0 + 8 * s, 1);
+      mbar_init(bar_e0 + 8 * s, C::CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= C::CONSUMERS / 32) {  // the producer warpgroup: one lane loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 ::"n"(C::PRODUCER_REGS));
+    if (threadIdx.x == C::CONSUMERS) {
+      mbar_expect_tx(bar_q, C::Q_BYTES);
+      for (int c = 0; c < NCH; ++c)
+        tma_load(s_q + c * C::TQ * SWB, &tm_q, bar_q, c * CW, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(bar_e0 + 8 * s, ((t / kStages) & 1) ^ 1);
+        const uint32_t sk_t = s_k0 + s * 2 * C::KV_BYTES;
+        const uint32_t sv_t = sk_t + C::KV_BYTES;
+        mbar_expect_tx(bar_f0 + 8 * s, 2 * C::KV_BYTES);
+        for (int c = 0; c < NCH; ++c) {
+          tma_load(sk_t + c * BK * SWB, &tm_k, bar_f0 + 8 * s, c * CW, hk,
+                   t * BK, b);
+          tma_load(sv_t + c * BK * SWB, &tm_v, bar_f0 + 8 * s, c * CW, hk,
+                   t * BK, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 ::"n"(C::CONSUMER_REGS));
+    consumer<HD>(o, s_q, s_k0, bar_q, bar_f0, bar_e0, n_heads, sq, sk,
+                 causal, q_offset, scale_log2, q0, b, h, n_tiles);
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &res);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &res);
+#endif
+    if (res == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A (B, S, heads, hd) bf16 tensor as a 4-d map (hd innermost) whose box is
+// one swizzle atom wide (cw columns) and ``rows`` sequence rows tall.
+static int make_map(CUtensorMap* map, const void* ptr, int b, int s,
+                    int heads, int hd, int cw, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)s * heads * hd * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cw, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      cw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int HD>
+static int launch_tc(const void* q, const void* k, const void* v, void* o,
+                     int b, int h, int n_kv, int sq, int sk, int causal,
+                     int q_offset, cudaStream_t stream) {
+  using C = Tc<HD>;
+  // TMA takes 16-byte aligned bases
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  CUtensorMap tq, tk, tv;
+  int e = make_map(&tq, q, b, sq, h, HD, C::CW, C::TQ);
+  if (!e) e = make_map(&tk, k, b, sk, n_kv, HD, C::CW, C::BK);
+  if (!e) e = make_map(&tv, v, b, sk, n_kv, HD, C::CW, C::BK);
+  if (e) return e;
+  auto kernel = flash_attention_fwd_tc_kernel<HD>;
+  static bool opted_in = false;
+  if (!opted_in) {
+    cudaError_t r = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (r != cudaSuccess) return (int)r;
+    opted_in = true;
+  }
+  const dim3 grid(b * h, (sq + C::TQ - 1) / C::TQ);
+  // the scores in log2 units: exp(s - m) = exp2((s - m) log2(e))
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)(HD)));
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, h, n_kv, sq, sk, causal, q_offset,
+      scale_log2);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int b, int h,
-                                   int sq, int sk, int hd, int bf16,
+                                   int n_kv, int sq, int sk, int hd, int bf16,
                                    int causal, int q_offset,
                                    cudaStream_t stream) {
+  if (n_kv <= 0 || h % n_kv) return (int)cudaErrorInvalidValue;
+  if (bf16) {  // grid (b * h, q tiles of 128 rows)
+    if ((sq + 127) / 128 > 65535) return (int)cudaErrorInvalidValue;
+    switch (hd) {
+      case 32: return launch_tc<32>(q, k, v, o, b, h, n_kv, sq, sk, causal, q_offset, stream);
+      case 64: return launch_tc<64>(q, k, v, o, b, h, n_kv, sq, sk, causal, q_offset, stream);
+      case 128: return launch_tc<128>(q, k, v, o, b, h, n_kv, sq, sk, causal, q_offset, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   if (b * h > 65535) return (int)cudaErrorInvalidValue;
-  if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, b, h, sq, sk, hd, causal,
-                                   q_offset, stream);
-  return dispatch<float>(q, k, v, o, b, h, sq, sk, hd, causal, q_offset,
-                         stream);
+  switch (hd) {
+    case 32: return launch_f32<32>(q, k, v, o, b, h, n_kv, sq, sk, causal, q_offset, stream);
+    case 64: return launch_f32<64>(q, k, v, o, b, h, n_kv, sq, sk, causal, q_offset, stream);
+    case 128: return launch_f32<128>(q, k, v, o, b, h, n_kv, sq, sk, causal, q_offset, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* error_string(int e) {

@@ -1,17 +1,25 @@
 """Causal (or full) softmax attention, single pass with an online softmax.
 
-Replaces ``flash_attention`` (``src/repro/kernels/flash_attention.py``), the
-TPU kernel of the LM's prefill.  q is (B, Sq, H, hd) and k/v (B, Sk, H, hd)
-with the KV heads already tiled to H; the scale is ``1/sqrt(hd)``; scores,
-the running max / sum and the output sum stay in fp32 (``NEG_INF = -1e30``
-masks, the output divides by ``max(l, 1e-30)``) and the output has q's
-dtype.  The causal mask is by absolute position, ``q_offset + i >= j``.
+Replaces ``flash_attention`` (``src/repro/kernels/flash_attention.py:71``),
+the TPU kernel of the LM's prefill.  q is (B, Sq, H, hd) and k/v
+(B, Sk, KV, hd) with ``H % KV == 0``: q head h reads KV head ``h % KV``
+(``jnp.tile``'s order, as ``tile_kv`` lays the heads out), so the KV heads
+are never copied.  The scale is ``1/sqrt(hd)``; scores, the running max /
+sum and the output sum stay in fp32 (``NEG_INF = -1e30`` masks, the output
+divides by ``max(l, 1e-30)``) and the output has q's dtype.  The causal
+mask is by absolute position, ``q_offset + i >= j``.
 
-CUDA source: ``csrc/flash_attention_fwd.cu`` (fp32 or bf16 inputs, head dim
-32, 64 or 128, any Sq and Sk).  :func:`flash_attention_plain` is the same
-function in plain PyTorch: CPU tensors run it, and the card's runs are held
-against it.  The kernel has no backward: on CUDA tensors that need a
-gradient the wrapper raises.
+CUDA source: ``csrc/flash_attention_fwd.cu`` (head dim 32, 64 or 128, any
+Sq and Sk).  Its bound at the qwen3-0.6b prefill is the causal FLOPs at
+the bf16 tensor-core peak.  bf16 runs a warp-specialised tensor-core kernel:
+TMA loads of bf16 K/V tiles at their KV heads into a shared-memory ring,
+``wgmma`` for Q·Kᵀ and for P·V, where P goes in as P_hi = bf16(P) plus
+P_lo = bf16(P - P_hi), which keeps it to about 2^-16, so the result stays
+within one bf16 rounding of the plain version's fp32 P.  fp32 runs a
+scalar kernel whose sums match the plain version to fp32 rounding.
+:func:`flash_attention_plain` is the same function in plain PyTorch: CPU
+tensors run it, and the card's runs are held against it.  The kernel has
+no backward: on CUDA tensors that need a gradient the wrapper raises.
 """
 
 from __future__ import annotations
@@ -32,9 +40,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           q_offset: int = 0) -> torch.Tensor:
     """Online softmax over kv tiles of ``BLOCK_K`` rows, every q row at
-    once (the reference's ``_flash_inner`` for one q chunk)."""
+    once (the reference's ``_flash_inner`` for one q chunk).  k/v with KV <
+    H heads are tiled first, head h from KV head h % KV."""
     b, sq, h, hd = q.shape
     sk = k.shape[1]
+    _check_heads(h, k, v)
+    if k.shape[2] != h:
+        k, v = (t.repeat(1, 1, h // t.shape[2], 1) for t in (k, v))
     scale = 1.0 / (hd ** 0.5)
     qf = q.float()
     q_pos = q_offset + torch.arange(sq, device=q.device)
@@ -59,9 +71,17 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ).to(q.dtype)
 
 
+def _check_heads(h: int, k: torch.Tensor, v: torch.Tensor) -> None:
+    kv = k.shape[2]
+    if kv == 0 or h % kv or v.shape != k.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must "
+                         f"share a KV head count that divides the {h} q "
+                         f"heads")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0) -> torch.Tensor:
-    """q (B, Sq, H, hd); k/v (B, Sk, H, hd), H already tiled.  Returns
+    """q (B, Sq, H, hd); k/v (B, Sk, KV, hd), H % KV == 0.  Returns
     (B, Sq, H, hd) in q's dtype.  CUDA tensors launch kernel 13."""
     if not _on_card(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal,
@@ -73,22 +93,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "card waits for ROADMAP.md §1 item 6 (chunked_attention's "
             "autograd); run it under torch.no_grad() or on the CPU")
     b, sq, h, hd = q.shape
-    sk = k.shape[1]
-    if k.shape != (b, sk, h, hd) or v.shape != k.shape:
-        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} do not fit (KV heads tiled)")
+    sk, n_kv = k.shape[1], k.shape[2]
+    if k.shape != (b, sk, n_kv, hd):
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         f"in batch or head dim")
+    _check_heads(h, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q/k/v "
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in the kernel's {HEAD_DIMS}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} is an absolute position, >= 0")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lib = _lib()
     rc = lib.flash_attention_fwd(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-        b, h, sq, sk, hd, int(q.dtype == torch.bfloat16), int(causal),
+        b, h, n_kv, sq, sk, hd, int(q.dtype == torch.bfloat16), int(causal),
         int(q_offset), _build.stream_of(out))
     _build.check(lib, rc, "flash_attention_fwd")
     flash_attention.launches += 1
@@ -101,7 +124,7 @@ flash_attention.launches = 0
 def _lib() -> ctypes.CDLL:
     lib = _build.library("flash_attention_fwd")
     fn = lib.flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

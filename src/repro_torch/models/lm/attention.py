@@ -2,12 +2,12 @@
 flash prefill and one-token decode against a KV cache.
 
 Port of ``repro/models/lm/attention.py``, single device.  KV heads keep
-their true count and are *tiled* to the q heads at use (q head h reads kv
-head h % n_kv, ``jnp.tile``'s order).  ``chunked_attention`` on CUDA tensors
-is one launch of kernel 13 (``kernels/flash_attention.py``) and on CPU
-tensors one call of its plain online softmax; the reference's chunk
-schedule (``_pick_chunk``, brick or masked) is not ported, since it changes
-no number.  Decode attention is plain
+their true count; q head h reads kv head h % n_kv (``jnp.tile``'s order).
+``chunked_attention`` takes the untiled k/v: on CUDA tensors it is one
+launch of kernel 13 (``kernels/flash_attention.py``), which reads each KV
+head where it lies, and on CPU tensors one call of its plain online
+softmax; the reference's chunk schedule (``_pick_chunk``, brick or masked)
+is not ported, since it changes no number.  Decode attention is plain
 PyTorch on both devices, as the reference computes it outside any kernel.
 The sequence-sharded ``shard_map`` decode is not ported.
 """
@@ -35,7 +35,8 @@ def tile_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       *, causal: bool = True,
                       q_offset: int = 0) -> torch.Tensor:
-    """Flash attention.  q (B,Sq,H,hd); k/v (B,Sk,H,hd) (already tiled).
+    """Flash attention.  q (B,Sq,H,hd); k/v (B,Sk,KV,hd), H % KV == 0,
+    q head h reading kv head h % KV (``tile_kv``'s order, without the copy).
 
     The reference's q/kv chunk schedule changes no number, so the port has
     none: CUDA tensors make one launch of kernel 13, CPU tensors one call
@@ -61,7 +62,6 @@ def attention_block(x, wq, wk, wv, wo, *, n_kv: int,
     mask).  wq (d,H,hd); wk/wv (d,KV,hd); wo (H,hd,d)."""
     s = x.shape[1]
     src = x if kv_x is None else kv_x
-    h = wq.shape[1]
 
     q = torch.einsum("bsd,dhe->bshe", x, wq)
     k = torch.einsum("bsd,dke->bske", src, wk)
@@ -74,8 +74,7 @@ def attention_block(x, wq, wk, wv, wo, *, n_kv: int,
             positions = torch.arange(s, device=x.device)[None, :]
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
-    ctx = chunked_attention(q, tile_kv(k, h), tile_kv(v, h),
-                            causal=causal and kv_x is None)
+    ctx = chunked_attention(q, k, v, causal=causal and kv_x is None)
     out = torch.einsum("bshe,hed->bsd", ctx, wo)
     if return_kv:
         return out, (k, v)

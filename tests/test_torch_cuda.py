@@ -3,8 +3,9 @@ version, the serve engine on the card against the port's CPU forward, one
 training step on the card against the same step on the CPU (the D-ReLU
 trainer, the dense-SpMM trainer, the serial per-bucket trainer and the
 homogeneous baselines), the concurrent relation modules against the
-sequential ones, and the flash-attention kernel and the reduced dense LM
-(prefill, decode, ``ServeEngine``) on the card against the CPU.
+sequential ones, and the flash-attention kernel (fp32 and bf16, k/v at
+KV <= H heads, up to S 4,096) and the reduced dense LM (prefill, decode,
+``ServeEngine``) on the card against the CPU.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs on a machine with the card
@@ -481,14 +482,18 @@ def test_run_fused_on_card_equals_sequential(cuda):
 @pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("sq,sk,causal,q_offset", [
     (128, 128, True, 0), (1000, 1000, True, 0), (200, 200, False, 0),
-    (128, 256, False, 0), (37, 101, True, 64), (1, 77, True, 76)])
+    (128, 256, False, 0), (37, 101, True, 64), (1, 77, True, 76),
+    (4096, 4096, True, 0)])
+@pytest.mark.parametrize("h,kv", [(3, 3), (4, 2), (4, 1)])
 def test_flash_kernel_matches_plain(cuda, dtype, hd, sq, sk, causal,
-                                    q_offset):
-    """fp32 and bf16, ragged q and kv tails, a q offset, causal or not."""
+                                    q_offset, h, kv):
+    """fp32 and bf16, ragged q and kv tails, a q offset, causal or not, k/v
+    at KV < H heads (head h reads KV head h % KV), and S 4,096, where the
+    bf16 kernel's K/V ring wraps many times."""
     dt = getattr(torch, dtype)
-    g = torch.Generator().manual_seed(hd + sq + sk)
-    q, k, v = (torch.randn((2, s, 3, hd), generator=g).to(cuda, dt)
-               for s in (sq, sk, sk))
+    g = torch.Generator().manual_seed(hd + sq + sk + kv)
+    q, k, v = (torch.randn((2, s, n, hd), generator=g).to(cuda, dt)
+               for s, n in ((sq, h), (sk, kv), (sk, kv)))
     before = flash_attention.flash_attention.launches
     out = flash_attention.flash_attention(q, k, v, causal=causal,
                                           q_offset=q_offset)
@@ -511,6 +516,21 @@ def test_flash_kernel_rejects_unsupported(cuda):
     q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         flash_attention.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention.flash_attention(q, q, q, q_offset=-1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_rejects_kv_heads_not_dividing(cuda, dtype):
+    """H % KV != 0 raises before any launch."""
+    dt = getattr(torch, dtype)
+    q = torch.zeros((1, 8, 4, 64), device=cuda, dtype=dt)
+    k = torch.zeros((1, 8, 3, 64), device=cuda, dtype=dt)
+    before = flash_attention.flash_attention.launches
+    with pytest.raises(ValueError, match="KV head count"):
+        flash_attention.flash_attention(q, k, k)
+    assert flash_attention.flash_attention.launches == before
 
 
 def _lm_pair(cuda, dtype="float32"):

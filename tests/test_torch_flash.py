@@ -4,7 +4,11 @@ On the CPU: the plain version beside the kernel against the reference's
 Pallas ``flash_attention`` (interpret mode, as ``tests/test_flash_kernel.py``
 runs it) at that file's four shapes, and the port's ``chunked_attention``
 against the reference's at S 200 (the reference's chunk schedules, brick
-and masked, causal and not, GQA heads 4 / KV 2; the port has no schedule).  The kernel itself is held against
+and masked, causal and not, GQA heads 4 / KV 2; the port has no schedule).
+The port takes k/v untiled, (B, Sk, KV, hd), q head h reading KV head
+h % KV: ``chunked_attention`` and the plain version with KV 1, 2 and 4 of
+4 heads against the reference on ``tile_kv``'s copies, and a case that
+tells h % KV from h // (H / KV).  The kernel itself is held against
 the plain version on a card in ``tests/test_torch_cuda.py`` (which imports
 no JAX, so it runs where the card is).  Tolerances: fp32 parity as
 ``_torch_port.assert_close`` (rtol 1e-5, atol 1e-5 scaled by the
@@ -123,3 +127,48 @@ def test_cpu_path_is_differentiable():
     chunked_attention(q, k, v, causal=True).sum().backward()
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                for t in (q, k, v))
+
+
+@pytest.mark.parametrize("kv", [1, 2, 4])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk,q_offset", [(96, 96, 0), (64, 128, 64)])
+def test_untiled_kv_matches_reference(kv, causal, sq, sk, q_offset):
+    """k/v at their KV heads against the reference's chunked_attention on
+    the tiled copies (its q chunk 32 and kv chunk 64), with and without a
+    q offset."""
+    rng = np.random.default_rng(20 + kv + sk)
+    q, k, v = _qkv(rng, 2, sq, sk, 4, 32, kv=kv)
+    kt, vt = (j_tile_kv(jnp.asarray(a), 4) for a in (k, v))
+    ref = np.asarray(j_chunked(jnp.asarray(q), kt, vt, causal=causal,
+                               q_chunk=32, kv_chunk=64, q_offset=q_offset))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out = chunked_attention(tq, tk, tv, causal=causal, q_offset=q_offset)
+    plain = fa.flash_attention_plain(tq, tk, tv, causal=causal,
+                                     q_offset=q_offset)
+    assert out.shape == tq.shape
+    assert_close(out.numpy(), ref)
+    assert_close(plain.numpy(), ref)
+
+
+def test_kv_head_mapping_is_modulo():
+    """Head h reads KV head h % KV (jnp.tile), not h // (H / KV): with 4
+    heads on 2 KV heads, heads 1 and 2 differ between the two rules."""
+    rng = np.random.default_rng(30)
+    q, k, v = _qkv(rng, 1, 48, 48, 4, 32, kv=2)
+    out = fa.flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                                   causal=True).numpy()
+    for h in range(4):
+        mod = _naive(q[:, :, h:h + 1], k[:, :, h % 2:h % 2 + 1],
+                     v[:, :, h % 2:h % 2 + 1], True)
+        div = _naive(q[:, :, h:h + 1], k[:, :, h // 2:h // 2 + 1],
+                     v[:, :, h // 2:h // 2 + 1], True)
+        assert_close(out[:, :, h:h + 1], mod)
+        if h in (1, 2):
+            assert np.abs(out[:, :, h:h + 1] - div).max() > 1e-2
+
+
+def test_untiled_kv_rejects_bad_head_count():
+    q = torch.zeros((1, 8, 4, 32))
+    k = torch.zeros((1, 8, 3, 32))
+    with pytest.raises(ValueError, match="KV head count"):
+        chunked_attention(q, k, k)

@@ -229,6 +229,28 @@ def test_prefill_matches_reference(pair):
     assert_close(c["v"].numpy(), np.asarray(jc["v"]))
 
 
+def test_prefill_attends_untiled_kv(pair, monkeypatch):
+    """The prefill hands kernel 13's entry k/v at their KV heads (2 of 4
+    in the reduced qwen3-0.6b), with no tiled copy, and its logits and
+    cache still match the reference's."""
+    from repro_torch.kernels import flash_attention as tfa
+    jlm, jp, lm, p, tokens = pair
+    seen, real = [], tfa.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((q.shape[2], k.shape[2], v.shape[2]))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(tfa, "flash_attention", spy)
+    c, lg = serve.prefill(lm, p, _t(tokens).long())
+    assert seen == [(lm.cfg.n_heads, lm.cfg.n_kv, lm.cfg.n_kv)] * \
+        lm.cfg.n_layers and lm.cfg.n_kv < lm.cfg.n_heads
+    jc, jl = jserve.prefill(jlm, jp, jnp.asarray(tokens))
+    assert_close(lg.numpy(), np.asarray(jl))
+    assert_close(c["k"].numpy(), np.asarray(jc["k"]))
+    assert_close(c["v"].numpy(), np.asarray(jc["v"]))
+
+
 @pytest.mark.parametrize("vector", [False, True])
 def test_decode_step_matches_reference(pair, vector):
     """Two decode steps after the prefill: a scalar position, or every
