@@ -4,7 +4,8 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel against its plain PyTorch version at the shapes the serving and
-training paths give it, then serves DR-CircuitGNN (hidden 64, k 16, 2
+training paths give it (the learnable-edge forward also with each row's
+k = 64 columns permuted, beside the arena's longest chunk run), then serves DR-CircuitGNN (hidden 64, k 16, 2
 layers, random weights from a seed) through ``CircuitServeEngine``:
 
 1. Table-1 partitions (``generate_design(0, "small")`` +
@@ -432,6 +433,30 @@ def check_learnable_kernels(homo_gat, homo):
             f"(max |ref| {r['ref_max']}) ms={r['ms']} "
             f"plain_ms={r['plain_ms']} bound_ms={b_ms} ({b_by}) "
             f"library_ms={r['library_ms']}")
+    # kernel 7 on the same arena with a k = 64 operand whose columns are
+    # not lane-aligned: each row a random permutation (from SEED), so every
+    # 32-pair group takes the owner-table scatter; beside its ms, the chunk
+    # runs that set the kernel's latency chain
+    xi_perm = torch.argsort(torch.rand(
+        xi.shape, generator=torch.Generator().manual_seed(SEED)),
+        dim=1).to(device=xi.device, dtype=torch.int32)
+    out = K1.drspmm_fwd_learnable(f, nnz, w, xv, xi_perm, dim)
+    ref = K1.drspmm_fwd_learnable_plain(f, nnz, w, xv, xi_perm, dim)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    if not torch.allclose(out, ref, rtol=1e-5, atol=tol(ref)):
+        problem(f"drspmm_fwd_learnable kernel (permuted columns) disagrees "
+                f"with its plain version: {err}")
+    c, br, ec = f.nbr.shape
+    run = int(torch.diff(f.blk_ptr).max())
+    buckets = [tuple(b.nbr.shape) for b in adj.buckets]
+    log(f"kernel drspmm_fwd_learnable: longest chunk run {run} chunks "
+        f"({run * ec} slots), widest degree bucket "
+        f"{max(e for _r, e in buckets)} slots (buckets R x E {buckets}); "
+        f"ms={rows['drspmm_fwd_learnable']['ms']} (iota columns, "
+        f"lane-aligned), ms={cuda_ms(lambda: K1.drspmm_fwd_learnable(f, nnz, w, xv, xi_perm, dim))} "
+        f"(permuted columns, max_abs_err={err}, max |ref| "
+        f"{float(ref.abs().max())})")
     # the yardsticks compute the same functions (xi = identity); a CSR
     # matrix keeps its values in (row, column) order
     csr_order = torch.argsort(dst_c * adj.n_src + src_c)

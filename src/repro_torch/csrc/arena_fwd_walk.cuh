@@ -24,13 +24,37 @@
 //    concat, CBSR filler) add nothing and are skipped; a group whose
 //    non-zero pairs repeat a column (outside the CBSR contract, but legal
 //    input) falls back to the broadcast scatter, which adds every pair in
-//    order.  Rows wider than k = 32 (the learnable path's dense operand has
-//    k = dim) scatter slot by slot, 32 pairs at a time, with every group's
-//    loads issued first;
+//    order;
 //  * padding slots (weight 0) are skipped warp-uniformly;
 //  * row-blocks run heaviest first: the arena stores degree buckets in
 //    ascending degree, so block b = n_blocks-1-blockIdx.x puts the evil
 //    rows' long chunk runs at the front of the schedule instead of its tail.
+//
+// Rows wider than k = 32 (the learnable path's dense operand has k = dim)
+// run arena_fwd_wide, which the launch picks by k.  There the time is set
+// by the longest rows, not by bytes: a skewed arena's widest rows walk some
+// 270 slots of 8k bytes each, and one warp's gathers are served at a
+// roughly fixed rate however many of them it has in flight, so a row's time
+// is its slots over that rate.  The wide walk therefore
+//  * gives each row kWideParts warps, each adding a contiguous part of the
+//    row's slots; the parts' sums meet in shared memory and are added in a
+//    fixed order (deterministic, no atomics, one block owns its row-block);
+//  * reads a part's slots 32 at a time (lane l: slot s0 + l), the
+//    neighbour and edge id two windows ahead and the weight gather at that
+//    id one window ahead, so neither is on the row's chain;
+//  * issues the CBSR loads of S = kWidePairs / NG slots before it adds any
+//    (NG groups of 32 pairs a slot), into registers;
+//  * takes one __all_sync over those loaded columns: when every active pair
+//    sits at column 32g + lane (a dense operand written as CBSR), each lane
+//    adds its own pairs to acc[g], slot by slot, with no shared memory and
+//    no barrier, which is the sum scatter_row_pairs gives in the same
+//    order.  Otherwise each group of 32 pairs is asked the same question
+//    and, if it fails, goes through scatter_row_pairs.  Every slot's
+//    x_idx is read and no host code looks at it;
+//  * issues no load for a padding slot and skips S slots of padding (all
+//    weights 0) warp-uniformly.
+// tools/arena_fwd_probe.py times the walk at other kWideParts and
+// kWidePairs.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -68,30 +92,6 @@ __global__ void __launch_bounds__(256) arena_fwd_kernel(
       my_n = nbr[slot0 + lane];
       my_w = wsrc(slot0 + lane);
     }
-    if (k > 32) {  // wide CBSR rows: slot by slot, 32 pairs at a time
-      for (int e = 0; e < EC; ++e) {
-        const float wt = __shfl_sync(kFullMask, my_w, e);
-        const int src = __shfl_sync(kFullMask, my_n, e);
-        if (wt == 0.f) continue;  // warp-uniform
-        float pv[kFwdMaxGroups];
-        int pc[kFwdMaxGroups];
-#pragma unroll
-        for (int g = 0; g < kFwdMaxGroups; ++g) {
-          const int t = 32 * g + lane;
-          pv[g] = 0.f;
-          pc[g] = 0;
-          if (t < k) {
-            pv[g] = wt * xv[(long long)src * k + t];
-            pc[g] = xi[(long long)src * k + t];
-          }
-        }
-#pragma unroll
-        for (int g = 0; g < kFwdMaxGroups; ++g)
-          if (32 * g < k)  // warp-uniform
-            scatter_row_pairs<DPL>(acc, owner, pv[g], pc[g], dim, lane);
-      }
-      continue;
-    }
     // issue every slot's loads first: lane t holds pair t of slot e
     float pv[EC];
     int pc[EC];
@@ -118,12 +118,226 @@ __global__ void __launch_bounds__(256) arena_fwd_kernel(
   }
 }
 
+// The two loads of a slot's weight, so that the wide walk can issue the
+// first (the weight itself, or the slot's edge id) one window before the
+// second (nothing, or the gather of w_canon at that id).  pad() is the first
+// stage of a slot past the run's end; its weight is 0.
+template <class W> struct WeightStages;
+
+template <> struct WeightStages<FixedWeights> {
+  using Raw = float;
+  __device__ static Raw pad() { return 0.f; }
+  __device__ static Raw first(const FixedWeights& w, long long s) {
+    return w.w[s];
+  }
+  __device__ static float second(const FixedWeights&, Raw x) { return x; }
+};
+
+template <> struct WeightStages<CanonWeights> {
+  using Raw = int;
+  __device__ static Raw pad() { return -1; }
+  __device__ static Raw first(const CanonWeights& w, long long s) {
+    return w.eid[s];
+  }
+  __device__ static float second(const CanonWeights& w, Raw id) {
+    return id >= 0 ? w.wc[id] : 0.f;
+  }
+};
+
+// Slot s of the chunk run that starts at chunk c0, for row r of a block of
+// br rows (ec = 1 << sh slots a chunk row): its neighbour, and its weight's
+// first stage in ``raw``.  A slot at or past n is padding.
+template <class W>
+__device__ __forceinline__ int run_slot(const int* __restrict__ nbr,
+                                        const W& wsrc, int s, int n, int c0,
+                                        int br, int r, int sh,
+                                        typename WeightStages<W>::Raw& raw) {
+  raw = WeightStages<W>::pad();
+  if (s >= n) return 0;
+  const long long a =
+      (((long long)(c0 + (s >> sh)) * br + r) << sh) + (s & ((1 << sh) - 1));
+  raw = WeightStages<W>::first(wsrc, a);
+  return nbr[a];
+}
+
+// A pair that adds something: a non-zero value at a column of the row.
+__device__ __forceinline__ bool pair_active(float p, int c, int dim) {
+  return p != 0.f && (unsigned)c < (unsigned)dim;
+}
+
+// One group of 32 pairs (lane t: value p, column c) into the lane-owned row.
+// If every active pair sits at column 32*g + lane, each lane adds its own
+// pair to acc[g]: what scatter_row_pairs adds, in the same order, without
+// its owner table and barriers.  Otherwise the group goes through
+// scatter_row_pairs (repeated columns: its broadcast fallback).  Every lane
+// must call it, with the same g.
+template <int DPL>
+__device__ __forceinline__ void add_pair_group(float (&acc)[DPL], int* owner,
+                                               float p, int c, int g, int dim,
+                                               int lane) {
+  const bool act = pair_active(p, c, dim);
+  if (__all_sync(kFullMask, !act || c == 32 * g + lane)) {
+#pragma unroll
+    for (int j = 0; j < DPL; ++j)
+      if (j == g && act) acc[j] += p;
+    return;
+  }
+  scatter_row_pairs<DPL>(acc, owner, p, c, dim, lane);
+}
+
+constexpr int kWideParts = 2;   // warps that share a row's chunk run
+constexpr int kWidePairs = 8;   // pairs a lane has in flight
+
+// The walk for 32 < k <= 32 * NG (design in the note at the top).  Warp
+// (r, p) of the block, p < kWideParts, adds part p of row r's slots; the
+// loads of S = kWidePairs / NG slots of a part are in flight together.
+// The parts' sums are added in the order p = 0, 1, ... at the end.
+template <int DPL, int NG, class W>
+__global__ void __launch_bounds__(32 * kFwdMaxRows * kWideParts)
+    arena_fwd_wide(const int* __restrict__ blk_ptr,
+                   const int* __restrict__ nbr, W wsrc,
+                   const float* __restrict__ xv, const int* __restrict__ xi,
+                   float* __restrict__ out, int n_blocks, int ec, int k,
+                   int dim) {
+  constexpr int S = kWidePairs / NG;
+  using WS = WeightStages<W>;
+  // one owner table a warp; after the walk, the parts' partial rows
+  __shared__ int owner_tab[kFwdMaxRows * kWideParts][32 * DPL];
+  const int b = n_blocks - 1 - blockIdx.x;
+  const int br = blockDim.y / kWideParts;
+  const int r = threadIdx.y % br;
+  const int p = threadIdx.y / br;
+  const int lane = threadIdx.x;
+  int* owner = owner_tab[threadIdx.y];
+#pragma unroll
+  for (int j = 0; j < DPL; ++j) owner[lane + 32 * j] = -1;
+  __syncwarp();
+  float acc[DPL];
+#pragma unroll
+  for (int j = 0; j < DPL; ++j) acc[j] = 0.f;
+
+  const int c0 = blk_ptr[b];
+  const int n = (blk_ptr[b + 1] - c0) * ec;  // the row's slots
+  const int lo = n * p / kWideParts;         // this part: slots [lo, hi)
+  const int hi = n * (p + 1) / kWideParts;
+  const int sh = __ffs(ec) - 1;              // ec is 4, 8 or 16
+  // lane l holds slot s0 + l of the current window (src_cur, w_cur) and of
+  // the next one (src_nxt, its weight's first stage raw_nxt)
+  typename WS::Raw raw_cur, raw_nxt;
+  int src_cur = run_slot(nbr, wsrc, lo + lane, hi, c0, br, r, sh, raw_cur);
+  int src_nxt =
+      run_slot(nbr, wsrc, lo + 32 + lane, hi, c0, br, r, sh, raw_nxt);
+  float w_cur = WS::second(wsrc, raw_cur);
+  for (int s0 = lo; s0 < hi; s0 += 32) {
+    // in flight while this window is added: the next window's weights and
+    // the slots of the window after it
+    const float w_nxt = WS::second(wsrc, raw_nxt);
+    typename WS::Raw raw_nn;
+    const int src_nn =
+        run_slot(nbr, wsrc, s0 + 64 + lane, hi, c0, br, r, sh, raw_nn);
+#pragma unroll 1
+    for (int i0 = 0; i0 < 32; i0 += S) {
+      if (!__any_sync(kFullMask, w_cur != 0.f &&
+                                     (unsigned)(lane - i0) < (unsigned)S))
+        continue;  // S slots of padding
+      // issue the S slots' loads first: lane t holds pair 32g + t
+      float v[S][NG];
+      int col[S][NG];
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        const float wt = __shfl_sync(kFullMask, w_cur, i0 + i);
+        const long long row =
+            (long long)__shfl_sync(kFullMask, src_cur, i0 + i) * k;
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          const int t = 32 * g + lane;
+          const bool ld = wt != 0.f && t < k;
+          v[i][g] = ld ? xv[row + t] : 0.f;
+          col[i][g] = ld ? xi[row + t] : 0;
+        }
+      }
+      // the pairs' products, and one vote for the whole batch: does every
+      // active pair sit at column 32g + lane?
+      bool aligned = true;
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        const float wt = __shfl_sync(kFullMask, w_cur, i0 + i);
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          v[i][g] *= wt;
+          aligned = aligned && (!pair_active(v[i][g], col[i][g], dim) ||
+                                col[i][g] == 32 * g + lane);
+        }
+      }
+      if (__all_sync(kFullMask, aligned)) {
+        // each lane adds its own pairs, slot by slot: what the scatter
+        // adds, in the same order, with no dependence between slots
+#pragma unroll
+        for (int i = 0; i < S; ++i)
+#pragma unroll
+          for (int g = 0; g < NG; ++g)
+#pragma unroll
+            for (int j = 0; j < DPL; ++j)
+              if (j == g && pair_active(v[i][g], col[i][g], dim))
+                acc[j] += v[i][g];
+        continue;
+      }
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        if (__shfl_sync(kFullMask, w_cur, i0 + i) == 0.f)
+          continue;  // warp-uniform
+#pragma unroll
+        for (int g = 0; g < NG; ++g)
+          if (32 * g < k)  // warp-uniform
+            add_pair_group<DPL>(acc, owner, v[i][g], col[i][g], g, dim, lane);
+      }
+    }
+    src_cur = src_nxt;
+    w_cur = w_nxt;
+    src_nxt = src_nn;
+    raw_nxt = raw_nn;
+  }
+  // parts 1.. park their sums in the (now idle) owner tables; part 0 adds
+  // them in order and writes the row
+  float* parked = reinterpret_cast<float*>(&owner_tab[0][0]);
+  __syncthreads();
+  if (p > 0) {
+#pragma unroll
+    for (int j = 0; j < DPL; ++j)
+      parked[((p - 1) * br + r) * 32 * DPL + lane + 32 * j] = acc[j];
+  }
+  __syncthreads();
+  if (p > 0) return;
+  for (int q = 1; q < kWideParts; ++q) {
+#pragma unroll
+    for (int j = 0; j < DPL; ++j)
+      acc[j] += parked[((q - 1) * br + r) * 32 * DPL + lane + 32 * j];
+  }
+  float* o = out + ((long long)b * br + r) * dim;
+#pragma unroll
+  for (int j = 0; j < DPL; ++j) {
+    const int col = lane + 32 * j;
+    if (col < dim) o[col] = acc[j];
+  }
+}
+
 template <int DPL, class W>
 static int arena_fwd_launch_ec(const int* blk_ptr, const int* nbr, W wsrc,
                                const float* xv, const int* xi, float* out,
                                int n_blocks, int row_block, int ec, int k,
                                int dim, cudaStream_t stream) {
   const dim3 block(32, row_block);
+  if (k > 32) {  // wide CBSR rows: kWideParts warps a row
+    const dim3 wide(32, row_block * kWideParts);
+    if (ec != 4 && ec != 8 && ec != 16) return (int)cudaErrorInvalidValue;
+    if (k <= 64)
+      arena_fwd_wide<DPL, 2, W><<<n_blocks, wide, 0, stream>>>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, ec, k, dim);
+    else if (k <= 128)
+      arena_fwd_wide<DPL, 4, W><<<n_blocks, wide, 0, stream>>>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, ec, k, dim);
+    else
+      arena_fwd_wide<DPL, 8, W><<<n_blocks, wide, 0, stream>>>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, ec, k, dim);
+    return 0;
+  }
   switch (ec) {
     case 4: arena_fwd_kernel<DPL, 4, W><<<n_blocks, block, 0, stream>>>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, k, dim); break;
     case 8: arena_fwd_kernel<DPL, 8, W><<<n_blocks, block, 0, stream>>>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, k, dim); break;

@@ -212,19 +212,37 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_f32_kernel(
   }
 }
 
+constexpr int kMaxDevices = 64;
+
+// Opt ``kernel`` into ``bytes`` of dynamic shared memory on the current
+// device, once a device: cudaFuncSetAttribute applies to the current device
+// only.  ``done`` is the kernel's own per-device flag table.
+template <class K>
+static int opt_in_smem(K kernel, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e != cudaSuccess) return (int)e;
+    done[dev] = true;
+  }
+  return 0;
+}
+
 template <int HD>
 static int launch_f32(const void* q, const void* k, const void* v, void* o,
                       int b, int h, int n_kv, int sq, int sk, int causal,
                       int q_offset, cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * (int)sizeof(float);
   auto kernel = flash_attention_fwd_f32_kernel<HD>;
-  static bool opted_in = false;
-  if (!opted_in) {  // above 48 KB only as opted-in dynamic shared memory
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-    opted_in = true;
-  }
+  static bool opted_in[kMaxDevices] = {};
+  // above 48 KB only as opted-in dynamic shared memory
+  const int e = opt_in_smem(kernel, bytes, opted_in);
+  if (e) return e;
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
   const float scale = (float)(1.0 / sqrt((double)(HD)));
   kernel<<<grid, kThreads, bytes, stream>>>(
@@ -833,13 +851,9 @@ static int launch_tc(const void* q, const void* k, const void* v, void* o,
   if (!e) e = make_map(&tv, v, b, sk, n_kv, HD, C::CW, C::BK);
   if (e) return e;
   auto kernel = flash_attention_fwd_tc_kernel<HD>;
-  static bool opted_in = false;
-  if (!opted_in) {
-    cudaError_t r = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (r != cudaSuccess) return (int)r;
-    opted_in = true;
-  }
+  static bool opted_in[kMaxDevices] = {};
+  e = opt_in_smem(kernel, C::SMEM, opted_in);
+  if (e) return e;
   const dim3 grid(b * h, (sq + C::TQ - 1) / C::TQ);
   // the scores in log2 units: exp(s - m) = exp2((s - m) log2(e))
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)(HD)));

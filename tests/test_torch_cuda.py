@@ -60,8 +60,10 @@ def _operands(plan, k, seed, device, dim=64):
     return torch.from_numpy(xv).to(device), torch.from_numpy(xi).to(device)
 
 
-@pytest.mark.parametrize("k", [8, 16, 40])
+@pytest.mark.parametrize("k", [8, 16, 40, 64])
 def test_arena_kernel_matches_plain(cuda, k):
+    """k > 32 runs the wide walk; at k = dim = 64 the top-k columns are
+    every column in order, so each 32-pair group is lane-aligned."""
     plan = relation_plan_of(generate_design(1, "medium", SCALE)[0]).to(cuda)
     xv, xi = _operands(plan, k, k, cuda)
     before = tk.drspmm_fwd_arena.launches
@@ -241,33 +243,102 @@ def _eid_arenas(device, ec=None, n=300, n_target=4000, seed=0):
     return ff.to(device), fb.to(device), nnz, w.to(device)
 
 
-def _learnable_operand(n, k, dim, seed, device):
-    """A CBSR operand (n, k): the dense iota case at k == dim, else k
-    random columns per row with every fifth row repeating a column."""
+def _skewed_eid_arena(device, seed=3):
+    """A forward edge-id arena at Ec 4 as skewed as the homogenized Table-1
+    partition: 40 rows of 240-270 neighbours among 400 rows of 1-12, so the
+    long chunk runs are no multiple of the wide walk's 16-slot batches or
+    32-slot windows; every other row-block is then left empty (blocks 2b
+    hold the packed blocks b)."""
+    rng = np.random.default_rng(seed)
+    n = 440
+    deg = np.concatenate([rng.integers(240, 271, 40),
+                          rng.integers(1, 13, n - 40)])
+    dst = np.repeat(np.arange(n), deg)
+    src = np.concatenate([rng.choice(n, d, replace=False) for d in deg])
+    perm = rng.permutation(dst.size)
+    ff, _fb, _o, nnz = pack_fused_eid_pair(dst[perm], src[perm], n, n,
+                                           chunk=4)
+    ff = dataclasses.replace(ff, block_of=2 * ff.block_of,
+                             rows=np.concatenate([ff.rows, ff.rows]),
+                             blk_ptr=None)
+    w = torch.from_numpy(rng.normal(size=nnz).astype(np.float32))
+    return ff.to(device), nnz, w.to(device)
+
+
+LEARNABLE_COLS = ["iota", "perm", "mixed", "repeat", "zeros"]
+
+
+def _learnable_operand(n, k, dim, seed, device, cols=None):
+    """A CBSR operand (n, k).  ``cols=None``: the dense iota case at
+    k == dim, else k random columns per row with every fifth row repeating
+    a column.  At k == dim, ``cols`` picks the columns of each row:
+    "iota" (every 32-pair group lane-aligned, the GAT baselines' operand),
+    "perm" (a random permutation: no group aligned), "mixed" (group 0
+    aligned and group 1 permuted on even rows, the other way round on odd
+    rows), "repeat" (iota, with every fifth row repeating column 0 at
+    pair 1: the broadcast fallback) or "zeros" (iota, with pairs 3-9 of
+    every third row zero-valued and pairs 5-9 of them at a wrong column,
+    so that zero pairs are skipped and leave the group aligned)."""
     g = torch.Generator().manual_seed(seed)
     xv = torch.randn((n, k), generator=g)
-    if k == dim:
-        xi = torch.arange(k, dtype=torch.int32).expand(n, k).contiguous()
-    else:
+    iota = torch.arange(k, dtype=torch.int32).expand(n, k).contiguous()
+    if cols is None:
+        cols = "iota" if k == dim else "random"
+    if cols == "random":
         xi = torch.stack([torch.randperm(dim, generator=g)[:k]
                           for _ in range(n)]).to(torch.int32)
         xi[::5, 1] = xi[::5, 0]
-    return xv.to(device), xi.to(device)
+        return xv.to(device), xi.to(device)
+    assert k == dim
+    xi = iota.clone()
+    if cols == "perm":
+        xi = torch.argsort(torch.rand((n, k), generator=g), dim=1)
+    elif cols == "mixed":
+        for r in range(n):
+            h = 32 * (1 - r % 2)         # the permuted group's first pair
+            xi[r, h:h + 32] = h + torch.randperm(32, generator=g)
+    elif cols == "repeat":
+        xi[::5, 1] = xi[::5, 0]
+    elif cols == "zeros":
+        xv[::3, 3:10] = 0.0
+        xi[::3, 5:10] = 40
+    else:
+        assert cols == "iota", cols
+    return xv.to(device), xi.to(torch.int32).contiguous().to(device)
 
 
 @pytest.mark.parametrize("ec", [4, 8, 16])
-@pytest.mark.parametrize("k", [6, 16, 40, 64])
-def test_learnable_fwd_kernel_matches_plain(cuda, k, ec):
-    """Repeated CBSR columns (every fifth row) take the broadcast path;
-    k 64 = dim is the GAT baselines' dense operand."""
+@pytest.mark.parametrize("k,cols", [(6, None), (16, None), (40, None)]
+                         + [(64, c) for c in LEARNABLE_COLS])
+def test_learnable_fwd_kernel_matches_plain(cuda, k, cols, ec):
+    """Repeated CBSR columns (every fifth row at k < 64, ``cols="repeat"``)
+    take the broadcast path; k 64 = dim runs the wide walk, whose
+    lane-aligned groups (the GAT baselines' iota operand) skip the
+    scatter and whose other groups (permuted, mixed, repeated) take it."""
     ff, _fb, nnz, w = _eid_arenas(cuda, ec)
-    xv, xi = _learnable_operand(ff.n_src, k, 64, k, cuda)
+    xv, xi = _learnable_operand(ff.n_src, k, 64, k, cuda, cols)
     before = tk.drspmm_fwd_learnable.launches
     y = tk.drspmm_fwd_learnable(ff, nnz, w, xv, xi, 64)
     torch.cuda.synchronize()
     assert tk.drspmm_fwd_learnable.launches == before + 1
     assert_close(y.cpu().numpy(), tk.drspmm_fwd_learnable_plain(
         ff, nnz, w, xv, xi, 64).cpu().numpy())
+
+
+@pytest.mark.parametrize("k,dim,cols", [(40, 64, None), (100, 128, None),
+                                        (200, 256, None)]
+                         + [(64, 64, c) for c in LEARNABLE_COLS])
+def test_learnable_fwd_kernel_skewed_arena(cuda, k, dim, cols):
+    """The wide walk over rows of 240-270 slots at Ec 4 (runs that end
+    mid-batch and mid-window, split between a row's warps) and over empty
+    row-blocks; k 100 and 200 take its 4- and 8-group instantiations."""
+    ff, nnz, w = _skewed_eid_arena(cuda)
+    runs = torch.diff(ff.blk_ptr)
+    assert int(runs.max()) * 4 >= 240 and int((runs == 0).sum()) > 1
+    xv, xi = _learnable_operand(ff.n_src, k, dim, 7, cuda, cols)
+    y = tk.drspmm_fwd_learnable(ff, nnz, w, xv, xi, dim)
+    assert_close(y.cpu().numpy(), tk.drspmm_fwd_learnable_plain(
+        ff, nnz, w, xv, xi, dim).cpu().numpy())
 
 
 @pytest.mark.parametrize("ec", [4, 8, 16])
