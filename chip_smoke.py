@@ -4,9 +4,10 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel against its plain PyTorch version at the shapes the serving and
-training paths give it (the learnable-edge forward also with each row's
-k = 64 columns permuted, beside the arena's longest chunk run), then serves DR-CircuitGNN (hidden 64, k 16, 2
-layers, random weights from a seed) through ``CircuitServeEngine``:
+training paths give it (the learnable-edge forward and sampled backward
+also with each row's k = 64 columns permuted, beside their arenas' longest
+chunk runs), then serves DR-CircuitGNN (hidden 64, k 16, 2 layers, random
+weights from a seed) through ``CircuitServeEngine``:
 
 1. Table-1 partitions (``generate_design(0, "small")`` +
    ``generate_design(1, "medium")``, scale 1.0) with ``drelu_backend``
@@ -457,16 +458,49 @@ def check_learnable_kernels(homo_gat, homo):
         f"lane-aligned), ms={cuda_ms(lambda: K1.drspmm_fwd_learnable(f, nnz, w, xv, xi_perm, dim))} "
         f"(permuted columns, max_abs_err={err}, max |ref| "
         f"{float(ref.abs().max())})")
+    # kernel 8 on its transposed arena with the same permuted k = 64
+    # columns; beside its ms, the transposed arena's chunk runs (at most 80
+    # slots: its chain is a chunk's dependent loads, not a long row)
+    out = K1.drspmm_bwd_learnable(ft, nnz, w, gy, xi_perm)
+    ref = K1.drspmm_bwd_learnable_plain(ft, nnz, w, gy, xi_perm)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    if not torch.allclose(out, ref, rtol=1e-5, atol=tol(ref)):
+        problem(f"drspmm_bwd_learnable kernel (permuted columns) disagrees "
+                f"with its plain version: {err}")
+    # the kernel's own device time (the events also see the host's launch
+    # gaps, which a kernel this short can fall under)
+    dev = [device_breakdown(lambda: [fn() for _ in range(REPS)])[1] / REPS
+           for fn in (lambda: K1.drspmm_bwd_learnable(ft, nnz, w, gy, xi),
+                      lambda: K1.drspmm_bwd_learnable(ft, nnz, w, gy,
+                                                      xi_perm),
+                      lambda: a_wt @ gy)]
+    runs_t = torch.diff(ft.blk_ptr)
+    run, ec = int(runs_t.max()), ft.nbr.shape[2]
+    buckets = [tuple(b.nbr.shape) for b in adj_t.buckets]
+    log(f"kernel drspmm_bwd_learnable: transposed arena {tuple(ft.nbr.shape)}"
+        f", longest chunk run {run} chunks ({run * ec} slots), "
+        f"{int((runs_t >= 32).sum())} runs of >= 32 chunks, mean "
+        f"{float(runs_t.float().mean()):.2f} chunks a row-block, widest "
+        f"degree bucket {max(e for _r, e in buckets)} slots (buckets R x E "
+        f"{buckets}); ms={rows['drspmm_bwd_learnable']['ms']} (iota "
+        f"columns), ms={cuda_ms(lambda: K1.drspmm_bwd_learnable(ft, nnz, w, gy, xi_perm))} "
+        f"(permuted columns, max_abs_err={err}, max |ref| "
+        f"{float(ref.abs().max())}); device ms a call (profiler) {dev[0]} "
+        f"(iota), {dev[1]} (permuted), {dev[2]} (library: a_wt @ gy)")
     # the yardsticks compute the same functions (xi = identity); a CSR
     # matrix keeps its values in (row, column) order
     csr_order = torch.argsort(dst_c * adj.n_src + src_c)
     lib_err = [
         float((a_w @ xv - K1.drspmm_fwd_learnable(
             f, nnz, w, xv, xi, dim)[f.gather]).abs().max()),
+        float((a_wt @ gy - K1.drspmm_bwd_learnable(
+            ft, nnz, w, gy, xi)[ft.gather]).abs().max()),
         float((torch.sparse.sampled_addmm(pattern, gy, xt, beta=0.0).values()
                - K1.drspmm_dw_learnable(f, nnz, gy, xv, xi)[csr_order]
                ).abs().max())]
-    log(f"library yardsticks vs kernels (forward, dW): max |diff| {lib_err}")
+    log(f"library yardsticks vs kernels (forward, dx, dW): max |diff| "
+        f"{lib_err}")
     return rows
 
 

@@ -28,12 +28,35 @@
 //    sums are folded by shuffles at the end, in a fixed order;
 //  * a chunk row whose slots are all padding (weight 0) is skipped
 //    warp-uniformly, and padding slots issue no load;
-//  * rows wider than 32 use one lane per position (up to 8 positions a
-//    lane), slot by slot;
 //  * row-blocks run heaviest first: the arena stores degree buckets in
 //    ascending degree, so block b = n_blocks-1-blockIdx.x puts the long
 //    chunk runs at the front of the schedule.
 // Columns outside [0, dim) sample nothing (they contribute 0).
+//
+// Rows wider than k = 32 (the learnable path's GAT shape has k = dim = 64)
+// run arena_bwd_wide, which the launch picks by k.  There each lane owns
+// the NG = k/32 positions lane, lane+32, ... of its row, so a slot costs
+// each lane NG loads of one gY row.  A transposed arena's rows are short
+// (the homogenized Table-1 partition: at most 80 slots, ~37 on average),
+// so what sets the time is not one long row's gather rate but the chain of
+// dependent loads a chunk needs: its neighbour and edge id, then the
+// w_canon gather at that id, then the gY rows behind that weight.  The
+// wide walk therefore
+//  * reads the row's chunk run as one flat run of slots, 32 at a time
+//    (lane l: slot s0 + l), the neighbour and edge id two windows ahead and
+//    the w_canon gather one window ahead (run_slot, WeightStages in
+//    arena_weights.cuh), so neither is on the row's chain;
+//  * issues the gY loads of S = 2 * kBwdWideSlots / NG slots (a compile-time
+//    batch, fully unrolled) before it adds any, into registers;
+//  * issues no load for a padding slot (past the run's end, or weight 0)
+//    and skips S slots of padding warp-uniformly;
+//  * keeps one warp a row, as the narrow walk does: the slots are added in
+//    run order, each lane's sum one FMA a slot;
+//  * asks ptxas for kBwdWideMinBlocks blocks an SM: left free, it keeps a
+//    whole k = 64 batch in registers (123 of them, 2 blocks an SM), which
+//    the probe timed slower on the card than 3 blocks at 80 registers.
+// tools/arena_bwd_probe.py times the walk at other kBwdWideSlots and
+// kBwdWideMinBlocks.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,6 +66,8 @@
 
 constexpr int kBwdMaxRows = 8;   // rows (warps) per block
 constexpr int kBwdMaxWide = 8;   // positions per lane for k > 32 (k <= 256)
+constexpr int kBwdWideSlots = 16;  // slots a warp issues together at k <= 64
+constexpr int kBwdWideMinBlocks = 3;  // blocks an SM must hold (<= 80 registers)
 
 template <int KP, int EC, class W>
 __global__ void __launch_bounds__(256) arena_bwd_narrow(
@@ -93,47 +118,81 @@ __global__ void __launch_bounds__(256) arena_bwd_narrow(
   if (s == 0 && t < k) out[row * k + t] = acc;
 }
 
-template <class W>
-__global__ void __launch_bounds__(256) arena_bwd_wide(
-    const int* __restrict__ blk_ptr, const int* __restrict__ nbr, W wsrc,
-    const int* __restrict__ src_rows, const float* __restrict__ gy,
-    const int* __restrict__ xi, float* __restrict__ out, int n_blocks,
-    int ec, int k, int dim) {
+// The walk for 32 < k <= 32 * NG (design in the note at the top).  Warp r
+// of the block adds row r's slots; the gY loads of S slots are issued
+// together.
+template <int NG, class W>
+__global__ void __launch_bounds__(32 * kBwdMaxRows, kBwdWideMinBlocks)
+    arena_bwd_wide(const int* __restrict__ blk_ptr,
+                   const int* __restrict__ nbr, W wsrc,
+                   const int* __restrict__ src_rows,
+                   const float* __restrict__ gy, const int* __restrict__ xi,
+                   float* __restrict__ out, int n_blocks, int ec, int k,
+                   int dim) {
+  constexpr int S = 2 * kBwdWideSlots / NG;
+  static_assert(S >= 1 && S <= 32 && 32 % S == 0,
+                "a batch of slots must divide a 32-slot window");
+  using WS = WeightStages<W>;
   const int b = n_blocks - 1 - blockIdx.x;
   const int br = blockDim.y;
+  const int r = threadIdx.y;
   const int lane = threadIdx.x;
-  const long long row = (long long)b * br + threadIdx.y;
+  const long long row = (long long)b * br + r;
   const int* xr = xi + (long long)src_rows[row] * k;
-  int col[kBwdMaxWide];
-  float acc[kBwdMaxWide];
+  int col[NG];
+  float acc[NG];
 #pragma unroll
-  for (int j = 0; j < kBwdMaxWide; ++j) {
+  for (int j = 0; j < NG; ++j) {
     const int t = lane + 32 * j;
     col[j] = -1;
     acc[j] = 0.f;
     if (t < k && (unsigned)xr[t] < (unsigned)dim) col[j] = xr[t];
   }
-  const int c1 = blk_ptr[b + 1];
-  for (int ch = blk_ptr[b]; ch < c1; ++ch) {
-    const long long slot0 = ((long long)ch * br + threadIdx.y) * ec;
-    int my_n = 0;
-    float my_w = 0.f;
-    if (lane < ec) {
-      my_n = nbr[slot0 + lane];
-      my_w = wsrc(slot0 + lane);
-    }
-    for (int e = 0; e < ec; ++e) {
-      const float wt = __shfl_sync(kFullMask, my_w, e);
-      const int tgt = __shfl_sync(kFullMask, my_n, e);
-      if (wt == 0.f) continue;             // warp-uniform
-      const float* gr = gy + (long long)tgt * dim;
+
+  const int c0 = blk_ptr[b];
+  const int n = (blk_ptr[b + 1] - c0) * ec;   // the row's slots
+  const int sh = __ffs(ec) - 1;               // ec is 4, 8 or 16
+  // lane l holds slot s0 + l of the current window (tgt_cur, w_cur) and of
+  // the next one (tgt_nxt, its weight's first stage raw_nxt)
+  typename WS::Raw raw_cur, raw_nxt;
+  int tgt_cur = run_slot(nbr, wsrc, lane, n, c0, br, r, sh, raw_cur);
+  int tgt_nxt = run_slot(nbr, wsrc, 32 + lane, n, c0, br, r, sh, raw_nxt);
+  float w_cur = WS::second(wsrc, raw_cur);
+  for (int s0 = 0; s0 < n; s0 += 32) {
+    // in flight while this window is added: the next window's weights and
+    // the slots of the window after it
+    const float w_nxt = WS::second(wsrc, raw_nxt);
+    typename WS::Raw raw_nn;
+    const int tgt_nn =
+        run_slot(nbr, wsrc, s0 + 64 + lane, n, c0, br, r, sh, raw_nn);
+#pragma unroll 1
+    for (int i0 = 0; i0 < 32; i0 += S) {
+      if (!__any_sync(kFullMask, w_cur != 0.f &&
+                                     (unsigned)(lane - i0) < (unsigned)S))
+        continue;  // S slots of padding
+      // issue the S slots' loads first: lane l samples positions l + 32j
+      float wt[S], g[S][NG];
 #pragma unroll
-      for (int j = 0; j < kBwdMaxWide; ++j)
-        if (col[j] >= 0) acc[j] += wt * gr[col[j]];
+      for (int i = 0; i < S; ++i) {
+        wt[i] = __shfl_sync(kFullMask, w_cur, i0 + i);
+        const float* gr =
+            gy + (long long)__shfl_sync(kFullMask, tgt_cur, i0 + i) * dim;
+#pragma unroll
+        for (int j = 0; j < NG; ++j)
+          g[i][j] = wt[i] != 0.f && col[j] >= 0 ? gr[col[j]] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < S; ++i)
+#pragma unroll
+        for (int j = 0; j < NG; ++j) acc[j] += wt[i] * g[i][j];
     }
+    tgt_cur = tgt_nxt;
+    w_cur = w_nxt;
+    tgt_nxt = tgt_nn;
+    raw_nxt = raw_nn;
   }
 #pragma unroll
-  for (int j = 0; j < kBwdMaxWide; ++j) {
+  for (int j = 0; j < NG; ++j) {
     const int t = lane + 32 * j;
     if (t < k) out[row * k + t] = acc[j];
   }
@@ -175,11 +234,17 @@ static int arena_bwd_dispatch(const int* blk_ptr, const int* nbr, W wsrc,
     rc = arena_bwd_launch_ec<16>(blk_ptr, nbr, wsrc, src_rows, gy, xi, out, n_blocks, row_block, ec, k, dim, stream);
   else if (k <= 32)
     rc = arena_bwd_launch_ec<32>(blk_ptr, nbr, wsrc, src_rows, gy, xi, out, n_blocks, row_block, ec, k, dim, stream);
-  else if (ec == 4 || ec == 8 || ec == 16)
-    arena_bwd_wide<W><<<n_blocks, dim3(32, row_block), 0, stream>>>(
-        blk_ptr, nbr, wsrc, src_rows, gy, xi, out, n_blocks, ec, k, dim);
-  else
+  else if (ec == 4 || ec == 8 || ec == 16) {
+    const dim3 block(32, row_block);
+    if (k <= 64)
+      arena_bwd_wide<2, W><<<n_blocks, block, 0, stream>>>(blk_ptr, nbr, wsrc, src_rows, gy, xi, out, n_blocks, ec, k, dim);
+    else if (k <= 128)
+      arena_bwd_wide<4, W><<<n_blocks, block, 0, stream>>>(blk_ptr, nbr, wsrc, src_rows, gy, xi, out, n_blocks, ec, k, dim);
+    else
+      arena_bwd_wide<8, W><<<n_blocks, block, 0, stream>>>(blk_ptr, nbr, wsrc, src_rows, gy, xi, out, n_blocks, ec, k, dim);
+  } else {
     rc = (int)cudaErrorInvalidValue;
+  }
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

@@ -26,3 +26,45 @@ struct CanonWeights {
     return id >= 0 ? wc[id] : 0.f;
   }
 };
+
+// The two loads of a slot's weight, so that the wide walks can issue the
+// first (the weight itself, or the slot's edge id) one window before the
+// second (nothing, or the gather of w_canon at that id).  pad() is the first
+// stage of a slot past the run's end; its weight is 0.
+template <class W> struct WeightStages;
+
+template <> struct WeightStages<FixedWeights> {
+  using Raw = float;
+  __device__ static Raw pad() { return 0.f; }
+  __device__ static Raw first(const FixedWeights& w, long long s) {
+    return w.w[s];
+  }
+  __device__ static float second(const FixedWeights&, Raw x) { return x; }
+};
+
+template <> struct WeightStages<CanonWeights> {
+  using Raw = int;
+  __device__ static Raw pad() { return -1; }
+  __device__ static Raw first(const CanonWeights& w, long long s) {
+    return w.eid[s];
+  }
+  __device__ static float second(const CanonWeights& w, Raw id) {
+    return id >= 0 ? w.wc[id] : 0.f;
+  }
+};
+
+// Slot s of the chunk run that starts at chunk c0, for row r of a block of
+// br rows (ec = 1 << sh slots a chunk row): its neighbour, and its weight's
+// first stage in ``raw``.  A slot at or past n is padding.
+template <class W>
+__device__ __forceinline__ int run_slot(const int* __restrict__ nbr,
+                                        const W& wsrc, int s, int n, int c0,
+                                        int br, int r, int sh,
+                                        typename WeightStages<W>::Raw& raw) {
+  raw = WeightStages<W>::pad();
+  if (s >= n) return 0;
+  const long long a =
+      (((long long)(c0 + (s >> sh)) * br + r) << sh) + (s & ((1 << sh) - 1));
+  raw = WeightStages<W>::first(wsrc, a);
+  return nbr[a];
+}

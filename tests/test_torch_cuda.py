@@ -150,14 +150,16 @@ def _plan_with_chunk(ec, device, dense_threshold=-1):
 
 
 @pytest.mark.parametrize("ec", [4, 8, 16])
-@pytest.mark.parametrize("k", [8, 16, 32, 40])
-def test_arena_bwd_kernel_matches_plain(cuda, k, ec):
-    """k 40 runs the kernel's wide-row variant.  Every fifth xi row repeats
-    an index (the gather samples that gY column twice)."""
+@pytest.mark.parametrize("k,dim", [(8, 64), (16, 64), (32, 64), (40, 64),
+                                   (64, 64), (200, 256)])
+def test_arena_bwd_kernel_matches_plain(cuda, k, dim, ec):
+    """k 40, 64 and 200 run the kernel's wide walk (its 2- and 8-group
+    instantiations).  Every fifth xi row repeats an index (the gather
+    samples that gY column twice)."""
     plan = _plan_with_chunk(ec, cuda)
-    _, xi = _operands(plan, k, k + ec, cuda)
+    _, xi = _operands(plan, k, k + ec, cuda, dim)
     xi[::5, 1] = xi[::5, 0]
-    gy = torch.randn((plan.n_out_total, 64),
+    gy = torch.randn((plan.n_out_total, dim),
                      generator=torch.Generator().manual_seed(ec)).to(cuda)
     before = tk.drspmm_bwd_arena.launches
     dv = tk.drspmm_bwd_arena(plan.bwd, plan.bwd_src_rows, gy, xi)
@@ -243,12 +245,13 @@ def _eid_arenas(device, ec=None, n=300, n_target=4000, seed=0):
     return ff.to(device), fb.to(device), nnz, w.to(device)
 
 
-def _skewed_eid_arena(device, seed=3):
+def _skewed_eid_arena(device, seed=3, transposed=False):
     """A forward edge-id arena at Ec 4 as skewed as the homogenized Table-1
     partition: 40 rows of 240-270 neighbours among 400 rows of 1-12, so the
-    long chunk runs are no multiple of the wide walk's 16-slot batches or
-    32-slot windows; every other row-block is then left empty (blocks 2b
-    hold the packed blocks b)."""
+    long chunk runs are no multiple of the wide walks' batches or 32-slot
+    windows; every other row-block is then left empty (blocks 2b hold the
+    packed blocks b).  ``transposed``: the same edges reversed, packed into
+    the transposed arena, whose rows are then the 240-270-slot ones."""
     rng = np.random.default_rng(seed)
     n = 440
     deg = np.concatenate([rng.integers(240, 271, 40),
@@ -256,13 +259,16 @@ def _skewed_eid_arena(device, seed=3):
     dst = np.repeat(np.arange(n), deg)
     src = np.concatenate([rng.choice(n, d, replace=False) for d in deg])
     perm = rng.permutation(dst.size)
-    ff, _fb, _o, nnz = pack_fused_eid_pair(dst[perm], src[perm], n, n,
-                                           chunk=4)
-    ff = dataclasses.replace(ff, block_of=2 * ff.block_of,
-                             rows=np.concatenate([ff.rows, ff.rows]),
-                             blk_ptr=None)
+    if transposed:
+        dst, src = src, dst
+    ff, fb, _o, nnz = pack_fused_eid_pair(dst[perm], src[perm], n, n,
+                                          chunk=4)
+    f = fb if transposed else ff
+    f = dataclasses.replace(f, block_of=2 * f.block_of,
+                            rows=np.concatenate([f.rows, f.rows]),
+                            blk_ptr=None)
     w = torch.from_numpy(rng.normal(size=nnz).astype(np.float32))
-    return ff.to(device), nnz, w.to(device)
+    return f.to(device), nnz, w.to(device)
 
 
 LEARNABLE_COLS = ["iota", "perm", "mixed", "repeat", "zeros"]
@@ -278,7 +284,9 @@ def _learnable_operand(n, k, dim, seed, device, cols=None):
     rows), "repeat" (iota, with every fifth row repeating column 0 at
     pair 1: the broadcast fallback) or "zeros" (iota, with pairs 3-9 of
     every third row zero-valued and pairs 5-9 of them at a wrong column,
-    so that zero pairs are skipped and leave the group aligned)."""
+    so that zero pairs are skipped and leave the group aligned) or
+    "outside" (iota, with pairs 5-8 of every third row at columns >= dim
+    and pair 40 of the next rows at -1: they sample nothing)."""
     g = torch.Generator().manual_seed(seed)
     xv = torch.randn((n, k), generator=g)
     iota = torch.arange(k, dtype=torch.int32).expand(n, k).contiguous()
@@ -302,6 +310,9 @@ def _learnable_operand(n, k, dim, seed, device, cols=None):
     elif cols == "zeros":
         xv[::3, 3:10] = 0.0
         xi[::3, 5:10] = 40
+    elif cols == "outside":
+        xi[::3, 5:9] = k + 3 * torch.arange(4, dtype=torch.int32)
+        xi[1::3, 40] = -1
     else:
         assert cols == "iota", cols
     return xv.to(device), xi.to(torch.int32).contiguous().to(device)
@@ -341,21 +352,58 @@ def test_learnable_fwd_kernel_skewed_arena(cuda, k, dim, cols):
         ff, nnz, w, xv, xi, dim).cpu().numpy())
 
 
+def _bwd_learnable_ref(fb, nnz, w, gy, xi):
+    """Kernel 8's plain version, with the columns outside [0, dim) (which
+    the kernel samples as nothing, and the plain gather cannot index)
+    read at column 0 and their outputs set to 0."""
+    out = (xi < 0) | (xi >= gy.shape[1])
+    ref = tk.drspmm_bwd_learnable_plain(fb, nnz, w, gy, xi.masked_fill(
+        out, 0))
+    return ref.masked_fill(out[fb.rows.long()], 0.0)
+
+
 @pytest.mark.parametrize("ec", [4, 8, 16])
-@pytest.mark.parametrize("k", [8, 32, 40, 64])
-def test_learnable_bwd_kernel_matches_plain(cuda, k, ec):
-    """k > 32 runs the walk's wide variant."""
+@pytest.mark.parametrize("k,dim,cols", [(8, 64, None), (32, 64, None),
+                                        (40, 64, None), (100, 128, None),
+                                        (200, 256, None)]
+                         + [(64, 64, c) for c in
+                            ["iota", "perm", "mixed", "repeat", "outside"]])
+def test_learnable_bwd_kernel_matches_plain(cuda, k, dim, cols, ec):
+    """k > 32 runs the walk's wide variant (k 40 and 64 its 2-group, k 100
+    its 4-group and k 200 its 8-group instantiation); at k = dim = 64 the
+    columns are those of the GAT baselines (iota), permuted, half
+    permuted, repeated or partly outside [0, dim)."""
     _ff, fb, nnz, w = _eid_arenas(cuda, ec, seed=1)
-    _, xi = _learnable_operand(fb.n_dst, k, 64, k + 1, cuda)
-    gy = torch.randn((fb.n_src, 64),
+    _, xi = _learnable_operand(fb.n_dst, k, dim, k + 1, cuda, cols)
+    gy = torch.randn((fb.n_src, dim),
                      generator=torch.Generator().manual_seed(ec)).to(cuda)
     before = tk.drspmm_bwd_learnable.launches
     dv = tk.drspmm_bwd_learnable(fb, nnz, w, gy, xi)
     torch.cuda.synchronize()
     assert tk.drspmm_bwd_learnable.launches == before + 1
     assert dv.shape == (fb.n_arena_rows, k)
-    assert_close(dv.cpu().numpy(), tk.drspmm_bwd_learnable_plain(
-        fb, nnz, w, gy, xi).cpu().numpy())
+    assert_close(dv.cpu().numpy(),
+                 _bwd_learnable_ref(fb, nnz, w, gy, xi).cpu().numpy())
+
+
+@pytest.mark.parametrize("k,dim,cols", [(40, 64, None), (100, 128, None),
+                                        (200, 256, None)]
+                         + [(64, 64, c) for c in ["iota", "perm", "outside"]])
+def test_learnable_bwd_kernel_skewed_arena(cuda, k, dim, cols):
+    """The wide walk over transposed rows of 240-270 slots at Ec 4 (runs
+    that end mid-batch and mid-window) and over empty row-blocks."""
+    fb, nnz, w = _skewed_eid_arena(cuda, transposed=True)
+    runs = torch.diff(fb.blk_ptr)
+    assert int(runs.max()) * 4 >= 240 and int((runs == 0).sum()) > 1
+    _, xi = _learnable_operand(fb.n_dst, k, dim, 9, cuda, cols)
+    gy = torch.randn((fb.n_src, dim),
+                     generator=torch.Generator().manual_seed(k)).to(cuda)
+    before = tk.drspmm_bwd_learnable.launches
+    dv = tk.drspmm_bwd_learnable(fb, nnz, w, gy, xi)
+    torch.cuda.synchronize()
+    assert tk.drspmm_bwd_learnable.launches == before + 1
+    assert_close(dv.cpu().numpy(),
+                 _bwd_learnable_ref(fb, nnz, w, gy, xi).cpu().numpy())
 
 
 @pytest.mark.parametrize("ec", [4, 8, 16])

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, the serving and
-training stacks import with JAX unavailable, entry points refuse to fall
-back to the CPU silently, and a kernel wrapper given a CUDA tensor never runs its plain
-version."""
+``chip_smoke.py`` or the arena probes in ``tools/``) imports JAX or the JAX
+package, the serving and training stacks import with JAX unavailable,
+entry points refuse to fall back to the CPU silently, and a kernel wrapper
+given a CUDA tensor never runs its plain version."""
 
 import ast
 import os
@@ -33,7 +33,8 @@ from _torch_port import cuda  # noqa: F401  (fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py"] \
+    + sorted((ROOT / "tools").glob("arena_*_probe.py"))
 
 
 def _imported_modules(path: Path):

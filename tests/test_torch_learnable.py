@@ -1,7 +1,8 @@
 """PyTorch port, learnable edge weights: the edge-id arenas against the JAX
 package's (table for table), their round trip, the plain versions of the
 learnable forward, dx and dw kernels against the reference's Pallas
-kernels (interpret mode) and its XLA arena walks, and
+kernels (interpret mode) and its XLA arena walks (the dx kernel also over
+a skewed transposed arena at the GAT shape), and
 ``drspmm_learnable`` (values and both gradients) against ``jax.vjp`` of
 the reference op.  The CUDA kernels are held against these plain versions
 on a card in tests/test_torch_cuda.py.
@@ -9,6 +10,7 @@ on a card in tests/test_torch_cuda.py.
 Tolerance: fp32, rtol 1e-5 and atol 1e-5 (scaled by the output's
 magnitude) -- the two sides sum the same products in another order."""
 
+import dataclasses
 import gc
 
 import numpy as np
@@ -195,6 +197,59 @@ def test_learnable_bwd_plain_matches_pallas(k):
     assert out.shape == (tb.n_arena_rows, k)
     assert_close(out.numpy(), ref)
     assert_close(out.numpy()[tb.gather], ref_x)
+
+
+def _skewed_t_packs(seed=3, n=300, n_long=8):
+    """Transposed edge-id arenas (the JAX package's, the port's) at Ec 4 of
+    a graph as skewed as the homogenized Table-1 partition: ``n_long``
+    sources of 240-270 out-edges among ones of 1-12, so the long rows end
+    mid-batch and mid-window of the wide backward walk; every other
+    row-block is then left empty (blocks 2b hold the packed blocks b)."""
+    rng = np.random.default_rng(seed)
+    deg = np.concatenate([rng.integers(240, 271, n_long),
+                          rng.integers(1, 13, n - n_long)])
+    src = np.repeat(np.arange(n), deg)
+    dst = np.concatenate([rng.choice(n, d, replace=False) for d in deg])
+    perm = rng.permutation(src.size)
+    out = []
+    for pack, extra in ((jell.pack_fused_eid_pair, {}),
+                        (tell.pack_fused_eid_pair, {"blk_ptr": None})):
+        _f, b, _o, nnz = pack(dst[perm], src[perm], n, n, chunk=4)
+        out.append(dataclasses.replace(
+            b, block_of=2 * np.asarray(b.block_of),
+            rows=np.concatenate([np.asarray(b.rows)] * 2), **extra))
+    return out[0], out[1].to("cpu"), nnz
+
+
+@pytest.mark.parametrize("cols", ["iota", "perm"])
+def test_learnable_bwd_skewed_arena_matches_pallas(cols):
+    """Kernel 8 at the GAT shape (k = dim = 64) over long transposed rows
+    and empty row-blocks: the port (its plain version on the CPU) against
+    the Pallas kernel in interpret mode, with the GAT operand's iota
+    columns and with each row's columns permuted.  The Pallas grid walks
+    chunks, so it never writes a row-block that has none: there the port
+    must give exactly 0."""
+    jb, tb, nnz = _skewed_t_packs()
+    runs = np.diff(tb.blk_ptr.numpy())
+    assert runs.max() * 4 >= 240 and (runs == 0).sum() > 1
+    rng = np.random.default_rng(14)
+    w = rng.normal(size=nnz).astype(np.float32)
+    gy = rng.normal(size=(tb.n_src, 64)).astype(np.float32)
+    xi = np.broadcast_to(np.arange(64, dtype=np.int32), (tb.n_dst, 64))
+    if cols == "perm":
+        xi = np.argsort(rng.random((tb.n_dst, 64)), axis=1)
+    xi = np.ascontiguousarray(xi, dtype=np.int32)
+    ref = np.asarray(jk.drspmm_bwd_learnable_fused(
+        jb, nnz, jnp.asarray(w), jnp.asarray(gy),
+        jnp.take(jnp.asarray(xi), jnp.asarray(jb.rows), axis=0)))
+    before = tk.drspmm_bwd_learnable.launches
+    out = tk.drspmm_bwd_learnable(tb, nnz, torch.from_numpy(w),
+                                  torch.from_numpy(gy),
+                                  torch.from_numpy(xi)).numpy()
+    assert tk.drspmm_bwd_learnable.launches == before   # CPU: plain version
+    empty = np.repeat(runs == 0, tb.row_block)
+    assert_close(out[~empty], ref[~empty])
+    assert np.all(out[empty] == 0.0)
 
 
 @pytest.mark.parametrize("k", [6, DIM])

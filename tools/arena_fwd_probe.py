@@ -111,37 +111,40 @@ def one_row(f, keep: torch.Tensor):
         eid=g.eid.masked_fill(pad, -1))
 
 
-def build_variants(shapes):
-    """Kernel 7 built at each (parts, pairs) of ``shapes``: {shape: the
-    library's ``drspmm_learnable_fwd``}."""
+def build_variants(shapes, header="arena_fwd_walk.cuh",
+                   names=("kWideParts", "kWidePairs"),
+                   entry="drspmm_learnable_fwd", n_ptr=7):
+    """``csrc/<entry>.cu`` built with the constants ``names`` of ``header``
+    set to each shape of ``shapes`` (kernel 7 at each (parts, pairs) by
+    default): {shape: the library's C entry ``entry``}."""
     from repro_torch.kernels import _build
-    walk = (_build.CSRC / "arena_fwd_walk.cuh").read_text()
+    walk = (_build.CSRC / header).read_text()
     procs = {}
-    for parts, pairs in shapes:
-        d = _build.BUILD_ROOT / "probe" / f"{parts}x{pairs}"
+    for shape in shapes:
+        d = _build.BUILD_ROOT / "probe" / (
+            f"{entry}-" + "x".join(str(v) for v in shape))
         d.mkdir(parents=True, exist_ok=True)
         text = walk
-        for name, value in (("kWideParts", parts), ("kWidePairs", pairs)):
+        for name, value in zip(names, shape):
             text, n = re.subn(
                 rf"constexpr int {name} = \d+;",
                 f"constexpr int {name} = {value};", text)
             assert n == 1, name
         for src in _build.CSRC.glob("*.cu*"):
             (d / src.name).write_text(
-                text if src.name == "arena_fwd_walk.cuh" else src.read_text())
+                text if src.name == header else src.read_text())
         log = open(d / "nvcc.log", "w")
-        procs[(parts, pairs)] = (d, log, subprocess.Popen(
+        procs[shape] = (d, log, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-o",
-             str(d / "lib.so"), str(d / "drspmm_learnable_fwd.cu")],
+             str(d / "lib.so"), str(d / f"{entry}.cu")],
             stdout=log, stderr=subprocess.STDOUT))
     fns = {}
     for shape, (d, log, proc) in procs.items():
         if proc.wait() != 0:
-            sys.exit(f"arena_fwd_probe: build {shape} failed, see "
-                     f"{d / 'nvcc.log'}")
+            sys.exit(f"probe: build {shape} failed, see {d / 'nvcc.log'}")
         log.close()
-        fn = ctypes.CDLL(str(d / "lib.so")).drspmm_learnable_fwd
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
+        fn = getattr(ctypes.CDLL(str(d / "lib.so")), entry)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fns[shape] = fn
     return fns
