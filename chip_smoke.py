@@ -525,7 +525,8 @@ def check_bucket_kernels(model, graph, bucket_cfg):
     kernel's row sums the relation's buckets: its time, its plain version's
     and its library yardstick's (``torch.sparse.mm`` of each bucket's CSR)
     are summed over the buckets, its bound is the whole loop's (operand
-    rows counted once)."""
+    rows counted once).  Kernel 10 and its library call are also timed by
+    ``torch.profiler`` on each bucket (logged, not in the row)."""
     from repro_torch.kernels import drspmm as K1
     from repro_torch.kernels import ops
     from repro_torch.models.hgnn import loss_fn
@@ -564,7 +565,8 @@ def check_bucket_kernels(model, graph, bucket_cfg):
         kern = getattr(K1, name)
         plain = getattr(K1, name + "_plain")
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, err=0.0,
-                   slab=0, out=0, real=0, ops=0.0)
+                   slab=0, out=0, real=0, ops=0.0, device_ms=0.0,
+                   library_device_ms=0.0)
         used = set()
         for b in pack.buckets:
             args = args_of(b)
@@ -604,6 +606,17 @@ def check_bucket_kernels(model, graph, bucket_cfg):
                 f"max_abs_err={err} (max |ref| {float(ref.abs().max())}) "
                 f"ms={t['ms']} plain_ms={t['plain_ms']} bound_ms={b_ms} "
                 f"({b_by}) library_ms={t['library_ms']}")
+            if name == "drspmm_fwd_bucket":
+                # the kernel's own device time beside its library call's
+                # (the events read the host's launch rate where a call is
+                # shorter than its launch)
+                dev = [device_breakdown(
+                    lambda: [fn() for _ in range(REPS)])[1] / REPS
+                    for fn in (lambda: kern(b, *args), lib)]
+                log(f"kernel {name} bucket R={r} E={e}: device ms a call "
+                    f"(profiler) {dev[0]} (kernel), {dev[1]} (library)")
+                tot["device_ms"] += dev[0]
+                tot["library_device_ms"] += dev[1]
             for key in ("ms", "plain_ms", "library_ms"):
                 tot[key] += t[key]
             tot["err"] = max(tot["err"], err)
@@ -623,6 +636,10 @@ def check_bucket_kernels(model, graph, bucket_cfg):
             f"max_abs_err={tot['err']} ms={tot['ms']} "
             f"plain_ms={tot['plain_ms']} bound_ms={b_ms} ({b_by}) "
             f"library_ms={tot['library_ms']} (sums over the buckets)")
+        if name == "drspmm_fwd_bucket":
+            log(f"kernel {name}: device ms (profiler, sums over the "
+                f"buckets) {tot['device_ms']} (kernel), "
+                f"{tot['library_device_ms']} (library)")
     return rows
 
 

@@ -199,9 +199,10 @@ def homogenize(graph: CircuitGraph):
 _EDGE_PACK_CACHE: Dict[tuple, tuple] = {}
 
 
-def learnable_edge_packing(adj: BucketedELL, device="cpu"):
+def learnable_edge_packing(adj: BucketedELL, device="cuda"):
     """``(fwd_arena, bwd_arena, dst_canon, src_canon, w_canon, nnz)`` for
-    ``adj``'s edge set, with every table on ``device``.
+    ``adj``'s edge set, with every table on ``device`` (a card unless
+    ``device="cpu"`` is asked for).
 
     The edge-id arenas feed :func:`repro_torch.kernels.ops.drspmm_learnable`;
     ``dst_canon``/``src_canon`` (nnz,) are the canonical (dst-stable-

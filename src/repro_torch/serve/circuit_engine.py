@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.hetero_mp import HeteroMPConfig, single_graph_field
+from repro_torch.core.hetero_mp import (HeteroMPConfig, plan_applicable,
+                                        single_graph_field)
 from repro_torch.core.parallel import prefetch
 from repro_torch.graphs.circuit import CircuitGraph
 from repro_torch.graphs.collate import collate_graphs, quantize_up
@@ -162,12 +163,16 @@ class CircuitServeEngine:
 
     def _prepare(self, reqs: List[CircuitRequest]):
         """Pool thread: collate and issue the copies to the device (on the
-        side stream, whose completion event the dispatch waits on)."""
+        side stream, whose completion event the dispatch waits on).  The
+        relation plan is built only where the model reads it."""
         graphs = [r.graph for r in reqs]
+        with_plan = plan_applicable(self.cfg, self.model.hidden)
         if self._copy_stream is None:
-            return reqs, collate_graphs(graphs, device=self.device), None
+            return reqs, collate_graphs(graphs, with_plan=with_plan,
+                                        device=self.device), None
         with torch.cuda.stream(self._copy_stream):
-            batch = collate_graphs(graphs, device=self.device)
+            batch = collate_graphs(graphs, with_plan=with_plan,
+                                   device=self.device)
             copied = torch.cuda.Event()
             copied.record(self._copy_stream)
         return reqs, batch, copied

@@ -549,6 +549,63 @@ def test_bucket_kernels_on_an_inert_bucket(cuda):
     assert not tk.spmm_bucket(b, torch.randn(3, 64, device=cuda)).any()
 
 
+def _wide_slab(r, e, seed, device, n_src=300):
+    """One (r, e) slab packed by ``pack_ell`` from a seeded COO: rows 0
+    and 1 fill all e slots, the others end early (random degrees); row 1
+    has weight 0 at slots 32-63 and over its middle third (padding windows
+    between real slots), and every fifth row is all padding (weight 0)."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(1, e + 1, r)
+    deg[:2] = e
+    dst = np.repeat(np.arange(r), deg)
+    j = np.arange(dst.size) - np.repeat(np.cumsum(deg) - deg, deg)
+    w = rng.random(dst.size).astype(np.float32) + 0.1
+    w[(dst == 1) & (((j >= 32) & (j < 64))
+                    | ((j >= e // 3) & (j < 2 * e // 3)))] = 0.0
+    w[dst % 5 == 4] = 0.0
+    b = pack_ell(dst, rng.integers(0, n_src, dst.size), w, r, n_src,
+                 bounds=()).buckets[0]
+    assert b.nbr.shape[1] == e
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a[:r], dt)).to(
+        device)
+    return ELLBucket(rows=t(b.rows, np.int64), nbr=t(b.nbr, np.int32),
+                     w=t(b.w, np.float32)), n_src
+
+
+@pytest.mark.parametrize("k,dim", [(16, 64), (16, 96), (40, 96), (64, 64),
+                                   (64, 256), (200, 256)])
+@pytest.mark.parametrize("e", [33, 256, 260, 300, 1000])
+@pytest.mark.parametrize("r", [1, 3, 40])
+def test_bucket_fwd_kernel_wide_slabs(cuda, r, e, k, dim):
+    """Kernel 10 on slabs whose rows it splits over several warps: real
+    slots ending early, padding windows mid-row, all-padding rows, k > 32
+    (the slot-by-slot branch) and repeated columns (every fifth operand
+    row, the broadcast fallback; at k == dim every fifth row repeats
+    column 0).  One launch a call."""
+    b, n_src = _wide_slab(r, e, r * 1000 + e, cuda)
+    xv, xi = _learnable_operand(n_src, k, dim, k, cuda,
+                                cols="repeat" if k == dim else None)
+    before = tk.drspmm_fwd_bucket.launches
+    y = tk.drspmm_fwd_bucket(b, xv, xi, dim)
+    torch.cuda.synchronize()
+    assert tk.drspmm_fwd_bucket.launches == before + 1
+    assert_close(y.cpu().numpy(), tk.drspmm_fwd_bucket_plain(
+        b, xv, xi, dim).cpu().numpy())
+
+
+@pytest.mark.parametrize("r,e", [(40, 260), (1696, 256)])
+def test_bucket_fwd_kernel_deterministic(cuda, r, e):
+    """The split rows' partial sums are added in a fixed order: two calls
+    on a 40 x 260 slab (and on a 1696 x 256 one) give bit-identical
+    outputs."""
+    b, n_src = _wide_slab(r, e, 7, cuda)
+    xv, xi = _learnable_operand(n_src, 16, 64, 16, cuda)
+    y1 = tk.drspmm_fwd_bucket(b, xv, xi, 64)
+    y2 = tk.drspmm_fwd_bucket(b, xv, xi, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+
+
 @pytest.mark.parametrize("k_net", [K, HIDDEN])
 def test_trainer_bucket_step_on_card_matches_cpu(cuda, k_net):
     """A single-graph ``backend="bucket"`` step on the card launches

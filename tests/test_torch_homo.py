@@ -74,6 +74,19 @@ def test_learnable_edge_packing_memo(homo):
     assert torch.all(dst[1:] >= dst[:-1])           # canonical order
 
 
+def test_learnable_edge_packing_defaults_to_the_card(homo):
+    """Like the model's, the packing's device defaults to the card: with
+    no card visible, a call with no device raises ``resolve_device``'s
+    error, and ``"cpu"`` still packs on the CPU."""
+    adj = homo[1][0]
+    if torch.cuda.is_available():
+        assert learnable_edge_packing(adj)[2].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+            learnable_edge_packing(adj)
+    assert learnable_edge_packing(adj, "cpu")[2].device.type == "cpu"
+
+
 def _flat(p):
     out = {"w_in": p.w_in, "head_w": p.head_w, "head_b": p.head_b}
     for i, lw in enumerate(p.w_layers):

@@ -34,7 +34,7 @@ from _torch_port import cuda  # noqa: F401  (fixture)
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"] \
-    + sorted((ROOT / "tools").glob("arena_*_probe.py"))
+    + sorted((ROOT / "tools").glob("*_probe.py"))
 
 
 def _imported_modules(path: Path):

@@ -35,6 +35,7 @@ from repro_torch.graphs.collate import collate_graphs
 from repro_torch.kernels import drspmm as tk
 from repro_torch.kernels import ops as tops
 from repro_torch.models.hgnn import DRCircuitGNN, loss_fn
+from repro_torch.serve import circuit_engine
 from repro_torch.serve.circuit_engine import CircuitServeEngine
 from repro_torch.train.circuit_trainer import (CircuitTrainConfig,
                                                CircuitTrainer)
@@ -239,3 +240,30 @@ def test_drelu_serving_never_runs_spmm(params, designs, monkeypatch):
         np.testing.assert_allclose(
             done[rid].pred, np.asarray(drcircuitgnn_forward(params, gj, jcfg)),
             rtol=0, atol=1e-5)
+
+
+def test_dense_serving_matches_reference(params, designs, monkeypatch):
+    """A ``use_drelu=False`` model served through the port's engine (five
+    partitions in batches of two) collates without a relation plan, which
+    it never reads, and gives every request the reference's prediction of
+    its own graph."""
+    plans, collate = [], circuit_engine.collate_graphs
+
+    def spy(graphs, **kw):
+        batch = collate(graphs, **kw)
+        plans.append(batch.plan)
+        return batch
+    monkeypatch.setattr(circuit_engine, "collate_graphs", spy)
+    jcfg = JConfig(hidden=HIDDEN, k_cell=K, k_net=K, use_drelu=False)
+    tcfg = HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K, use_drelu=False)
+    eng = CircuitServeEngine(_port_model(params), tcfg, max_batch=2,
+                             device="cpu")
+    rids = [eng.submit(g) for g in designs[1]]
+    done = eng.run()
+    assert len(rids) == 5 and len(plans) >= 3
+    assert all(p is None for p in plans)
+    for rid, gj in zip(rids, designs[0]):
+        assert done[rid].error is None
+        np.testing.assert_allclose(
+            done[rid].pred, np.asarray(drcircuitgnn_forward(params, gj, jcfg)),
+            rtol=0, atol=1e-6)

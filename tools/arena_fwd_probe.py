@@ -113,10 +113,11 @@ def one_row(f, keep: torch.Tensor):
 
 def build_variants(shapes, header="arena_fwd_walk.cuh",
                    names=("kWideParts", "kWidePairs"),
-                   entry="drspmm_learnable_fwd", n_ptr=7):
+                   entry="drspmm_learnable_fwd", n_ptr=7, n_int=5):
     """``csrc/<entry>.cu`` built with the constants ``names`` of ``header``
     set to each shape of ``shapes`` (kernel 7 at each (parts, pairs) by
-    default): {shape: the library's C entry ``entry``}."""
+    default): {shape: the library's C entry ``entry``, taking ``n_ptr``
+    pointers, ``n_int`` ints and the stream}."""
     from repro_torch.kernels import _build
     walk = (_build.CSRC / header).read_text()
     procs = {}
@@ -144,7 +145,7 @@ def build_variants(shapes, header="arena_fwd_walk.cuh",
             sys.exit(f"probe: build {shape} failed, see {d / 'nvcc.log'}")
         log.close()
         fn = getattr(ctypes.CDLL(str(d / "lib.so")), entry)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
         fns[shape] = fn
     return fns
