@@ -275,7 +275,14 @@ def check_kernels(model, cfg, big, small):
             lambda: K1.drspmm_dense_tier_fwd_plain(a, xv, xi, HIDDEN)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: a @ xd))
-    log(f"kernel drspmm_dense_tier_fwd: M={m} N={n} nnz={int((a != 0).sum())}")
+    # the kernel's own device time beside its library call's (the events
+    # read the host's launch rate where a call is shorter than its launch)
+    dev = [device_breakdown(lambda: [fn() for _ in range(REPS)])[1] / REPS
+           for fn in (lambda: K1.drspmm_dense_tier_fwd(a, xv, xi, HIDDEN),
+                      lambda: a @ xd)]
+    log(f"kernel drspmm_dense_tier_fwd: M={m} N={n} nnz={int((a != 0).sum())}"
+        f"; device ms a call (profiler) {dev[0]} (kernel), {dev[1]} "
+        f"(library: a @ xd)")
     for r in rows.values():
         log(f"  {r['name']}: max_abs_err={r['max_abs_err']} ms={r['ms']} "
             f"plain_ms={r['plain_ms']} bound_ms={r['bound_ms']} "
@@ -796,9 +803,13 @@ def check_bwd_kernels(model, cfg, big, small):
         plain_ms=cuda_ms(lambda: K1.drspmm_dense_tier_bwd_plain(a, gy, xi)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.mm(a, gy)))
+    dev = [device_breakdown(lambda: [fn() for _ in range(REPS)])[1] / REPS
+           for fn in (lambda: K1.drspmm_dense_tier_bwd(a, gy, xi),
+                      lambda: torch.mm(a, gy))]
     log(f"kernel drspmm_dense_tier_bwd: N={n} M={m} nnz={nnz} k={k} "
         f"dim={gy.shape[1]}; library_ms is torch.mm of Aᵀ by gY: the "
-        f"unsampled dense (N, dim) product")
+        f"unsampled dense (N, dim) product; device ms a call (profiler) "
+        f"{dev[0]} (kernel), {dev[1]} (library)")
     for r in rows.values():
         log(f"  {r['name']}: max_abs_err={r['max_abs_err']} (max |ref| "
             f"{r['ref_max']}) ms={r['ms']} plain_ms={r['plain_ms']} "

@@ -191,6 +191,54 @@ def test_dense_tier_bwd_kernel_matches_plain(cuda, k):
     assert torch.all(dv[::7] == 0)
 
 
+def _dense_tier_bwd_operands(n, m, density, k, dim, seed, device):
+    """A seeded (n, m) transposed dense-tier table at ``density`` (1.0:
+    every entry non-zero, full rows; "rows": full rows with every third
+    row zero), gY (m, dim) and columns (n, k) in [0, dim) with column 1
+    repeating column 0 on every row."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(n, m)).astype(np.float32)
+    if density == "rows":
+        a[::3] = 0.0
+    else:
+        a[rng.random((n, m)) >= density] = 0.0
+    gy = rng.normal(size=(m, dim)).astype(np.float32)
+    xi = rng.integers(0, dim, (n, k), dtype=np.int32)
+    xi[:, 1] = xi[:, 0]
+    t = lambda x: torch.from_numpy(x).to(device)
+    return t(a), t(gy), t(xi)
+
+
+@pytest.mark.parametrize("k,dim", [(8, 16), (16, 64), (40, 256), (200, 64)])
+@pytest.mark.parametrize("density", [0.0, 0.01, 0.3, 1.0, "rows"])
+@pytest.mark.parametrize("m", [1, 31, 33, 473, 1000, 4100])
+@pytest.mark.parametrize("n", [1, 7, 473])
+def test_dense_tier_bwd_kernel_shapes(cuda, n, m, density, k, dim):
+    """Kernel 5 on seeded tables: rows narrower and wider than one window
+    of the walk, empty tables, full rows, zero rows among full ones, k up
+    to 200 and repeated columns.  One launch a call; a row with no
+    non-zero entry comes back exactly 0."""
+    a_t, gy, xi = _dense_tier_bwd_operands(n, m, density, k, dim,
+                                           n * 10007 + m, cuda)
+    before = tk.drspmm_dense_tier_bwd.launches
+    dv = tk.drspmm_dense_tier_bwd(a_t, gy, xi)
+    torch.cuda.synchronize()
+    assert tk.drspmm_dense_tier_bwd.launches == before + 1
+    assert_close(dv.cpu().numpy(), tk.drspmm_dense_tier_bwd_plain(
+        a_t, gy, xi).cpu().numpy())
+    assert torch.all(dv[(a_t == 0).all(dim=1)] == 0)
+
+
+@pytest.mark.parametrize("n,m", [(473, 473), (473, 4100)])
+def test_dense_tier_bwd_kernel_deterministic(cuda, n, m):
+    """Two calls give bit-identical outputs."""
+    a_t, gy, xi = _dense_tier_bwd_operands(n, m, 0.3, 40, 64, 11, cuda)
+    dv1 = tk.drspmm_dense_tier_bwd(a_t, gy, xi)
+    dv2 = tk.drspmm_dense_tier_bwd(a_t, gy, xi)
+    torch.cuda.synchronize()
+    assert torch.equal(dv1, dv2)
+
+
 @pytest.mark.parametrize("drelu_backend", ["topk", "bisect"])
 def test_trainer_step_on_card_matches_cpu(cuda, drelu_backend):
     graphs = generate_design(1, "medium", SCALE)[:2]

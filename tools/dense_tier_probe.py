@@ -1,0 +1,242 @@
+"""Where the dense-tier sampled backward (kernel 5) spends its time, on one
+NVIDIA card.
+
+    PYTHONPATH=src python3 tools/dense_tier_probe.py [--repeats 5]
+        [--sweep 4x16x8x8,...]
+
+Builds the operands ``chip_smoke.py`` hands kernels 5 and 2: the seeded
+model of ``chip_smoke.py`` (hidden 64, k 16) on its scale-0.02 batch
+(the first two partitions of ``generate_design(0, "small", 0.02)``,
+``(1, "medium", 0.02)`` and ``(2, "large", 0.02)``, collated), whose
+stacked transposed dense-tier table is 473 x 473; gY is
+the first layer's cotangent of the batch's training loss on the dense
+relations' rows.  It times, with CUDA events (``ms``: mean of 50 L2-warm
+calls after a warm-up, which reads the host's launch rate where that is
+slower than the kernel), with ``torch.profiler`` (``device_ms``: the
+device time ``chip_smoke.device_breakdown`` traces over 50 more calls, a
+call) and on the host's clock (``host_ms``: the time a call takes to
+return, the device left to run behind it):
+
+* kernel 5 over the whole table, ``--repeats`` times, with a SHA-256 of
+  its output (parent and change are compared bit for bit by it);
+* kernel 5 over the table cut to its first 32, 128 and 256 columns, gY
+  cut to match: how its time grows with the columns it walks;
+* ``torch.mm`` of the table by gY (the library yardstick);
+* kernel 2 (``drspmm_dense_tier_fwd``) on the first layer's CBSR operand
+  and ``a @ xd`` on the densified operand (its library yardstick).
+
+With ``--sweep WARPSxUNROLLxBATCHxMIN,...`` it also builds kernel 5 at
+other ``kWarps`` x ``kUnroll`` x ``kBatch`` x ``kMinBlocks`` of
+``csrc/drspmm_dense_tier_bwd.cu`` (warps a block x 32-entry groups a
+warp loads before it tests any x pairs whose gY loads a lane issues
+before it adds any x blocks an SM must hold, 1 for no cap; one ``nvcc``
+each, all started together, into ``build/repro_torch/probe/``), prints
+each build's registers and spills at every k/32, and times each over the
+whole table, its column prefixes and a 473 x 4,100 table of density 0.01
+made from a seed (several windows a row).
+
+Prints one JSON object a line, then the card's name and power limit.
+Needs one card; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from arena_bwd_probe import times
+from arena_fwd_probe import REPS, SEED, build_variants
+
+PREFIXES = (32, 128, 256)
+SWEEP_NAMES = ("kWarps", "kUnroll", "kBatch", "kMinBlocks")
+
+
+def operands(device="cuda"):
+    """(Aᵀ, gY, xi) of kernel 5 and (A, xv, xi, densified operand) of
+    kernel 2, as ``chip_smoke.py`` builds them, on ``device``."""
+    from chip_smoke import (FEAT, HIDDEN, K, LAYERS, backward_operands,
+                            first_layer_operands)
+    from repro_torch.core.hetero_mp import HeteroMPConfig
+    from repro_torch.graphs.collate import collate_graphs
+    from repro_torch.graphs.generator import generate_design
+    from repro_torch.kernels import drspmm as K1
+    from repro_torch.models.hgnn import DRCircuitGNN
+    tiny = (generate_design(0, "small", 0.02)
+            + generate_design(1, "medium", 0.02)
+            + generate_design(2, "large", 0.02))
+    small = collate_graphs(tiny[:2], device=device)
+    model = DRCircuitGNN(FEAT, FEAT, HIDDEN, LAYERS, device=device,
+                         generator=torch.Generator().manual_seed(SEED))
+    cfg = HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K)
+    plan = small.plan
+    gy_cat, xi_b = backward_operands(model, small, cfg)
+    gy = torch.cat([gy_cat[s.out_off:s.out_off + s.n_dst]
+                    for s in plan.dense_segments]).contiguous()
+    xv, xi_f, _ = first_layer_operands(model, small.graph, cfg)
+    return ((plan.dense_bwd, gy, xi_b),
+            (plan.dense_fwd, xv, xi_f, K1._densify(xv, xi_f, HIDDEN)))
+
+
+def wide_table(m, density, xi, dim):
+    """A seeded table of ``xi``'s rows by ``m`` columns at ``density`` and a
+    seeded (m, dim) gY (the sweep's several-windows case), on xi's
+    device."""
+    rng = np.random.default_rng(SEED)
+    a = rng.normal(size=(xi.shape[0], m)).astype(np.float32)
+    a[rng.random(a.shape) >= density] = 0.0
+    gy = rng.normal(size=(m, dim)).astype(np.float32)
+    return (torch.from_numpy(a).to(xi.device),
+            torch.from_numpy(gy).to(xi.device), xi)
+
+
+def host_ms(fn, reps: int = REPS) -> float:
+    """Host time of one call: ``reps`` calls on the host's clock with the
+    device left to run behind them (the rate events read when the device
+    is the faster)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def all_times(fn) -> dict:
+    return {**times(fn), "host_ms": host_ms(fn)}
+
+
+def sha(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def ptxas(log: Path) -> list:
+    """[k/32, registers, stack bytes, spill store bytes, spill load bytes]
+    of each kernel instantiation in an ``nvcc -Xptxas -v`` log."""
+    out, tpl, spill = [], None, None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '\w*?ILi(\d+)E", line)
+        if m:
+            tpl = int(m.group(1))
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            spill = [int(v) for v in m.groups()]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and tpl is not None:
+            out.append([tpl, int(m.group(1)), *(spill or [0, 0, 0])])
+            tpl, spill = None, None
+    return sorted(out)
+
+
+def launch(fn, a, gy, xi, out) -> None:
+    """One launch of a kernel-5 library built by ``build_variants``, as the
+    port's wrapper makes it."""
+    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    n, m = a.shape
+    rc = fn(p(a), p(gy), p(xi), p(out), n, m, xi.shape[1], gy.shape[1],
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc:
+        raise RuntimeError(f"kernel 5 variant: CUDA error {rc}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--repeats", type=int, default=3,
+                    help="timings of kernel 5 on the whole table")
+    ap.add_argument("--sweep", default="",
+                    help="comma-separated WARPSxUNROLLxBATCHxMIN shapes of "
+                         "kernel 5 to build and time, e.g. 4x16x8x8")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("dense_tier_probe: no CUDA device visible")
+    root = Path(__file__).resolve().parents[1]
+    sys.path[:0] = [str(root / "src"), str(root)]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import drspmm as K1
+    (at, gy, xi), (a, xv, xi_f, xd) = operands()
+    n, m = at.shape
+    row_nnz = (at != 0).sum(1)
+    base = {"table": f"{n}x{m}", "nnz": int(row_nnz.sum()),
+            "k": xi.shape[1], "dim": gy.shape[1]}
+    y = K1.drspmm_dense_tier_bwd(at, gy, xi)
+    ref = K1.drspmm_dense_tier_bwd_plain(at, gy, xi)
+    torch.cuda.synchronize()
+    print(json.dumps({"kernel": "drspmm_dense_tier_bwd", **base,
+                      "row_nnz_max": int(row_nnz.max()),
+                      "empty_rows": int((row_nnz == 0).sum()),
+                      "sha256": sha(y),
+                      "max_abs_err": float((y - ref).abs().max()),
+                      "max_abs_ref": float(ref.abs().max()),
+                      "ptxas": ptxas(_build.build_dir()
+                                     / "drspmm_dense_tier_bwd.log")}),
+          flush=True)
+    for r in range(args.repeats):
+        print(json.dumps({"kernel": "drspmm_dense_tier_bwd", **base,
+                          "repeat": r, **all_times(
+                              lambda: K1.drspmm_dense_tier_bwd(at, gy, xi))}),
+              flush=True)
+    cut = {c: (at[:, :c].contiguous(), gy[:c].contiguous())
+           for c in PREFIXES}
+    for c, (ac, gc) in cut.items():
+        print(json.dumps({"kernel": "drspmm_dense_tier_bwd", **base,
+                          "columns": c, "nnz": int((ac != 0).sum()),
+                          **all_times(lambda: K1.drspmm_dense_tier_bwd(
+                              ac, gc, xi))}), flush=True)
+    print(json.dumps({"kernel": "torch.mm", **base,
+                      **all_times(lambda: torch.mm(at, gy))}), flush=True)
+    fwd = {"table": "x".join(map(str, a.shape)), "nnz": int((a != 0).sum()),
+           "k": xv.shape[1], "dim": xd.shape[1]}
+    dim = xd.shape[1]
+    print(json.dumps({"kernel": "drspmm_dense_tier_fwd", **fwd, **all_times(
+        lambda: K1.drspmm_dense_tier_fwd(a, xv, xi_f, dim))}), flush=True)
+    print(json.dumps({"kernel": "a @ xd", **fwd,
+                      **all_times(lambda: a @ xd)}), flush=True)
+
+    shapes = [tuple(int(v) for v in s.split("x"))
+              for s in args.sweep.split(",") if s]
+    wide = wide_table(4100, 0.01, xi, gy.shape[1])
+    cases = {"whole": (at, gy, xi),
+             **{f"columns {c}": (ac, gc, xi) for c, (ac, gc) in cut.items()},
+             f"{n}x4100 density 0.01": wide}
+    for shape, fn in build_variants(
+            shapes, header="drspmm_dense_tier_bwd.cu", names=SWEEP_NAMES,
+            entry="drspmm_dense_tier_bwd", n_ptr=4, n_int=4).items():
+        d = _build.BUILD_ROOT / "probe" / (
+            "drspmm_dense_tier_bwd-" + "x".join(map(str, shape)))
+        print(json.dumps({"kernel": "drspmm_dense_tier_bwd",
+                          **dict(zip(SWEEP_NAMES, shape)),
+                          "ptxas": ptxas(d / "nvcc.log")}), flush=True)
+        for name, (ac, gc, xc) in cases.items():
+            out = torch.empty((ac.shape[0], xc.shape[1]), device="cuda")
+            launch(fn, ac, gc, xc, out)
+            want = K1.drspmm_dense_tier_bwd(ac, gc, xc)
+            torch.cuda.synchronize()
+            print(json.dumps({
+                "kernel": "drspmm_dense_tier_bwd",
+                **dict(zip(SWEEP_NAMES, shape)), "case": name,
+                "same_as_wrapper": bool(torch.equal(out, want)),
+                "max_abs_err": float((out - K1.drspmm_dense_tier_bwd_plain(
+                    ac, gc, xc)).abs().max()),
+                **times(lambda: launch(fn, ac, gc, xc, out))}), flush=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0])
+
+
+if __name__ == "__main__":
+    main()
