@@ -80,6 +80,7 @@ non-zero.  Needs one card; imports no JAX.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -283,6 +284,8 @@ def check_kernels(model, cfg, big, small):
     log(f"kernel drspmm_dense_tier_fwd: M={m} N={n} nnz={int((a != 0).sum())}"
         f"; device ms a call (profiler) {dev[0]} (kernel), {dev[1]} "
         f"(library: a @ xd)")
+    log(f"kernel drspmm_dense_tier_fwd: output SHA-256 "
+        f"{hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()}")
     for r in rows.values():
         log(f"  {r['name']}: max_abs_err={r['max_abs_err']} ms={r['ms']} "
             f"plain_ms={r['plain_ms']} bound_ms={r['bound_ms']} "

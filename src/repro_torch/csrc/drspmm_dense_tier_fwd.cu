@@ -1,92 +1,138 @@
 // DR-SpMM dense-tier forward for Hopper (sm_90a).
 //
 // Replaces the TPU kernel drspmm_dense_tier_fwd
-// (src/repro/kernels/drspmm.py): Y (M, dim) = A (M, N) . densify(CBSR x),
-// with the CBSR operand densified inside the kernel, source chunk by source
-// chunk, so the dense (N, dim) operand never reaches device memory.
+// (src/repro/kernels/drspmm.py:506): Y (M, dim) = A (M, N) . densify(CBSR x),
+// with the CBSR operand densified inside the kernel, so the dense (N, dim)
+// operand never reaches device memory.
 //
-// One thread block of 8 warps per 8 output rows.  For each chunk of 32
-// source rows the warps densify the chunk into shared memory (lane-owned
-// columns filled by the permutation scatter of cbsr_densify.cuh, so
-// duplicate CBSR columns accumulate without atomics; each warp issues the
-// loads of its 4 sources together), each warp reads its row's 32 A entries
-// with one coalesced load, and the warp then adds a * xd[s] for every
-// non-zero a (zero entries of the masked relation table are skipped
-// warp-uniformly).  The sum is fp32 and deterministic.
+// Bound on the H100: memory, reading the table once (0.000321 ms for the
+// 473 x 473 table of a scale-0.02 batch).  The table is nearly empty (a
+// relation lands in the dense tier only with nnz <= 4096: that table holds
+// 1,332 non-zeros, at most 8 a row), so what a row costs is latency: one
+// round trip for its row of the table, one for the CBSR rows it densifies.
 //
-// Bound on the H100: memory.  The dense-tier table is mostly zeros (a
-// relation lands here only with nnz <= 4096), so reading A once dominates;
-// the densify is recomputed per row-block but stays on chip.  At the tier's
-// sizes (a few hundred rows) the kernel fills less than half the SMs and is
-// bound by the latency of its chunk loop rather than by either roof.
+// Design: one warp an output row, kWarps warps a block, and no block-wide
+// barrier (a warp never waits on another, so rows past m leave at once).
+// The warp reads its row in windows of 32·kUnroll entries, every lane
+// issuing its kUnroll coalesced loads before it tests any; a ballot of each
+// 32-entry group appends the non-zero (s, a) pairs, in ascending s, to the
+// warp's own list in shared memory.  Only the listed sources are densified:
+// with k <= 32 the warp issues the CBSR loads of a batch of kBatch sources
+// (pair t in lane t) before it scatters any, each source densified by the
+// permutation scatter of cbsr_densify.cuh on the warp's own owner table;
+// with k > 32 each source goes through the broadcast scatter.  Lane l owns
+// output columns l, l+32, ...: each source is densified into a zeroed
+// d[DPL] (duplicate CBSR columns summed first) and added as acc += a · d,
+// in ascending s, zero entries of A skipped -- the products and order of
+// the chunk walk this kernel replaced, so the fp32 result is the same bits,
+// and deterministic at every shape.  A window's list is used up before the
+// next window is read, so the list has a fixed size for any N.  A row with
+// no non-zero entry comes back exactly 0.
+//
+// Shape, from the sweep of tools/dense_tier_probe.py --sweep-fwd on an
+// NVIDIA H100 80GB HBM3 (700 W), at the 473 x 473 table (at most 8
+// non-zeros a row): 1 or 4 warps a block, with or without the register
+// cap, all take 0.0028 ms by the profiler, the launch, two round trips and
+// the row's scatters one after another.  8 warps a block at 8 blocks an SM
+// caps ptxas at 32 registers and spills (0.0037); 8 or 32 groups a window
+// (0.0031), 4 sources in flight (0.0030) and 16 (spills at dim 256;
+// 0.0036) are slower.  Chosen: kernel 5's shape, 4 warps a block (119
+// blocks at M = 473 on 132 SMs), 16 groups a window (a 473-entry row in
+// one window; 16 KB of lists a block), 8 sources in flight, and 8 blocks
+// an SM (56-64 registers, no stack or spills at every DPL).
 #include <cuda_runtime.h>
 
 #include "cbsr_densify.cuh"
 
-constexpr int kRows = 8;       // output rows per block (one warp each)
-constexpr int kSrcChunk = 32;  // source rows densified per step
-constexpr int kSrcPerWarp = kSrcChunk / kRows;
+constexpr int kWarps = 4;        // output rows (warps) a block
+constexpr int kUnroll = 16;      // 32-entry groups loaded before any test
+constexpr int kBatch = 8;        // sources whose CBSR rows load together
+constexpr int kMinBlocks = 8;    // blocks an SM must hold (caps registers)
+constexpr int kWindow = 32 * kUnroll;
 
 template <int DPL>
-__global__ void __launch_bounds__(256) dense_tier_fwd_kernel(
-    const float* __restrict__ a, const float* __restrict__ xv,
-    const int* __restrict__ xi, float* __restrict__ out, int m, int n, int k,
-    int dim) {
-  __shared__ float xd[kSrcChunk][32 * DPL];
-  __shared__ int owner_tab[kRows][32 * DPL];
+__global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
+dense_tier_fwd_kernel(const float* __restrict__ a,
+                      const float* __restrict__ xv,
+                      const int* __restrict__ xi, float* __restrict__ out,
+                      int m, int n, int k, int dim) {
+  __shared__ float2 pairs[kWarps][kWindow];     // (s as int bits, a)
+  __shared__ int owner_tab[kWarps][32 * DPL];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kRows + warp;
+  const int row = blockIdx.x * kWarps + warp;
+  if (row >= m) return;                          // warp-uniform
+  float2* list = pairs[warp];
   int* owner = owner_tab[warp];
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) owner[lane + 32 * j] = -1;
-  __syncwarp();
+  const unsigned below = (1u << lane) - 1u;
   float acc[DPL];
 #pragma unroll
-  for (int j = 0; j < DPL; ++j) acc[j] = 0.f;
-
-  for (int n0 = 0; n0 < n; n0 += kSrcChunk) {
-    float my_a = 0.f;
-    if (row < m && n0 + lane < n) my_a = a[(long long)row * n + n0 + lane];
-    // this warp densifies sources warp, warp + kRows, ... of the chunk;
-    // with k <= 32 their pairs are all loaded before any is scattered
-    float pv[kSrcPerWarp];
-    int pc[kSrcPerWarp];
+  for (int j = 0; j < DPL; ++j) {
+    owner[lane + 32 * j] = -1;
+    acc[j] = 0.f;
+  }
+  const float* arow = a + (long long)row * n;
+  for (int w0 = 0; w0 < n; w0 += kWindow) {
+    float av[kUnroll];
 #pragma unroll
-    for (int q = 0; q < kSrcPerWarp; ++q) {
-      const int src = n0 + warp + kRows * q;
-      pv[q] = 0.f;
-      pc[q] = 0;
-      if (k <= 32 && src < n && lane < k) {
-        pv[q] = xv[(long long)src * k + lane];
-        pc[q] = xi[(long long)src * k + lane];
+    for (int u = 0; u < kUnroll; ++u) {
+      const int c = w0 + 32 * u + lane;
+      av[u] = c < n ? arow[c] : 0.f;
+    }
+    int cnt = 0;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const unsigned nz = __ballot_sync(kFullMask, av[u] != 0.f);
+      if (av[u] != 0.f)
+        list[cnt + __popc(nz & below)] =
+            make_float2(__int_as_float(w0 + 32 * u + lane), av[u]);
+      cnt += __popc(nz);
+    }
+    __syncwarp();
+    for (int p0 = 0; p0 < cnt; p0 += kBatch) {
+      if (k <= 32) {
+        float pv[kBatch];
+        int pc[kBatch];
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          // past the list's end the last source is read again, not added
+          const long long base =
+              (long long)__float_as_int(list[min(p0 + b, cnt - 1)].x) * k;
+          pv[b] = 0.f;
+          pc[b] = 0;
+          if (lane < k) {
+            pv[b] = xv[base + lane];
+            pc[b] = xi[base + lane];
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          if (p0 + b < cnt) {                    // warp-uniform
+            float d[DPL];
+#pragma unroll
+            for (int j = 0; j < DPL; ++j) d[j] = 0.f;
+            scatter_row_pairs<DPL>(d, owner, pv[b], pc[b], dim, lane);
+            const float w = list[p0 + b].y;
+#pragma unroll
+            for (int j = 0; j < DPL; ++j) acc[j] += w * d[j];
+          }
+        }
+      } else {
+        const int end = min(p0 + kBatch, cnt);
+        for (int p = p0; p < end; ++p) {
+          const long long base = (long long)__float_as_int(list[p].x) * k;
+          float d[DPL];
+#pragma unroll
+          for (int j = 0; j < DPL; ++j) d[j] = 0.f;
+          accumulate_cbsr_row<DPL>(d, xv + base, xi + base, k, 1.f, lane);
+          const float w = list[p].y;
+#pragma unroll
+          for (int j = 0; j < DPL; ++j) acc[j] += w * d[j];
+        }
       }
     }
-#pragma unroll
-    for (int q = 0; q < kSrcPerWarp; ++q) {
-      const int s = warp + kRows * q;
-      float d[DPL];
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) d[j] = 0.f;
-      if (k <= 32)
-        scatter_row_pairs<DPL>(d, owner, pv[q], pc[q], dim, lane);
-      else if (n0 + s < n)
-        accumulate_cbsr_row<DPL>(d, xv + (long long)(n0 + s) * k,
-                                 xi + (long long)(n0 + s) * k, k, 1.f, lane);
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) xd[s][lane + 32 * j] = d[j];
-    }
-    __syncthreads();
-    const int ns = min(kSrcChunk, n - n0);
-    for (int s = 0; s < ns; ++s) {
-      const float av = __shfl_sync(kFullMask, my_a, s);
-      if (av == 0.f) continue;
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) acc[j] += av * xd[s][lane + 32 * j];
-    }
-    __syncthreads();
+    __syncwarp();
   }
-  if (row >= m) return;
   float* o = out + (long long)row * dim;
 #pragma unroll
   for (int j = 0; j < DPL; ++j) {
@@ -98,7 +144,7 @@ __global__ void __launch_bounds__(256) dense_tier_fwd_kernel(
 template <int DPL>
 static void launch(const float* a, const float* xv, const int* xi, float* out,
                    int m, int n, int k, int dim, cudaStream_t stream) {
-  dense_tier_fwd_kernel<DPL><<<(m + kRows - 1) / kRows, 32 * kRows, 0,
+  dense_tier_fwd_kernel<DPL><<<(m + kWarps - 1) / kWarps, 32 * kWarps, 0,
                                stream>>>(a, xv, xi, out, m, n, k, dim);
 }
 

@@ -239,6 +239,56 @@ def test_dense_tier_bwd_kernel_deterministic(cuda, n, m):
     assert torch.equal(dv1, dv2)
 
 
+def _dense_tier_fwd_operands(m, n, density, k, dim, seed, device):
+    """A seeded (m, n) dense-tier table at ``density`` (1.0: every entry
+    non-zero; "rows": full rows with every third row zero) and a CBSR
+    operand (n, k) with columns in [0, dim): column 1 repeats column 0 on
+    every row (a repeated non-zero column), and pair 2 is zero-valued."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(m, n)).astype(np.float32)
+    if density == "rows":
+        a[::3] = 0.0
+    else:
+        a[rng.random((m, n)) >= density] = 0.0
+    xv = rng.normal(size=(n, k)).astype(np.float32)
+    xi = rng.integers(0, dim, (n, k), dtype=np.int32)
+    xi[:, 1] = xi[:, 0]
+    xv[:, 2] = 0.0
+    t = lambda x: torch.from_numpy(x).to(device)
+    return t(a), t(xv), t(xi)
+
+
+@pytest.mark.parametrize("k,dim", [(8, 16), (16, 64), (40, 256), (200, 64)])
+@pytest.mark.parametrize("density", [0.0, 0.01, 0.3, 1.0, "rows"])
+@pytest.mark.parametrize("n", [1, 31, 33, 473, 1000, 4100])
+@pytest.mark.parametrize("m", [1, 7, 473])
+def test_dense_tier_fwd_kernel_shapes(cuda, m, n, density, k, dim):
+    """Kernel 2 on seeded tables: rows of A narrower and wider than one
+    window of the walk, empty tables, full rows, zero rows among full ones,
+    dim 16-256 (1-8 columns a lane), k on both sides of 32, repeated
+    non-zero columns and zero-valued pairs.  One launch a call; a row of
+    A with no non-zero entry comes back exactly 0."""
+    a, xv, xi = _dense_tier_fwd_operands(m, n, density, k, dim,
+                                         m * 10007 + n, cuda)
+    before = tk.drspmm_dense_tier_fwd.launches
+    y = tk.drspmm_dense_tier_fwd(a, xv, xi, dim)
+    torch.cuda.synchronize()
+    assert tk.drspmm_dense_tier_fwd.launches == before + 1
+    assert_close(y.cpu().numpy(), tk.drspmm_dense_tier_fwd_plain(
+        a, xv, xi, dim).cpu().numpy())
+    assert torch.all(y[(a == 0).all(dim=1)] == 0)
+
+
+@pytest.mark.parametrize("m,n", [(473, 473), (473, 4100)])
+def test_dense_tier_fwd_kernel_deterministic(cuda, m, n):
+    """Two calls give bit-identical outputs."""
+    a, xv, xi = _dense_tier_fwd_operands(m, n, 0.3, 16, 64, 11, cuda)
+    y1 = tk.drspmm_dense_tier_fwd(a, xv, xi, 64)
+    y2 = tk.drspmm_dense_tier_fwd(a, xv, xi, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+
+
 @pytest.mark.parametrize("drelu_backend", ["topk", "bisect"])
 def test_trainer_step_on_card_matches_cpu(cuda, drelu_backend):
     graphs = generate_design(1, "medium", SCALE)[:2]

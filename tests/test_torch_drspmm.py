@@ -72,6 +72,31 @@ def test_dense_tier_plain_matches_pallas(seed, size):
     assert_close(out.numpy(), ref)
 
 
+@pytest.mark.parametrize("seed,size", [(0, "small"), (1, "medium")])
+def test_dense_tier_plain_matches_pallas_k40(seed, size):
+    """Kernel 2's path on the CPU at k 40 (more pairs than a warp's lanes)
+    against the Pallas kernel: column 1 repeats column 0 on every source
+    row and every fourth row's pair 2 is zero-valued.  The wrapper runs
+    its plain version (no launch)."""
+    pj, pt = _plans(seed, size)
+    assert pt.has_dense
+    n = pt.dense_fwd.shape[1]
+    rng = np.random.default_rng(seed + 40)
+    xv = rng.normal(size=(n, 40)).astype(np.float32)
+    xi = rng.integers(0, HIDDEN, (n, 40), dtype=np.int32)
+    xi[:, 1] = xi[:, 0]
+    xv[::4, 2] = 0.0
+    ref = np.asarray(jk.drspmm_dense_tier_fwd(
+        jnp.asarray(pj.dense_fwd), jnp.asarray(xv), jnp.asarray(xi), HIDDEN))
+    before = tk.drspmm_dense_tier_fwd.launches
+    out = tk.drspmm_dense_tier_fwd(torch.from_numpy(pt.dense_fwd),
+                                   torch.from_numpy(xv),
+                                   torch.from_numpy(xi), HIDDEN)
+    assert tk.drspmm_dense_tier_fwd.launches == before
+    assert out.shape == (pt.dense_fwd.shape[0], HIDDEN)
+    assert_close(out.numpy(), ref)
+
+
 def test_arena_plain_duplicate_columns():
     """Zero-value duplicates of column 0 (k padding, CBSR filler) and
     duplicate non-zero columns both accumulate."""

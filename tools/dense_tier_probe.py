@@ -1,8 +1,8 @@
-"""Where the dense-tier sampled backward (kernel 5) spends its time, on one
-NVIDIA card.
+"""Where the dense-tier kernels (kernel 5, the sampled backward, and kernel
+2, the forward) spend their time, on one NVIDIA card.
 
     PYTHONPATH=src python3 tools/dense_tier_probe.py [--repeats 5]
-        [--sweep 4x16x8x8,...]
+        [--sweep 4x16x8x8,...] [--sweep-fwd 4x16x8x8,...]
 
 Builds the operands ``chip_smoke.py`` hands kernels 5 and 2: the seeded
 model of ``chip_smoke.py`` (hidden 64, k 16) on its scale-0.02 batch
@@ -23,7 +23,12 @@ return, the device left to run behind it):
   cut to match: how its time grows with the columns it walks;
 * ``torch.mm`` of the table by gY (the library yardstick);
 * kernel 2 (``drspmm_dense_tier_fwd``) on the first layer's CBSR operand
-  and ``a @ xd`` on the densified operand (its library yardstick).
+  (the batch's 473 x 473 forward table), the same way: ``--repeats``
+  times with the table's ``row_nnz_max`` and ``empty_rows`` and a SHA-256
+  of the output, cut to its first 32, 128 and 256 source columns (the
+  operand cut to match), and on a seeded 473 x 4,100 table of density
+  0.01 (several windows a row); ``a @ xd`` on the densified operand is
+  its library yardstick.
 
 With ``--sweep WARPSxUNROLLxBATCHxMIN,...`` it also builds kernel 5 at
 other ``kWarps`` x ``kUnroll`` x ``kBatch`` x ``kMinBlocks`` of
@@ -33,7 +38,11 @@ before it adds any x blocks an SM must hold, 1 for no cap; one ``nvcc``
 each, all started together, into ``build/repro_torch/probe/``), prints
 each build's registers and spills at every k/32, and times each over the
 whole table, its column prefixes and a 473 x 4,100 table of density 0.01
-made from a seed (several windows a row).
+made from a seed (several windows a row).  ``--sweep-fwd`` does the same
+for kernel 2, at the constants of the same names in
+``csrc/drspmm_dense_tier_fwd.cu`` (rows, not source rows, a block), over
+its whole table, its prefixes and its 473 x 4,100 table.  Each sweep
+build's output is checked bit for bit against the wrapper's.
 
 Prints one JSON object a line, then the card's name and power limit.
 Needs one card; imports no JAX.
@@ -99,6 +108,20 @@ def wide_table(m, density, xi, dim):
             torch.from_numpy(gy).to(xi.device), xi)
 
 
+def wide_fwd(n, density, a, k, dim):
+    """A seeded table of ``a``'s rows by ``n`` source columns at
+    ``density`` and a seeded CBSR operand of ``n`` rows (k columns in
+    [0, dim), column 1 repeating column 0), on a's device."""
+    rng = np.random.default_rng(SEED + 1)
+    at = rng.normal(size=(a.shape[0], n)).astype(np.float32)
+    at[rng.random(at.shape) >= density] = 0.0
+    xv = rng.normal(size=(n, k)).astype(np.float32)
+    xi = rng.integers(0, dim, (n, k), dtype=np.int32)
+    xi[:, 1] = xi[:, 0]
+    t = lambda x: torch.from_numpy(x).to(a.device)
+    return t(at), t(xv), t(xi)
+
+
 def host_ms(fn, reps: int = REPS) -> float:
     """Host time of one call: ``reps`` calls on the host's clock with the
     device left to run behind them (the rate events read when the device
@@ -152,13 +175,94 @@ def launch(fn, a, gy, xi, out) -> None:
         raise RuntimeError(f"kernel 5 variant: CUDA error {rc}")
 
 
+def launch_fwd(fn, a, xv, xi, out) -> None:
+    """One launch of a kernel-2 library built by ``build_variants``, as the
+    port's wrapper makes it."""
+    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    m, n = a.shape
+    rc = fn(p(a), p(xv), p(xi), p(out), m, n, xv.shape[1], out.shape[1],
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc:
+        raise RuntimeError(f"kernel 2 variant: CUDA error {rc}")
+
+
+def shapes_of(arg: str) -> list:
+    return [tuple(int(v) for v in s.split("x")) for s in arg.split(",") if s]
+
+
+def fwd_probe(a, xv, xi, xd, repeats) -> dict:
+    """Kernel 2 on the forward table: a line a case with the output's
+    SHA-256, ``repeats`` timings of the whole table and one of each other
+    case (the column prefixes, the 473 x 4,100 table), and ``a @ xd``.
+    Returns the cases, for the sweep."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import drspmm as K1
+    m, _ = a.shape
+    dim = xd.shape[1]
+    cases = {"whole": (a, xv, xi),
+             **{f"columns {c}": (a[:, :c].contiguous(), xv[:c].contiguous(),
+                                 xi[:c].contiguous()) for c in PREFIXES},
+             f"{m}x4100 density 0.01": wide_fwd(4100, 0.01, a, xv.shape[1],
+                                                dim)}
+    for name, (ac, vc, ic) in cases.items():
+        y = K1.drspmm_dense_tier_fwd(ac, vc, ic, dim)
+        ref = K1.drspmm_dense_tier_fwd_plain(ac, vc, ic, dim)
+        torch.cuda.synchronize()
+        nnz = (ac != 0).sum(1)
+        case = {"kernel": "drspmm_dense_tier_fwd", "case": name,
+                "table": "x".join(map(str, ac.shape)),
+                "nnz": int(nnz.sum()), "k": vc.shape[1], "dim": dim}
+        print(json.dumps({
+            **case, "row_nnz_max": int(nnz.max()),
+            "empty_rows": int((nnz == 0).sum()), "sha256": sha(y),
+            "max_abs_err": float((y - ref).abs().max()),
+            "max_abs_ref": float(ref.abs().max()),
+            **({"ptxas": ptxas(_build.build_dir()
+                               / "drspmm_dense_tier_fwd.log")}
+               if name == "whole" else {})}), flush=True)
+        for r in range(repeats if name == "whole" else 1):
+            print(json.dumps({**case, "repeat": r, **all_times(
+                lambda: K1.drspmm_dense_tier_fwd(ac, vc, ic, dim))}),
+                flush=True)
+    print(json.dumps({"kernel": "a @ xd", "table": f"{m}x{xd.shape[0]}",
+                      "dim": dim, **all_times(lambda: a @ xd)}), flush=True)
+    return cases
+
+
+def sweep(entry, shapes, cases, launch_fn, wrapper, plain) -> None:
+    """``csrc/<entry>.cu`` built at each of ``shapes`` (its constants
+    ``SWEEP_NAMES``): each build's registers and spills, then its output
+    on each of ``cases`` (the wrapper's arguments) checked bit for bit
+    against ``wrapper``'s, its error against ``plain``, and its times."""
+    from repro_torch.kernels import _build
+    for shape, fn in build_variants(
+            shapes, header=f"{entry}.cu", names=SWEEP_NAMES, entry=entry,
+            n_ptr=4, n_int=4).items():
+        d = _build.BUILD_ROOT / "probe" / (
+            f"{entry}-" + "x".join(map(str, shape)))
+        print(json.dumps({"kernel": entry, **dict(zip(SWEEP_NAMES, shape)),
+                          "ptxas": ptxas(d / "nvcc.log")}), flush=True)
+        for name, args in cases.items():
+            want = wrapper(*args)
+            out = torch.empty_like(want)
+            launch_fn(fn, *args, out)
+            torch.cuda.synchronize()
+            print(json.dumps({
+                "kernel": entry, **dict(zip(SWEEP_NAMES, shape)),
+                "case": name, "same_as_wrapper": bool(torch.equal(out, want)),
+                "max_abs_err": float((out - plain(*args)).abs().max()),
+                **times(lambda: launch_fn(fn, *args, out))}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--repeats", type=int, default=3,
-                    help="timings of kernel 5 on the whole table")
+                    help="timings of kernels 5 and 2 on the whole table")
     ap.add_argument("--sweep", default="",
                     help="comma-separated WARPSxUNROLLxBATCHxMIN shapes of "
                          "kernel 5 to build and time, e.g. 4x16x8x8")
+    ap.add_argument("--sweep-fwd", default="",
+                    help="the same for kernel 2")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("dense_tier_probe: no CUDA device visible")
@@ -198,40 +302,18 @@ def main() -> None:
                               ac, gc, xi))}), flush=True)
     print(json.dumps({"kernel": "torch.mm", **base,
                       **all_times(lambda: torch.mm(at, gy))}), flush=True)
-    fwd = {"table": "x".join(map(str, a.shape)), "nnz": int((a != 0).sum()),
-           "k": xv.shape[1], "dim": xd.shape[1]}
-    dim = xd.shape[1]
-    print(json.dumps({"kernel": "drspmm_dense_tier_fwd", **fwd, **all_times(
-        lambda: K1.drspmm_dense_tier_fwd(a, xv, xi_f, dim))}), flush=True)
-    print(json.dumps({"kernel": "a @ xd", **fwd,
-                      **all_times(lambda: a @ xd)}), flush=True)
+    fwd_cases = fwd_probe(a, xv, xi_f, xd, args.repeats)
 
-    shapes = [tuple(int(v) for v in s.split("x"))
-              for s in args.sweep.split(",") if s]
-    wide = wide_table(4100, 0.01, xi, gy.shape[1])
     cases = {"whole": (at, gy, xi),
              **{f"columns {c}": (ac, gc, xi) for c, (ac, gc) in cut.items()},
-             f"{n}x4100 density 0.01": wide}
-    for shape, fn in build_variants(
-            shapes, header="drspmm_dense_tier_bwd.cu", names=SWEEP_NAMES,
-            entry="drspmm_dense_tier_bwd", n_ptr=4, n_int=4).items():
-        d = _build.BUILD_ROOT / "probe" / (
-            "drspmm_dense_tier_bwd-" + "x".join(map(str, shape)))
-        print(json.dumps({"kernel": "drspmm_dense_tier_bwd",
-                          **dict(zip(SWEEP_NAMES, shape)),
-                          "ptxas": ptxas(d / "nvcc.log")}), flush=True)
-        for name, (ac, gc, xc) in cases.items():
-            out = torch.empty((ac.shape[0], xc.shape[1]), device="cuda")
-            launch(fn, ac, gc, xc, out)
-            want = K1.drspmm_dense_tier_bwd(ac, gc, xc)
-            torch.cuda.synchronize()
-            print(json.dumps({
-                "kernel": "drspmm_dense_tier_bwd",
-                **dict(zip(SWEEP_NAMES, shape)), "case": name,
-                "same_as_wrapper": bool(torch.equal(out, want)),
-                "max_abs_err": float((out - K1.drspmm_dense_tier_bwd_plain(
-                    ac, gc, xc)).abs().max()),
-                **times(lambda: launch(fn, ac, gc, xc, out))}), flush=True)
+             f"{n}x4100 density 0.01": wide_table(4100, 0.01, xi,
+                                                  gy.shape[1])}
+    sweep("drspmm_dense_tier_bwd", shapes_of(args.sweep), cases, launch,
+          K1.drspmm_dense_tier_bwd, K1.drspmm_dense_tier_bwd_plain)
+    dim = xd.shape[1]
+    sweep("drspmm_dense_tier_fwd", shapes_of(args.sweep_fwd), fwd_cases,
+          launch_fwd, lambda *t: K1.drspmm_dense_tier_fwd(*t, dim),
+          lambda *t: K1.drspmm_dense_tier_fwd_plain(*t, dim))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
