@@ -193,6 +193,7 @@ def check_kernels(model, cfg, big, small):
     err = float((y - ref).abs().max())
     if not torch.allclose(y, ref, rtol=1e-5, atol=tol(ref)):
         problem(f"arena kernel disagrees with its plain version: {err}")
+    y_sha = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
     # the same operands with repeated non-zero columns (legal input outside
     # the CBSR contract): the kernel's broadcast fallback must add them all
     xi_dup = xi.clone()
@@ -222,6 +223,11 @@ def check_kernels(model, cfg, big, small):
     log(f"kernel drspmm_fwd_arena: C={c} BR={br} Ec={ec} "
         f"R_arena={f.n_arena_rows} N_src={xv.shape[0]} k={xv.shape[1]} "
         f"real_slots={real} bytes={n_bytes}")
+    dev = [device_breakdown(lambda: [fn() for _ in range(REPS)])[1] / REPS
+           for fn in (lambda: K1.drspmm_fwd_arena(f, xv, xi, HIDDEN),
+                      lambda: a_csr @ xd)]
+    log(f"kernel drspmm_fwd_arena: device ms a call (profiler) {dev[0]} "
+        f"(kernel), {dev[1]} (library: a_csr @ xd); output SHA-256 {y_sha}")
 
     # kernel 3: the first layer's cell embedding, full width; its library
     # yardstick is the torch.topk-threshold D-ReLU of the "topk" backend,

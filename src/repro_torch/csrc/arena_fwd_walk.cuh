@@ -7,28 +7,52 @@
 //                   w(c,r,e) * densify(x_vals[nbr[c,r,e]], x_idx[nbr[c,r,e]])
 //
 // One thread block per output row-block (every block of the arena, the
-// trailing all-zero sentinel included), one warp per row of the block.  The
-// block walks its chunk run blk_ptr[b]..blk_ptr[b+1] and keeps the row in
-// registers (lane l owns columns l, l+32, ...), so the sum is fp32, has no
-// atomics, and is deterministic; a block with no chunk writes zeros.
+// trailing all-zero sentinel included), each row of the block walked by one
+// or more warps.  A block with no chunk writes zeros; there are no atomics
+// and the sum is fp32 and deterministic.
 //
 // Bound on the H100: memory.  Each real slot gathers one CBSR row (k values
 // + k indices, 8k bytes, mostly L2 hits: the operand slab is a few MB), and
-// each output row is written once.  What the design does about it:
-//  * all Ec slots of a chunk row issue their CBSR loads together (lane t
-//    holds pair t of every slot), so a chunk costs one memory round trip;
-//  * the scatter of a slot's k pairs into the lane-owned columns is a
-//    permutation, not a broadcast (scatter_row_pairs in cbsr_densify.cuh):
-//    a few shared-memory operations per group of 32 pairs instead of 32
-//    broadcast shuffles.  Zero-valued pairs (the k padding of the type
-//    concat, CBSR filler) add nothing and are skipped; a group whose
-//    non-zero pairs repeat a column (outside the CBSR contract, but legal
-//    input) falls back to the broadcast scatter, which adds every pair in
-//    order;
-//  * padding slots (weight 0) are skipped warp-uniformly;
-//  * row-blocks run heaviest first: the arena stores degree buckets in
-//    ascending degree, so block b = n_blocks-1-blockIdx.x puts the evil
-//    rows' long chunk runs at the front of the schedule instead of its tail.
+// each output row is written once.
+//
+// Rows of k <= 32 pairs (arena_fwd_narrow: kernel 1's operands, kernel 7's
+// at k <= 32).  A Table-1 super-arena has row-blocks of 65 chunks (260
+// slots a row) among thousands of one or two, and a relation plan
+// concatenates its relations' arenas, each in ascending degree, so the
+// longest runs sit in the middle of the arena, not at either end.  Taken
+// in arena order, such a run starts after half the grid and ends long
+// after everything else.  Once they start first, the time is the rate of
+// the walk: a slot costs a few tens of warp instructions, and the arena
+// has 830k of them.  So the narrow walk
+//  * takes its row-blocks in the order of a schedule computed once per
+//    arena on the device (drspmm.py, _arena_sched): longest chunk run
+//    first, each entry the block and its chunk range, one 16-byte load;
+//  * gives a row KP lanes, KP the power of two that holds its k pairs, so
+//    a warp walks RPW = 32 / KP rows of its block side by side (two at
+//    k <= 16, four at k <= 8): every warp-wide load and add serves RPW
+//    slots at once, and the rows of a block share one chunk run;
+//  * reads a row's chunk run as one flat run of slots, KP at a time (lane
+//    t: slot s0 + t), the neighbour and weight (or edge id) two windows
+//    ahead and the weight gather one window ahead (run_slot in
+//    arena_weights.cuh), so no CBSR load waits on an index load;
+//  * issues a batch of kNarrowLoads slots' CBSR loads a row, then adds the
+//    batch before it while they are in flight;
+//  * adds a slot into its row in shared memory, one read-add-write per pair
+//    (add_batch): a slot's columns are distinct under the CBSR contract,
+//    so its pairs add at once, each column summing its pairs in slot
+//    order, and the rows of a warp never share a column.  A slot that
+//    repeats a column (legal input outside the contract) shows in a byte
+//    tag table a slot, written and read back once a batch, and that batch
+//    adds its pairs one at a time; zero-valued pairs and columns outside
+//    [0, dim) add nothing;
+//  * splits a run longer than kNarrowSplit slots over up to kNarrowParts
+//    warps a row, each adding one contiguous part of the run; the parts'
+//    rows are added in the order p = 0, 1, ... after the block's one
+//    barrier, so a long run's chain is cut and the output stays
+//    deterministic;
+//  * skips a batch of padding slots warp-uniformly and issues no load for
+//    a padding slot.
+// tools/arena_fwd_probe.py --kernel 1 times the walk at other constants.
 //
 // Rows wider than k = 32 (the learnable path's dense operand has k = dim)
 // run arena_fwd_wide, which the launch picks by k.  There the time is set
@@ -52,7 +76,9 @@
 //    and, if it fails, goes through scatter_row_pairs.  Every slot's
 //    x_idx is read and no host code looks at it;
 //  * issues no load for a padding slot and skips S slots of padding (all
-//    weights 0) warp-uniformly.
+//    weights 0) warp-uniformly;
+//  * takes the row-blocks in reverse arena order, block n_blocks-1-i
+//    first: a single arena stores its degree buckets in ascending degree.
 // tools/arena_fwd_probe.py times the walk at other kWideParts and
 // kWidePairs.
 #pragma once
@@ -62,65 +88,174 @@
 #include "arena_weights.cuh"
 #include "cbsr_densify.cuh"
 
-constexpr int kFwdMaxRows = 8;    // rows (warps) per block
+constexpr int kFwdMaxRows = 8;    // rows per block
 constexpr int kFwdMaxGroups = 8;  // groups of 32 pairs per CBSR row (k <= 256)
 
-template <int DPL, int EC, class W>
-__global__ void __launch_bounds__(256) arena_fwd_kernel(
-    const int* __restrict__ blk_ptr, const int* __restrict__ nbr, W wsrc,
-    const float* __restrict__ xv, const int* __restrict__ xi,
-    float* __restrict__ out, int n_blocks, int k, int dim) {
-  __shared__ int owner_tab[kFwdMaxRows][32 * DPL];
-  const int b = n_blocks - 1 - blockIdx.x;
-  const int br = blockDim.y;
-  const int r = threadIdx.y;
-  const int lane = threadIdx.x;
-  int* owner = owner_tab[r];
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) owner[lane + 32 * j] = -1;
-  __syncwarp();
-  float acc[DPL];
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) acc[j] = 0.f;
-
-  const int c1 = blk_ptr[b + 1];
-  for (int c = blk_ptr[b]; c < c1; ++c) {
-    const long long slot0 = ((long long)c * br + r) * EC;
-    int my_n = 0;
-    float my_w = 0.f;
-    if (lane < EC) {
-      my_n = nbr[slot0 + lane];
-      my_w = wsrc(slot0 + lane);
-    }
-    // issue every slot's loads first: lane t holds pair t of slot e
-    float pv[EC];
-    int pc[EC];
-#pragma unroll
-    for (int e = 0; e < EC; ++e) {
-      const float wt = __shfl_sync(kFullMask, my_w, e);
-      const int src = __shfl_sync(kFullMask, my_n, e);
-      pv[e] = 0.f;
-      pc[e] = 0;
-      if (wt != 0.f && lane < k) {
-        pv[e] = wt * xv[(long long)src * k + lane];
-        pc[e] = xi[(long long)src * k + lane];
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < EC; ++e)
-      scatter_row_pairs<DPL>(acc, owner, pv[e], pc[e], dim, lane);
-  }
-  float* o = out + ((long long)b * br + r) * dim;
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) {
-    const int col = lane + 32 * j;
-    if (col < dim) o[col] = acc[j];
-  }
-}
+constexpr int kNarrowParts = 2;      // most warps that share a row's run
+constexpr int kNarrowSplit = 32;     // slots of a run a part takes
+constexpr int kNarrowLoads = 4;      // CBSR loads a lane issues at once
 
 // A pair that adds something: a non-zero value at a column of the row.
 __device__ __forceinline__ bool pair_active(float p, int c, int dim) {
   return p != 0.f && (unsigned)c < (unsigned)dim;
+}
+
+// A batch of L slots of one row added into the row, in shared memory, slot
+// after slot.  The KP lanes of the row's group call it together, lane t
+// holding pair t of slot j of the batch: value v[j] with the slot's weight
+// applied, column c[j].  Every active pair first writes its lane into its
+// slot's tag table (L tables of 32*DPL bytes in ``tag``) at its column; a
+// lane that reads back another lane's tag shares its column with a pair
+// of its own slot (outside the CBSR contract, but legal input), and then
+// the warp adds the batch's pairs one at a time, in pair order.
+// Otherwise each slot's pairs add at once, one read-add-write each.  Every
+// lane of the warp must call it (each group with its own row and tags).
+template <int DPL, int L>
+__device__ __forceinline__ void add_batch(float* row, unsigned char* tag,
+                                          const float (&v)[L],
+                                          const int (&c)[L], int dim,
+                                          int lane) {
+  constexpr int TAB = 32 * DPL;
+  __syncwarp();  // the previous batch's tags are read
+#pragma unroll
+  for (int j = 0; j < L; ++j)
+    if (pair_active(v[j], c[j], dim)) tag[j * TAB + c[j]] = (unsigned char)lane;
+  __syncwarp();
+  bool lost = false;
+#pragma unroll
+  for (int j = 0; j < L; ++j)
+    lost = lost || (pair_active(v[j], c[j], dim) && tag[j * TAB + c[j]] != lane);
+  if (__any_sync(kFullMask, lost)) {
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      for (int s = 0; s < 32; ++s) {
+        if (lane == s && pair_active(v[j], c[j], dim)) row[c[j]] += v[j];
+        __syncwarp();
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    if (pair_active(v[j], c[j], dim)) row[c[j]] += v[j];
+    __syncwarp();
+  }
+}
+
+// Slots a batch of a row of KP lanes and DPL columns a lane: at most
+// kNarrowLoads and KP, halved until the block's rows and tag tables
+// (kNarrowParts * 8 rows of 32*DPL floats and L * 32*DPL bytes) fit in
+// 48 KB of static shared memory.
+__host__ __device__ constexpr int narrow_batch(int dpl, int kp) {
+  int l = kNarrowLoads < kp ? kNarrowLoads : kp;
+  while (l > 1 && kNarrowParts * kFwdMaxRows * 32 * dpl * (4 + l) > 49152)
+    l /= 2;
+  return l;
+}
+
+// The walk for k <= KP (design in the note at the top).  Block i walks
+// row-block sched[i].x, whose chunks are sched[i].y .. sched[i].z; its warp
+// (p, w), p < kNarrowParts, adds part p of the slots of rows w*RPW ..
+// w*RPW + RPW - 1, KP lanes a row.
+template <int DPL, int KP, class W>
+__global__ void __launch_bounds__(32 * kFwdMaxRows * kNarrowParts)
+    arena_fwd_narrow(const int4* __restrict__ sched,
+                     const int* __restrict__ nbr, W wsrc,
+                     const float* __restrict__ xv, const int* __restrict__ xi,
+                     float* __restrict__ out, int br, int ec, int k,
+                     int dim) {
+  constexpr int RPW = 32 / KP;                     // rows a warp
+  constexpr int L = narrow_batch(DPL, KP);          // slots a batch
+  static_assert(KP % L == 0, "a batch of slots must divide a window");
+  using WS = WeightStages<W>;
+  // each part's rows, and their tag tables
+  __shared__ float row_tab[kNarrowParts * kFwdMaxRows][32 * DPL];
+  __shared__ unsigned char
+      tag_tab[kNarrowParts * kFwdMaxRows][L * 32 * DPL];
+  const int4 blk = sched[blockIdx.x];
+  const int lane = threadIdx.x;
+  const int wpp = blockDim.y / kNarrowParts;       // warps a part
+  const int p = threadIdx.y / wpp;
+  const int t = lane % KP;                         // this lane's pair
+  const int r = (threadIdx.y % wpp) * RPW + lane / KP;  // and its row
+  const int c0 = blk.y;
+  const int n = (blk.z - c0) * ec;                 // a row's slots
+  // one part per kNarrowSplit slots, at most kNarrowParts (block-uniform)
+  const int parts =
+      min(kNarrowParts, max(1, (n + kNarrowSplit - 1) / kNarrowSplit));
+  const int lo = p < parts ? n * p / parts : n;    // this part: [lo, hi)
+  const int hi = p < parts ? n * (p + 1) / parts : n;
+  const int lim = r < br ? hi : 0;  // the last warp may hold a row too many
+  const int sh = __ffs(ec) - 1;     // ec is 4, 8 or 16
+  float* row = row_tab[p * kFwdMaxRows + r];
+  unsigned char* tag = tag_tab[p * kFwdMaxRows + r];
+  for (int e = t; e < 32 * DPL; e += KP) row[e] = 0.f;
+  // lane t of a row holds slot s0 + t of the current window of KP slots
+  // (src_cur, w_cur) and of the next one (src_nxt, its weight's first
+  // stage raw_nxt)
+  typename WS::Raw raw_cur, raw_nxt;
+  int src_cur = run_slot(nbr, wsrc, lo + t, lim, c0, br, r, sh, raw_cur);
+  int src_nxt =
+      run_slot(nbr, wsrc, lo + KP + t, lim, c0, br, r, sh, raw_nxt);
+  float w_cur = WS::second(wsrc, raw_cur);
+  // the batch before the one whose loads are in flight, added meanwhile
+  float pv[L];
+  int pc[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    pv[j] = 0.f;
+    pc[j] = 0;
+  }
+  bool pending = false;
+  for (int s0 = lo; s0 < hi; s0 += KP) {
+    // in flight while this window is added: the next window's weights and
+    // the slots of the window after it
+    const float w_nxt = WS::second(wsrc, raw_nxt);
+    typename WS::Raw raw_nn;
+    const int src_nn =
+        run_slot(nbr, wsrc, s0 + 2 * KP + t, lim, c0, br, r, sh, raw_nn);
+    const int len = min(KP, hi - s0);
+#pragma unroll 1
+    for (int i0 = 0; i0 < len; i0 += L) {
+      if (!__any_sync(kFullMask, w_cur != 0.f &&
+                                     (unsigned)(t - i0) < (unsigned)L))
+        continue;  // L slots of padding in every row of the warp
+      // issue the batch's loads (load j: slot i0 + j of each row), then add
+      // the batch before it
+      float v[L];
+      int col[L];
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        const float wt = __shfl_sync(kFullMask, w_cur, i0 + j, KP);
+        const long long base =
+            (long long)__shfl_sync(kFullMask, src_cur, i0 + j, KP) * k + t;
+        const bool ld = wt != 0.f && t < k;
+        v[j] = ld ? wt * xv[base] : 0.f;
+        col[j] = ld ? xi[base] : 0;
+      }
+      if (pending) add_batch<DPL, L>(row, tag, pv, pc, dim, lane);
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        pv[j] = v[j];
+        pc[j] = col[j];
+      }
+      pending = true;
+    }
+    src_cur = src_nxt;
+    w_cur = w_nxt;
+    src_nxt = src_nn;
+    raw_nxt = raw_nn;
+  }
+  if (pending) add_batch<DPL, L>(row, tag, pv, pc, dim, lane);
+  if (parts > 1) __syncthreads();  // block-uniform
+  else __syncwarp();
+  if (p > 0 || r >= br) return;
+  // part 0 adds the other parts' rows in order and writes the row
+  for (int o = 1; o < parts; ++o)
+    for (int e = t; e < 32 * DPL; e += KP)
+      row[e] += row_tab[o * kFwdMaxRows + r][e];
+  float* y = out + ((long long)blk.x * br + r) * dim;
+  for (int e = t; e < dim; e += KP) y[e] = row[e];
 }
 
 // One group of 32 pairs (lane t: value p, column c) into the lane-owned row.
@@ -280,14 +415,14 @@ __global__ void __launch_bounds__(32 * kFwdMaxRows * kWideParts)
 }
 
 template <int DPL, class W>
-static int arena_fwd_launch_ec(const int* blk_ptr, const int* nbr, W wsrc,
+static int arena_fwd_launch_ec(const int* blk_ptr, const int* sched,
+                               const int* nbr, W wsrc,
                                const float* xv, const int* xi, float* out,
                                int n_blocks, int row_block, int ec, int k,
                                int dim, cudaStream_t stream) {
-  const dim3 block(32, row_block);
+  if (ec != 4 && ec != 8 && ec != 16) return (int)cudaErrorInvalidValue;
   if (k > 32) {  // wide CBSR rows: kWideParts warps a row
     const dim3 wide(32, row_block * kWideParts);
-    if (ec != 4 && ec != 8 && ec != 16) return (int)cudaErrorInvalidValue;
     if (k <= 64)
       arena_fwd_wide<DPL, 2, W><<<n_blocks, wide, 0, stream>>>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, ec, k, dim);
     else if (k <= 128)
@@ -296,19 +431,25 @@ static int arena_fwd_launch_ec(const int* blk_ptr, const int* nbr, W wsrc,
       arena_fwd_wide<DPL, 8, W><<<n_blocks, wide, 0, stream>>>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, ec, k, dim);
     return 0;
   }
-  switch (ec) {
-    case 4: arena_fwd_kernel<DPL, 4, W><<<n_blocks, block, 0, stream>>>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, k, dim); break;
-    case 8: arena_fwd_kernel<DPL, 8, W><<<n_blocks, block, 0, stream>>>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, k, dim); break;
-    case 16: arena_fwd_kernel<DPL, 16, W><<<n_blocks, block, 0, stream>>>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, k, dim); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  // KP lanes a row: four rows a warp at k <= 8, two at k <= 16
+  const int4* blocks = reinterpret_cast<const int4*>(sched);
+  if (k <= 8)
+    arena_fwd_narrow<DPL, 8, W><<<n_blocks, dim3(32, (row_block + 3) / 4 * kNarrowParts), 0, stream>>>(blocks, nbr, wsrc, xv, xi, out, row_block, ec, k, dim);
+  else if (k <= 16)
+    arena_fwd_narrow<DPL, 16, W><<<n_blocks, dim3(32, (row_block + 1) / 2 * kNarrowParts), 0, stream>>>(blocks, nbr, wsrc, xv, xi, out, row_block, ec, k, dim);
+  else
+    arena_fwd_narrow<DPL, 32, W><<<n_blocks, dim3(32, row_block * kNarrowParts), 0, stream>>>(blocks, nbr, wsrc, xv, xi, out, row_block, ec, k, dim);
   return 0;
 }
 
 // Launch the walk for any dim <= 256 and Ec in {4, 8, 16}; returns a CUDA
-// error code (cudaGetLastError right after the launch).
+// error code (cudaGetLastError right after the launch).  ``sched`` is the
+// narrow walk's launch order, (n_blocks, 4) int32 rows (row-block, its
+// first chunk, its end chunk, 0), longest chunk run first; the wide walk
+// takes the blocks in reverse arena order.
 template <class W>
-static int arena_fwd_dispatch(const int* blk_ptr, const int* nbr, W wsrc,
+static int arena_fwd_dispatch(const int* blk_ptr, const int* sched,
+                              const int* nbr, W wsrc,
                               const float* xv, const int* xi, float* out,
                               int n_blocks, int row_block, int ec, int k,
                               int dim, cudaStream_t stream) {
@@ -317,14 +458,14 @@ static int arena_fwd_dispatch(const int* blk_ptr, const int* nbr, W wsrc,
   if (n_blocks == 0) return 0;
   int rc;
   switch ((dim + 31) / 32) {
-    case 1: rc = arena_fwd_launch_ec<1>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
-    case 2: rc = arena_fwd_launch_ec<2>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
-    case 3: rc = arena_fwd_launch_ec<3>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
-    case 4: rc = arena_fwd_launch_ec<4>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
-    case 5: rc = arena_fwd_launch_ec<5>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
-    case 6: rc = arena_fwd_launch_ec<6>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
-    case 7: rc = arena_fwd_launch_ec<7>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
-    case 8: rc = arena_fwd_launch_ec<8>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
+    case 1: rc = arena_fwd_launch_ec<1>(blk_ptr, sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
+    case 2: rc = arena_fwd_launch_ec<2>(blk_ptr, sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
+    case 3: rc = arena_fwd_launch_ec<3>(blk_ptr, sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
+    case 4: rc = arena_fwd_launch_ec<4>(blk_ptr, sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
+    case 5: rc = arena_fwd_launch_ec<5>(blk_ptr, sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
+    case 6: rc = arena_fwd_launch_ec<6>(blk_ptr, sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
+    case 7: rc = arena_fwd_launch_ec<7>(blk_ptr, sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
+    case 8: rc = arena_fwd_launch_ec<8>(blk_ptr, sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (rc != 0) return rc;

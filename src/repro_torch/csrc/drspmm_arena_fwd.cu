@@ -8,15 +8,16 @@
 //
 // The row walk, its bound on the H100 and what its design does about it
 // are in arena_fwd_walk.cuh; here the weights are the arena's own table.
+// ``sched`` is the arena's launch order (drspmm.py, _arena_sched).
 #include "arena_fwd_walk.cuh"
 
-extern "C" int drspmm_arena_fwd(const int* blk_ptr, const int* nbr,
-                                const float* w, const float* xv,
-                                const int* xi, float* out, int n_blocks,
-                                int row_block, int ec, int k, int dim,
-                                cudaStream_t stream) {
-  return arena_fwd_dispatch(blk_ptr, nbr, FixedWeights{w}, xv, xi, out,
-                            n_blocks, row_block, ec, k, dim, stream);
+extern "C" int drspmm_arena_fwd(const int* blk_ptr, const int* sched,
+                                const int* nbr, const float* w,
+                                const float* xv, const int* xi, float* out,
+                                int n_blocks, int row_block, int ec, int k,
+                                int dim, cudaStream_t stream) {
+  return arena_fwd_dispatch(blk_ptr, sched, nbr, FixedWeights{w}, xv, xi,
+                            out, n_blocks, row_block, ec, k, dim, stream);
 }
 
 extern "C" const char* error_string(int e) {

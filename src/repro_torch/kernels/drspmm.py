@@ -57,6 +57,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import weakref
+from typing import Dict
 
 import torch
 
@@ -171,9 +173,10 @@ def drspmm_fwd_arena(fwd: FusedELL, x_vals: torch.Tensor,
                       device=x_vals.device)
     lib = _arena_lib()
     rc = lib.drspmm_arena_fwd(
-        _build.ptr(fwd.blk_ptr), _build.ptr(fwd.nbr), _build.ptr(fwd.w),
-        _build.ptr(x_vals), _build.ptr(x_idx), _build.ptr(out),
-        fwd.n_blocks, br, ec, x_vals.shape[1], dim, _build.stream_of(out))
+        _build.ptr(fwd.blk_ptr), _build.ptr(_arena_sched(fwd)),
+        _build.ptr(fwd.nbr), _build.ptr(fwd.w), _build.ptr(x_vals),
+        _build.ptr(x_idx), _build.ptr(out), fwd.n_blocks, br, ec,
+        x_vals.shape[1], dim, _build.stream_of(out))
     _build.check(lib, rc, "drspmm_arena_fwd")
     drspmm_fwd_arena.launches += 1
     return out
@@ -185,9 +188,47 @@ drspmm_fwd_arena.launches = 0
 def _arena_lib() -> ctypes.CDLL:
     lib = _build.library("drspmm_arena_fwd")
     fn = lib.drspmm_arena_fwd
-    fn.argtypes = [_c_ptr] * 6 + [_c_int] * 5 + [_c_ptr]
+    fn.argtypes = [_c_ptr] * 7 + [_c_int] * 5 + [_c_ptr]
     fn.restype = _c_int
     return lib
+
+
+# id-keyed memo of arena schedules, guarded by a weakref to the arena's
+# blk_ptr (the schedule is a function of it alone, so an arena rewrapped
+# around the same tables shares it; an entry goes when its blk_ptr dies)
+_SCHED: Dict[int, tuple] = {}
+
+
+def _arena_sched(f: FusedELL) -> torch.Tensor:
+    """The order in which the arena forward's k <= 32 walk takes ``f``'s
+    row-blocks: (n_blocks, 4) int32 rows (row-block, its first chunk, its
+    end chunk, 0), longest chunk run first (ties in arena order).  Built
+    on the arena's device, without a host synchronisation, once per
+    ``blk_ptr`` tensor; a launch on another stream than the one that
+    built it waits for it."""
+    ptr = f.blk_ptr
+    key = id(ptr)
+    hit = _SCHED.get(key)
+    if hit is None or hit[0]() is not ptr:
+        p64 = ptr.long()
+        order = torch.argsort(p64[1:] - p64[:-1], descending=True,
+                              stable=True)
+        sched = torch.stack([order, p64[order], p64[order + 1],
+                             torch.zeros_like(order)], 1).to(torch.int32)
+        built = None
+        if sched.is_cuda:
+            built = (torch.cuda.current_stream(sched.device),
+                     torch.cuda.Event())
+            built[1].record(built[0])
+        hit = (weakref.ref(ptr, lambda _: _SCHED.pop(key, None)), sched,
+               built)
+        _SCHED[key] = hit
+    _, sched, built = hit
+    if built is not None:
+        stream = torch.cuda.current_stream(sched.device)
+        if stream != built[0]:
+            stream.wait_event(built[1])
+    return sched
 
 
 # ---------------------------------------------------------------------------
@@ -453,9 +494,10 @@ def drspmm_fwd_learnable(f: FusedELL, nnz: int, w_canon: torch.Tensor,
     c, br, ec = f.nbr.shape
     out = torch.empty((f.n_arena_rows, dim), dtype=torch.float32,
                       device=x_vals.device)
-    lib = _learnable_lib("drspmm_learnable_fwd", 7)
+    lib = _learnable_lib("drspmm_learnable_fwd", 8)
     rc = lib.drspmm_learnable_fwd(
-        _build.ptr(f.blk_ptr), _build.ptr(f.nbr), _build.ptr(f.eid),
+        _build.ptr(f.blk_ptr), _build.ptr(_arena_sched(f)),
+        _build.ptr(f.nbr), _build.ptr(f.eid),
         _build.ptr(w_canon), _build.ptr(x_vals), _build.ptr(x_idx),
         _build.ptr(out), f.n_blocks, br, ec, x_vals.shape[1], dim,
         _build.stream_of(out))

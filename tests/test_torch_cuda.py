@@ -369,6 +369,127 @@ def _skewed_eid_arena(device, seed=3, transposed=False):
     return f.to(device), nnz, w.to(device)
 
 
+def _skewed_arena(device, ec, seed=5):
+    """A fixed-weight arena at chunk width ``ec`` as skewed as the Table-1
+    super-arena: 40 rows of 260-300 neighbours among 400 of 1-12 (at Ec 4
+    runs of 1 to 75 chunks, the long ones ending mid-window), every other
+    row-block left empty (blocks 2b hold the packed blocks b) and row 3 of
+    the longest run all padding; then the edge-id arena of the same edges
+    (kernel 7), spread the same way, with its nnz and canonical weights."""
+    rng = np.random.default_rng(seed)
+    n = 440
+    deg = np.concatenate([rng.integers(260, 301, 40),
+                          rng.integers(1, 13, n - 40)])
+    dst = np.repeat(np.arange(n), deg)
+    src = np.concatenate([rng.choice(n, d, replace=False) for d in deg])
+    perm = rng.permutation(dst.size)
+    dst, src = dst[perm], src[perm]
+    w = rng.normal(size=dst.size).astype(np.float32)
+    spread = lambda f: dataclasses.replace(
+        f, block_of=2 * f.block_of, rows=np.concatenate([f.rows, f.rows]),
+        blk_ptr=None)
+    f = spread(fuse_bucketed(pack_ell(dst, src, w, n, n), chunk=ec))
+    b = int(np.argmax(np.diff(f.blk_ptr)))
+    fw = f.w.copy()
+    fw[f.blk_ptr[b]:f.blk_ptr[b + 1], 3, :] = 0.0
+    f = dataclasses.replace(f, w=fw)
+    ff, _fb, _o, nnz = pack_fused_eid_pair(dst, src, n, n, chunk=ec)
+    wc = torch.from_numpy(rng.normal(size=nnz).astype(np.float32))
+    return f.to(device), (spread(ff).to(device), nnz, wc.to(device))
+
+
+def _narrow_operand(n, k, dim, seed, device, cols="distinct"):
+    """A CBSR operand (n, k) for the k <= 32 walk and the reference to hold
+    the kernel against (the plain version's operand, with the pairs that add
+    nothing zeroed).  ``cols``: "distinct" (k distinct columns of [0, dim)
+    a row, or k columns with repeats where k > dim; every fourth row's
+    last pair zero-valued), "repeat" (column 1 repeating column 0 on every
+    fifth row) or "outside" (every third row's pair 0 at column dim + 2,
+    every seventh row's last pair at -1)."""
+    rng = np.random.default_rng(seed)
+    xv = rng.normal(size=(n, k)).astype(np.float32)
+    if k <= dim:
+        xi = np.argsort(rng.random((n, dim)), axis=1)[:, :k]
+    else:
+        xi = rng.integers(0, dim, (n, k))
+    xi = xi.astype(np.int32)
+    xv[::4, -1] = 0.0
+    ref_v, ref_i = xv.copy(), xi.copy()
+    if cols == "repeat":
+        xi[::5, 1] = xi[::5, 0]
+        ref_i = xi.copy()
+    elif cols == "outside":
+        xi[::3, 0] = dim + 2
+        xi[::7, -1] = -1
+        out = (xi < 0) | (xi >= dim)
+        ref_v[out], ref_i[out] = 0.0, 0
+    else:
+        assert cols == "distinct", cols
+    t = lambda a: torch.from_numpy(a).to(device)
+    return t(xv), t(xi), t(ref_v), t(ref_i)
+
+
+@pytest.mark.parametrize("dim", [1, 33, 64, 256])
+@pytest.mark.parametrize("k", [1, 5, 16, 32])
+@pytest.mark.parametrize("ec", [4, 8, 16])
+def test_arena_kernel_skewed_arena(cuda, ec, k, dim):
+    """Kernel 1's k <= 32 walk over runs of 1 to 75 chunks (long runs split
+    between a row's warps, ending mid-window and mid-batch), empty
+    row-blocks and an all-padding row, at 1, 2 and 4 rows a warp (k 32,
+    16, <= 8); one launch a call."""
+    f, _ = _skewed_arena(cuda, ec)
+    runs = torch.diff(f.blk_ptr)
+    assert int((runs == 0).sum()) > 1 and int(runs[runs > 0].min()) == 1
+    assert int(runs.max()) >= (65 if ec == 4 else 260 // ec)
+    xv, xi, rv, ri = _narrow_operand(f.n_src, k, dim, k + dim, cuda)
+    before = tk.drspmm_fwd_arena.launches
+    y = tk.drspmm_fwd_arena(f, xv, xi, dim)
+    torch.cuda.synchronize()
+    assert tk.drspmm_fwd_arena.launches == before + 1
+    assert_close(y.cpu().numpy(),
+                 tk.drspmm_fwd_arena_plain(f, rv, ri, dim).cpu().numpy())
+
+
+@pytest.mark.parametrize("cols", ["repeat", "outside"])
+@pytest.mark.parametrize("k", [5, 16, 32])
+@pytest.mark.parametrize("ec", [4, 8, 16])
+def test_arena_kernel_skewed_columns(cuda, ec, k, cols):
+    """Repeated non-zero columns (every pair added, a batch at a time in
+    pair order) and columns outside [0, dim) (nothing added) on the skewed
+    arena."""
+    f, _ = _skewed_arena(cuda, ec)
+    xv, xi, rv, ri = _narrow_operand(f.n_src, k, 64, k, cuda, cols)
+    y = tk.drspmm_fwd_arena(f, xv, xi, 64)
+    assert_close(y.cpu().numpy(),
+                 tk.drspmm_fwd_arena_plain(f, rv, ri, 64).cpu().numpy())
+
+
+@pytest.mark.parametrize("ec", [4, 8, 16])
+def test_arena_kernel_deterministic(cuda, ec):
+    """Two calls on the skewed arena give the same bits, split runs
+    included."""
+    f, _ = _skewed_arena(cuda, ec)
+    xv, xi, _rv, _ri = _narrow_operand(f.n_src, 16, 64, 1, cuda)
+    y1 = tk.drspmm_fwd_arena(f, xv, xi, 64)
+    y2 = tk.drspmm_fwd_arena(f, xv, xi, 64)
+    assert torch.equal(y1, y2)
+
+
+@pytest.mark.parametrize("k", [5, 16, 32])
+@pytest.mark.parametrize("ec", [4, 8, 16])
+def test_learnable_fwd_kernel_narrow_skewed(cuda, ec, k):
+    """Kernel 7 at k <= 32 (the same walk, its weights gathered through the
+    edge ids) on the skewed arena's edges; one launch a call."""
+    _, (ff, nnz, w) = _skewed_arena(cuda, ec)
+    xv, xi, rv, ri = _narrow_operand(ff.n_src, k, 64, k, cuda, "repeat")
+    before = tk.drspmm_fwd_learnable.launches
+    y = tk.drspmm_fwd_learnable(ff, nnz, w, xv, xi, 64)
+    torch.cuda.synchronize()
+    assert tk.drspmm_fwd_learnable.launches == before + 1
+    assert_close(y.cpu().numpy(), tk.drspmm_fwd_learnable_plain(
+        ff, nnz, w, rv, ri, 64).cpu().numpy())
+
+
 LEARNABLE_COLS = ["iota", "perm", "mixed", "repeat", "zeros"]
 
 

@@ -7,6 +7,8 @@ plain versions on a card in tests/test_torch_cuda.py.
 Tolerance: fp32, rtol 1e-5 and atol 1e-5 (scaled by the output's
 magnitude) -- the two sides sum the same products in another order."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -15,10 +17,12 @@ import jax
 import jax.numpy as jnp
 
 import repro.graphs.circuit as jcircuit
+import repro.graphs.ell as jell
 import repro.graphs.generator as jgen
 from repro.kernels import drspmm as jk
 from repro.kernels import ops as jops
 import repro_torch.graphs.circuit as tcircuit
+import repro_torch.graphs.ell as tell
 import repro_torch.graphs.generator as tgen
 from repro_torch.kernels import drspmm as tk
 from repro_torch.kernels import ops as tops
@@ -57,6 +61,76 @@ def test_arena_plain_matches_pallas(seed, size):
     assert tk.drspmm_fwd_arena.launches == before   # CPU: plain version
     assert out.shape == (pt.fwd.n_arena_rows, HIDDEN)
     assert_close(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("k", [5, 16, 32])
+def test_arena_plain_matches_pallas_long_runs(k):
+    """Kernel 1's path on the CPU over an arena whose chunk runs reach 32
+    chunks and more (8 rows of 128-280 neighbours at Ec 4, ending
+    mid-window, beside 32 rows of 1-8), each package packing the same COO
+    its own way, against the Pallas kernel.  Every row's columns are
+    distinct but for column 1 repeating column 0 on every fifth row, and
+    every fourth row's last pair is zero-valued.  The wrapper runs its
+    plain version (no launch)."""
+    rng = np.random.default_rng(26 + k)
+    n_dst, n_src = 40, 300
+    deg = np.concatenate([rng.integers(128, 281, 8),
+                          rng.integers(1, 9, n_dst - 8)])
+    dst = np.repeat(np.arange(n_dst), deg)
+    src = np.concatenate([rng.choice(n_src, d, replace=False) for d in deg])
+    perm = rng.permutation(dst.size)
+    dst, src = dst[perm], src[perm]
+    w = rng.normal(size=dst.size).astype(np.float32)
+    fj = jell.fuse_bucketed(jell.pack_ell(dst, src, w, n_dst, n_src),
+                            chunk=4)
+    ft = tell.fuse_bucketed(tell.pack_ell(dst, src, w, n_dst, n_src),
+                            chunk=4)
+    runs = np.diff(ft.blk_ptr)
+    assert runs.max() >= 32 and runs.min() <= 1 and ft.n_chunks < 400
+    xv = rng.normal(size=(n_src, k)).astype(np.float32)
+    xi = np.argsort(rng.random((n_src, HIDDEN)), axis=1)[:, :k]
+    xi = xi.astype(np.int32)
+    xi[::5, 1] = xi[::5, 0]
+    xv[::4, -1] = 0.0
+    ref = np.asarray(jk.drspmm_fwd_fused(fj, jnp.asarray(xv),
+                                         jnp.asarray(xi), HIDDEN))
+    before = tk.drspmm_fwd_arena.launches
+    out = tk.drspmm_fwd_arena(ft.to("cpu"), torch.from_numpy(xv),
+                              torch.from_numpy(xi), HIDDEN)
+    assert tk.drspmm_fwd_arena.launches == before
+    assert out.shape == (ft.n_arena_rows, HIDDEN)
+    assert_close(out.numpy(), ref)
+    dense = np.zeros((n_src, HIDDEN), np.float32)
+    np.add.at(dense, (np.arange(n_src)[:, None], xi), xv)
+    assert_close(out.numpy()[ft.gather], ft.to_dense() @ dense)
+
+
+@pytest.mark.parametrize("seed,size", [(0, "small"), (1, "medium")])
+def test_arena_sched_orders_longest_run_first(seed, size):
+    """The launch order of kernel 1's k <= 32 walk, built once per
+    ``blk_ptr``: every row-block once, longest chunk run first, ties in
+    arena order, each row with its block's chunk range; a second call, or
+    the arena rewrapped around the same tables, returns the same tensor,
+    and a new ``blk_ptr`` its own."""
+    _, pt = _plans(seed, size)
+    f = pt.fwd.to("cpu")
+    sched = tk._arena_sched(f)
+    ptr = f.blk_ptr.long()
+    b = sched[:, 0].long()
+    assert sched.dtype == torch.int32 and sched.shape == (f.n_blocks, 4)
+    assert torch.equal(torch.sort(b).values, torch.arange(f.n_blocks))
+    runs = (ptr[1:] - ptr[:-1])[b]
+    assert bool((runs[:-1] >= runs[1:]).all()) and int(runs[0]) > 1
+    tie = runs[:-1] == runs[1:]
+    assert bool((b[:-1][tie] < b[1:][tie]).all())
+    assert torch.equal(sched[:, 1].long(), ptr[b])
+    assert torch.equal(sched[:, 2].long(), ptr[b + 1])
+    assert not bool(sched[:, 3].any())
+    assert tk._arena_sched(f) is sched
+    assert tk._arena_sched(dataclasses.replace(f)) is sched
+    g = dataclasses.replace(f, blk_ptr=f.blk_ptr.clone())
+    assert tk._arena_sched(g) is not sched
+    assert torch.equal(tk._arena_sched(g), sched)
 
 
 @pytest.mark.parametrize("seed,size", [(0, "small"), (1, "medium")])

@@ -46,31 +46,17 @@ import argparse
 import ctypes
 import dataclasses
 import json
-import subprocess
 import sys
 import warnings
 from pathlib import Path
 
 import torch
 
-from arena_fwd_probe import (HEAVY_BLOCKS, LONGEST_BLOCKS, REPS, SEED,
-                             build_variants, cuda_ms, one_row, only_blocks)
+from arena_fwd_probe import (HEAVY_BLOCKS, LONGEST_BLOCKS, SEED,
+                             build_variants, card, one_row, only_blocks,
+                             times)
 
 DIM = 64
-
-
-def device_ms(fn, reps: int = REPS) -> float:
-    """Device time of one call of ``fn``: the device activities that
-    ``chip_smoke.device_breakdown`` traces over ``reps`` L2-warm calls,
-    over ``reps``."""
-    from chip_smoke import device_breakdown
-    for _ in range(3):
-        fn()
-    return device_breakdown(lambda: [fn() for _ in range(reps)])[1] / reps
-
-
-def times(fn) -> dict:
-    return {"ms": cuda_ms(fn), "device_ms": device_ms(fn)}
 
 
 def gat_t_arena():
@@ -177,10 +163,7 @@ def main() -> None:
                     "max_abs_err": float((out - ref).abs().max()),
                     **times(lambda: launch(fn, fp, w, gy, xi, out))}),
                     flush=True)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0])
+    print(card())
 
 
 if __name__ == "__main__":

@@ -52,10 +52,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
-import re
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -63,8 +60,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from arena_bwd_probe import times
-from arena_fwd_probe import REPS, SEED, build_variants
+from arena_fwd_probe import (REPS, SEED, build_variants, card, ptxas, sha,
+                             times)
 
 PREFIXES = (32, 128, 256)
 SWEEP_NAMES = ("kWarps", "kUnroll", "kBatch", "kMinBlocks")
@@ -139,29 +136,6 @@ def host_ms(fn, reps: int = REPS) -> float:
 
 def all_times(fn) -> dict:
     return {**times(fn), "host_ms": host_ms(fn)}
-
-
-def sha(t: torch.Tensor) -> str:
-    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
-
-
-def ptxas(log: Path) -> list:
-    """[k/32, registers, stack bytes, spill store bytes, spill load bytes]
-    of each kernel instantiation in an ``nvcc -Xptxas -v`` log."""
-    out, tpl, spill = [], None, None
-    for line in log.read_text().splitlines():
-        m = re.search(r"Compiling entry function '\w*?ILi(\d+)E", line)
-        if m:
-            tpl = int(m.group(1))
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m:
-            spill = [int(v) for v in m.groups()]
-        m = re.search(r"Used (\d+) registers", line)
-        if m and tpl is not None:
-            out.append([tpl, int(m.group(1)), *(spill or [0, 0, 0])])
-            tpl, spill = None, None
-    return sorted(out)
 
 
 def launch(fn, a, gy, xi, out) -> None:
@@ -314,10 +288,7 @@ def main() -> None:
     sweep("drspmm_dense_tier_fwd", shapes_of(args.sweep_fwd), fwd_cases,
           launch_fwd, lambda *t: K1.drspmm_dense_tier_fwd(*t, dim),
           lambda *t: K1.drspmm_dense_tier_fwd_plain(*t, dim))
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0])
+    print(card())
 
 
 if __name__ == "__main__":
