@@ -252,9 +252,14 @@ def check_kernels(model, cfg, big, small):
         ms=cuda_ms(lambda: drelu_bisect(h_cell, K)),
         plain_ms=cuda_ms(lambda: drelu_bisect_plain(h_cell, K)),
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    with torch.inference_mode():
+        dev = [device_breakdown(lambda: [fn() for _ in range(REPS)])[1]
+               / REPS for fn in (lambda: drelu_bisect(h_cell, K),
+                                 lambda: drelu(h_cell, K))]
     log(f"kernel drelu_bisect: N={n} D={d} k={K}; library_ms is the "
         f"torch.topk-threshold D-ReLU, which gives the kernel's rows "
-        f"exactly on {n_same} of {n} rows")
+        f"exactly on {n_same} of {n} rows; device ms a call (profiler) "
+        f"{dev[0]} (kernel), {dev[1]} (library)")
 
     # kernel 2: the dense-tier table of a scale-0.02 batch
     plan = small.plan
@@ -517,6 +522,20 @@ def check_learnable_kernels(homo_gat, homo):
                ).abs().max())]
     log(f"library yardsticks vs kernels (forward, dx, dW): max |diff| "
         f"{lib_err}")
+    # kernel 9's own device time beside its library call's, and the
+    # forward arena's chunk runs (the kernel takes the slots flat, so a
+    # long run sets no chain)
+    dev = [device_breakdown(lambda: [fn() for _ in range(REPS)])[1] / REPS
+           for fn in (lambda: K1.drspmm_dw_learnable(f, nnz, gy, xv, xi),
+                      lambda: torch.sparse.sampled_addmm(pattern, gy, xt,
+                                                         beta=0.0))]
+    runs_f = torch.diff(f.blk_ptr)
+    log(f"kernel drspmm_dw_learnable: arena {tuple(f.nbr.shape)}, "
+        f"{int((f.eid >= 0).sum())} real slots, longest chunk run "
+        f"{int(runs_f.max())} chunks, {int((runs_f >= 32).sum())} runs of "
+        f">= 32 chunks; ms={rows['drspmm_dw_learnable']['ms']}; device ms a "
+        f"call (profiler) {dev[0]} (kernel), {dev[1]} (library: "
+        f"sampled_addmm)")
     return rows
 
 
@@ -541,7 +560,7 @@ def check_bucket_kernels(model, graph, bucket_cfg):
     kernel's row sums the relation's buckets: its time, its plain version's
     and its library yardstick's (``torch.sparse.mm`` of each bucket's CSR)
     are summed over the buckets, its bound is the whole loop's (operand
-    rows counted once).  Kernel 10 and its library call are also timed by
+    rows counted once).  Each kernel and its library call are also timed by
     ``torch.profiler`` on each bucket (logged, not in the row)."""
     from repro_torch.kernels import drspmm as K1
     from repro_torch.kernels import ops
@@ -622,17 +641,16 @@ def check_bucket_kernels(model, graph, bucket_cfg):
                 f"max_abs_err={err} (max |ref| {float(ref.abs().max())}) "
                 f"ms={t['ms']} plain_ms={t['plain_ms']} bound_ms={b_ms} "
                 f"({b_by}) library_ms={t['library_ms']}")
-            if name == "drspmm_fwd_bucket":
-                # the kernel's own device time beside its library call's
-                # (the events read the host's launch rate where a call is
-                # shorter than its launch)
-                dev = [device_breakdown(
-                    lambda: [fn() for _ in range(REPS)])[1] / REPS
-                    for fn in (lambda: kern(b, *args), lib)]
-                log(f"kernel {name} bucket R={r} E={e}: device ms a call "
-                    f"(profiler) {dev[0]} (kernel), {dev[1]} (library)")
-                tot["device_ms"] += dev[0]
-                tot["library_device_ms"] += dev[1]
+            # the kernel's own device time beside its library call's (the
+            # events read the host's launch rate where a call is shorter
+            # than its launch)
+            dev = [device_breakdown(
+                lambda: [fn() for _ in range(REPS)])[1] / REPS
+                for fn in (lambda: kern(b, *args), lib)]
+            log(f"kernel {name} bucket R={r} E={e}: device ms a call "
+                f"(profiler) {dev[0]} (kernel), {dev[1]} (library)")
+            tot["device_ms"] += dev[0]
+            tot["library_device_ms"] += dev[1]
             for key in ("ms", "plain_ms", "library_ms"):
                 tot[key] += t[key]
             tot["err"] = max(tot["err"], err)
@@ -652,10 +670,9 @@ def check_bucket_kernels(model, graph, bucket_cfg):
             f"max_abs_err={tot['err']} ms={tot['ms']} "
             f"plain_ms={tot['plain_ms']} bound_ms={b_ms} ({b_by}) "
             f"library_ms={tot['library_ms']} (sums over the buckets)")
-        if name == "drspmm_fwd_bucket":
-            log(f"kernel {name}: device ms (profiler, sums over the "
-                f"buckets) {tot['device_ms']} (kernel), "
-                f"{tot['library_device_ms']} (library)")
+        log(f"kernel {name}: device ms (profiler, sums over the "
+            f"buckets) {tot['device_ms']} (kernel), "
+            f"{tot['library_device_ms']} (library)")
     return rows
 
 

@@ -193,42 +193,50 @@ def _arena_lib() -> ctypes.CDLL:
     return lib
 
 
-# id-keyed memo of arena schedules, guarded by a weakref to the arena's
-# blk_ptr (the schedule is a function of it alone, so an arena rewrapped
-# around the same tables shares it; an entry goes when its blk_ptr dies)
+# id-keyed memo of the kernels' schedules and work lists, each guarded by
+# weakrefs to the tables it was built from (an arena rewrapped around the
+# same tables shares it; an entry goes when the first of them dies)
 _SCHED: Dict[int, tuple] = {}
+
+
+def _memo(parts, build) -> torch.Tensor:
+    """``build()``'s tensor, built once while the tensors ``parts`` live
+    (kept in ``_SCHED`` under the first's id), on their device without a
+    host synchronisation; a launch on another stream than the one that
+    built it waits for it."""
+    key = id(parts[0])
+    hit = _SCHED.get(key)
+    if hit is None or any(r() is not t for r, t in zip(hit[0], parts)):
+        out = build()
+        built = None
+        if out.is_cuda:
+            built = (torch.cuda.current_stream(out.device),
+                     torch.cuda.Event())
+            built[1].record(built[0])
+        refs = (weakref.ref(parts[0], lambda _: _SCHED.pop(key, None)),
+                *(weakref.ref(t) for t in parts[1:]))
+        hit = (refs, out, built)
+        _SCHED[key] = hit
+    _, out, built = hit
+    if built is not None:
+        stream = torch.cuda.current_stream(out.device)
+        if stream != built[0]:
+            stream.wait_event(built[1])
+    return out
 
 
 def _arena_sched(f: FusedELL) -> torch.Tensor:
     """The order in which the arena forward's k <= 32 walk takes ``f``'s
     row-blocks: (n_blocks, 4) int32 rows (row-block, its first chunk, its
-    end chunk, 0), longest chunk run first (ties in arena order).  Built
-    on the arena's device, without a host synchronisation, once per
-    ``blk_ptr`` tensor; a launch on another stream than the one that
-    built it waits for it."""
-    ptr = f.blk_ptr
-    key = id(ptr)
-    hit = _SCHED.get(key)
-    if hit is None or hit[0]() is not ptr:
-        p64 = ptr.long()
+    end chunk, 0), longest chunk run first (ties in arena order), built
+    once per ``blk_ptr`` tensor (``_memo``)."""
+    def build():
+        p64 = f.blk_ptr.long()
         order = torch.argsort(p64[1:] - p64[:-1], descending=True,
                               stable=True)
-        sched = torch.stack([order, p64[order], p64[order + 1],
-                             torch.zeros_like(order)], 1).to(torch.int32)
-        built = None
-        if sched.is_cuda:
-            built = (torch.cuda.current_stream(sched.device),
-                     torch.cuda.Event())
-            built[1].record(built[0])
-        hit = (weakref.ref(ptr, lambda _: _SCHED.pop(key, None)), sched,
-               built)
-        _SCHED[key] = hit
-    _, sched, built = hit
-    if built is not None:
-        stream = torch.cuda.current_stream(sched.device)
-        if stream != built[0]:
-            stream.wait_event(built[1])
-    return sched
+        return torch.stack([order, p64[order], p64[order + 1],
+                            torch.zeros_like(order)], 1).to(torch.int32)
+    return _memo((f.blk_ptr,), build)
 
 
 # ---------------------------------------------------------------------------
@@ -509,10 +517,10 @@ def drspmm_fwd_learnable(f: FusedELL, nnz: int, w_canon: torch.Tensor,
 drspmm_fwd_learnable.launches = 0
 
 
-def _learnable_lib(name: str, n_ptr: int) -> ctypes.CDLL:
+def _learnable_lib(name: str, n_ptr: int, n_int: int = 5) -> ctypes.CDLL:
     lib = _build.library(name)
     fn = getattr(lib, name)
-    fn.argtypes = [_c_ptr] * n_ptr + [_c_int] * 5 + [_c_ptr]
+    fn.argtypes = [_c_ptr] * n_ptr + [_c_int] * n_int + [_c_ptr]
     fn.restype = _c_int
     return lib
 
@@ -586,13 +594,33 @@ def drspmm_dw_learnable_plain(f: FusedELL, nnz: int, gy: torch.Tensor,
     return gw.index_copy_(0, f.eid[real].long(), contrib[real])
 
 
+def _dw_sched(f: FusedELL) -> torch.Tensor:
+    """Kernel 9's work list over the forward edge-id arena ``f``: (C * BR *
+    Ec, 4) int32 rows (canonical id, source, destination gY row, 0), one a
+    slot, the real slots sorted by destination row (ties in arena order:
+    a row's slots together, so its gY row stays in L1) and the padding
+    slots (id -1) last; built once per arena (its ``eid``, ``nbr``,
+    ``block_of`` and ``rows`` tensors, ``_memo``)."""
+    def build():
+        eid = f.eid.reshape(-1)
+        dst = f.rows[_arena_rows(f)][:, :, None].expand(f.nbr.shape)
+        dst = dst.reshape(-1)
+        order = torch.argsort(torch.where(eid >= 0, dst.long(), f.n_dst),
+                              stable=True)
+        return torch.stack([eid[order], f.nbr.reshape(-1)[order],
+                            dst[order], torch.zeros_like(eid)],
+                           1).contiguous()
+    return _memo((f.eid, f.nbr, f.block_of, f.rows), build)
+
+
 def drspmm_dw_learnable(f: FusedELL, nnz: int, gy: torch.Tensor,
                         x_vals: torch.Tensor,
                         x_idx: torch.Tensor) -> torch.Tensor:
     """fp32 dL/dw_canon (nnz,) of Y = A(w)·densify(CBSR) over the forward
     edge-id arena ``f`` (tables on the operands' device), given the
     caller-ordered cotangent ``gy`` (n_dst, dim)."""
-    if not _on_card(gy, x_vals, x_idx, f.nbr, f.eid, f.rows, f.blk_ptr):
+    if not _on_card(gy, x_vals, x_idx, f.nbr, f.eid, f.rows, f.blk_ptr,
+                    f.block_of):
         return drspmm_dw_learnable_plain(f, nnz, gy, x_vals, x_idx)
     _check_cbsr(x_vals, x_idx, gy.shape[1])
     _check_bwd(gy, x_idx)
@@ -600,16 +628,16 @@ def drspmm_dw_learnable(f: FusedELL, nnz: int, gy: torch.Tensor,
     _check_src_rows(f, f.rows)
     if f.nnz >= 0 and f.nnz != nnz:
         raise ValueError(f"nnz {nnz} does not match the arena's {f.nnz}")
-    c, br, ec = f.nbr.shape
     # every canonical id owns exactly one slot (pack_fused_eid_pair checks
-    # it), so the kernel writes each entry once
+    # it), so the kernel writes each entry once, taking the slots in the
+    # order of _dw_sched
+    sched = _dw_sched(f)
     gw = torch.empty(nnz, dtype=torch.float32, device=gy.device)
-    lib = _learnable_lib("drspmm_learnable_dw", 8)
+    lib = _learnable_lib("drspmm_learnable_dw", 5, 3)
     rc = lib.drspmm_learnable_dw(
-        _build.ptr(f.blk_ptr), _build.ptr(f.nbr), _build.ptr(f.eid),
-        _build.ptr(f.rows), _build.ptr(gy), _build.ptr(x_vals),
-        _build.ptr(x_idx), _build.ptr(gw), f.n_blocks, br, ec,
-        x_idx.shape[1], gy.shape[1], _build.stream_of(gw))
+        _build.ptr(sched), _build.ptr(gy), _build.ptr(x_vals),
+        _build.ptr(x_idx), _build.ptr(gw), sched.shape[0], x_idx.shape[1],
+        gy.shape[1], _build.stream_of(gw))
     _build.check(lib, rc, "drspmm_learnable_dw")
     drspmm_dw_learnable.launches += 1
     return gw

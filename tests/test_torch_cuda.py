@@ -641,6 +641,128 @@ def test_learnable_dw_kernel_matches_plain(cuda, k, ec):
         ff, nnz, gy, xv, xi).cpu().numpy())
 
 
+def _dw_operand(n, k, dim, seed, device):
+    """A CBSR operand (n, k) for kernel 9: at k == dim the GAT operand's
+    iota columns, else each row's k columns drawn from [0, dim) with
+    repeats (k may exceed dim)."""
+    if k == dim:
+        return _learnable_operand(n, k, dim, seed, device)
+    g = torch.Generator().manual_seed(seed)
+    xv = torch.randn((n, k), generator=g)
+    xi = torch.randint(0, dim, (n, k), generator=g, dtype=torch.int32)
+    return xv.to(device), xi.to(device)
+
+
+def _dw_ref(f, nnz, gy, xv, xi):
+    """Kernel 9's plain version, with the columns outside [0, dim) (which
+    the kernel samples as nothing, and the plain gather cannot index)
+    read at column 0 with the value 0."""
+    out = (xi < 0) | (xi >= gy.shape[1])
+    return tk.drspmm_dw_learnable_plain(f, nnz, gy, xv.masked_fill(out, 0.0),
+                                        xi.masked_fill(out, 0))
+
+
+def _dw_one_launch(f, nnz, gy, xv, xi):
+    before = tk.drspmm_dw_learnable.launches
+    gw = tk.drspmm_dw_learnable(f, nnz, gy, xv, xi)
+    torch.cuda.synchronize()
+    assert tk.drspmm_dw_learnable.launches == before + 1
+    assert gw.shape == (nnz,)
+    return gw
+
+
+@pytest.mark.parametrize("dim", [64, 256])
+@pytest.mark.parametrize("k", [6, 37, 64, 100, 256])
+def test_learnable_dw_kernel_skewed_arena(cuda, k, dim):
+    """Kernel 9 over forward rows of 240-270 slots at Ec 4 and over empty
+    row-blocks; each k takes another lane group (k 6 eight lanes of one
+    position, 37 and 64 eight lanes of eight, 100 sixteen, 256 a warp),
+    k 6 and 37 the scalar loads, the others the 16-byte loads."""
+    ff, nnz, _w = _skewed_eid_arena(cuda)
+    runs = torch.diff(ff.blk_ptr)
+    assert int(runs.max()) * 4 >= 240 and int((runs == 0).sum()) > 1
+    xv, xi = _dw_operand(ff.n_src, k, dim, k + 3, cuda)
+    gy = torch.randn((ff.n_dst, dim),
+                     generator=torch.Generator().manual_seed(dim)).to(cuda)
+    gw = _dw_one_launch(ff, nnz, gy, xv, xi)
+    assert_close(gw.cpu().numpy(),
+                 tk.drspmm_dw_learnable_plain(ff, nnz, gy, xv,
+                                              xi).cpu().numpy())
+
+
+@pytest.mark.parametrize("cols", ["iota", "perm", "outside", "repeat"])
+def test_learnable_dw_kernel_columns(cuda, cols):
+    """Kernel 9 at k = dim = 64 on the skewed arena with the GAT operand's
+    iota columns, permuted ones, columns outside [0, dim) (which sample
+    nothing) and repeated ones."""
+    ff, nnz, _w = _skewed_eid_arena(cuda)
+    xv, xi = _learnable_operand(ff.n_src, 64, 64, 11, cuda, cols)
+    gy = torch.randn((ff.n_dst, 64),
+                     generator=torch.Generator().manual_seed(12)).to(cuda)
+    gw = _dw_one_launch(ff, nnz, gy, xv, xi)
+    assert_close(gw.cpu().numpy(),
+                 _dw_ref(ff, nnz, gy, xv, xi).cpu().numpy())
+
+
+@pytest.mark.parametrize("ec", [4, 8, 16])
+@pytest.mark.parametrize("k,aligned", [(1, True), (3, True), (13, True),
+                                       (30, True), (36, True), (255, True),
+                                       (64, False)])
+def test_learnable_dw_kernel_tails(cuda, k, aligned, ec):
+    """Lengths that end inside a lane's positions: k not a multiple of 4
+    (scalar loads, the last lane of a group partly or wholly idle), k 36
+    (16-byte loads, the second one of the last lane skipped), and a k 64
+    operand 4 bytes off a 16-byte boundary (a view into a flat buffer),
+    which must take the scalar loads."""
+    ff, _fb, nnz, _w = _eid_arenas(cuda, ec, seed=4)
+    xv, xi = _dw_operand(ff.n_src, k, 256, k, cuda)
+    if not aligned:
+        buf = torch.zeros(xv.numel() + 1, device=cuda)
+        buf[1:] = xv.flatten()
+        xv = buf[1:].view(xv.shape)
+        assert xv.data_ptr() % 16 == 4 and xv.is_contiguous()
+    gy = torch.randn((ff.n_dst, 256),
+                     generator=torch.Generator().manual_seed(ec)).to(cuda)
+    gw = _dw_one_launch(ff, nnz, gy, xv, xi)
+    assert_close(gw.cpu().numpy(),
+                 tk.drspmm_dw_learnable_plain(ff, nnz, gy, xv,
+                                              xi).cpu().numpy())
+
+
+def test_learnable_dw_kernel_deterministic(cuda):
+    """Two calls on the same inputs give the same bits (each slot sums in
+    one fixed order, no atomics)."""
+    ff, nnz, _w = _skewed_eid_arena(cuda)
+    xv, xi = _learnable_operand(ff.n_src, 64, 64, 13, cuda, "perm")
+    gy = torch.randn((ff.n_dst, 64),
+                     generator=torch.Generator().manual_seed(14)).to(cuda)
+    a = _dw_one_launch(ff, nnz, gy, xv, xi)
+    b = _dw_one_launch(ff, nnz, gy, xv, xi)
+    assert torch.equal(a, b)
+
+
+def test_learnable_dw_kernel_writes_every_id(cuda):
+    """The output's memory is filled with NaN before the launch (the
+    caching allocator hands the freed block back to the wrapper's
+    ``torch.empty``; a first call has built the arena's work list): every
+    entry ends finite and equal to the plain version, so the kernel wrote
+    each canonical id."""
+    ff, nnz, _w = _skewed_eid_arena(cuda)
+    xv, xi = _learnable_operand(ff.n_src, 64, 64, 15, cuda)
+    gy = torch.randn((ff.n_dst, 64),
+                     generator=torch.Generator().manual_seed(16)).to(cuda)
+    _dw_one_launch(ff, nnz, gy, xv, xi)
+    junk = torch.full((nnz,), float("nan"), device=cuda)
+    where = junk.data_ptr()
+    del junk
+    gw = _dw_one_launch(ff, nnz, gy, xv, xi)
+    assert gw.data_ptr() == where
+    assert bool(torch.isfinite(gw).all())
+    assert_close(gw.cpu().numpy(),
+                 tk.drspmm_dw_learnable_plain(ff, nnz, gy, xv,
+                                              xi).cpu().numpy())
+
+
 def test_trainer_dense_step_on_card_matches_cpu(cuda):
     """A batched ``use_drelu=False`` step on the card launches the SpMM
     kernel and none of the D-ReLU path's, and matches the CPU step."""

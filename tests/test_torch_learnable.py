@@ -252,11 +252,15 @@ def test_learnable_bwd_skewed_arena_matches_pallas(cols):
     assert np.all(out[empty] == 0.0)
 
 
-@pytest.mark.parametrize("k", [6, DIM])
+@pytest.mark.parametrize("k", [6, DIM, 37, 100])
 def test_learnable_dw_plain_matches_pallas(k):
+    """k 37 and 100 (beyond DIM, the CBSR columns drawn from dim 64 and
+    128) hold the plain version, the card tests' oracle of kernel 9, at
+    the lane-group widths kernel 9 takes above k 32."""
+    dim = {37: 64, 100: 128}.get(k, DIM)
     (jf, jb, _o, nnz), (tf, tb, _o2, _n) = _packs(4)
-    xv, xi = _operands(7, tf.n_src, k, iota=k == DIM)
-    gy = np.random.default_rng(8).normal(size=(tf.n_dst, DIM)).astype(
+    xv, xi = _operands(7, tf.n_src, k, dim, iota=k == DIM)
+    gy = np.random.default_rng(8).normal(size=(tf.n_dst, dim)).astype(
         np.float32)
     gy_arena = jnp.take(jnp.asarray(gy), jnp.asarray(jf.rows), axis=0)
     contrib = jk.drspmm_dw_learnable_fused(jf, gy_arena, jnp.asarray(xv),
@@ -269,6 +273,69 @@ def test_learnable_dw_plain_matches_pallas(k):
     assert out.shape == (nnz,)
     assert_close(out.numpy(), ref)
     assert_close(out.numpy(), ref_x)
+
+
+@pytest.mark.parametrize("skewed", [False, True])
+def test_dw_sched_lists_each_slot_once(skewed):
+    """Kernel 9's work list: one row a slot, every canonical id once, the
+    real slots in destination order and the padding last; the sums its rows
+    name (a slot's source CBSR row against its destination's gY row) are
+    the plain version's."""
+    if skewed:      # rows of 240-270 slots, every other row-block empty
+        rng = np.random.default_rng(3)
+        deg = np.concatenate([rng.integers(240, 271, 8),
+                              rng.integers(1, 13, 292)])
+        dst = np.repeat(np.arange(300), deg)
+        src = np.concatenate([rng.choice(300, d, replace=False)
+                              for d in deg])
+        f = tell.pack_fused_eid_pair(dst, src, 300, 300, chunk=4)[0]
+        f = dataclasses.replace(f, block_of=2 * f.block_of,
+                                rows=np.concatenate([f.rows] * 2),
+                                blk_ptr=None)
+    else:
+        f = _packs(4)[1][0]
+    f = f.to("cpu")
+    nnz = int((f.eid >= 0).sum())
+    sched = tk._dw_sched(f)
+    assert sched.dtype == torch.int32 and sched.shape == (f.eid.numel(), 4)
+    ids, src, dst = sched[:, 0], sched[:, 1].long(), sched[:, 2].long()
+    real = ids >= 0
+    assert int(real.sum()) == nnz and bool(real[:nnz].all())
+    assert torch.equal(ids[:nnz].sort().values, torch.arange(
+        nnz, dtype=torch.int32))
+    assert bool((dst[1:nnz] >= dst[:nnz - 1]).all())
+    assert tk._dw_sched(f) is sched                     # built once
+    rng = np.random.default_rng(17)
+    xv, xi = _operands(18, f.n_src, 6)
+    gy = torch.from_numpy(rng.normal(size=(f.n_dst, DIM)).astype(np.float32))
+    xv, xi = torch.from_numpy(xv), torch.from_numpy(xi).long()
+    gw = torch.empty(nnz)
+    gw[ids[:nnz].long()] = (gy[dst[:nnz, None], xi[src[:nnz]]]
+                            * xv[src[:nnz]]).sum(1)
+    assert_close(gw.numpy(), tk.drspmm_dw_learnable_plain(
+        f, nnz, gy, xv, xi.int()).numpy())
+
+
+@pytest.mark.parametrize("reuse", ["inference", "training"])
+def test_scheds_of_inference_tables(reuse):
+    """Kernel 1's schedule and kernel 9's work list build on arena tables
+    made under ``torch.inference_mode()`` (as a model's plan moved there
+    is), inside it and after it, equal to those of ordinary tables and
+    built once."""
+    f = _packs(4)[1][0]
+    want = (tk._arena_sched(f.to("cpu")), tk._dw_sched(f.to("cpu")))
+    with torch.inference_mode():
+        fi = f.to("cpu")
+        assert fi.eid.is_inference() and fi.blk_ptr.is_inference()
+        got = (tk._arena_sched(fi), tk._dw_sched(fi))
+    if reuse == "training":       # the memo filled in inference, read after
+        assert tk._arena_sched(fi) is got[0] and tk._dw_sched(fi) is got[1]
+    else:
+        with torch.inference_mode():
+            assert tk._arena_sched(fi) is got[0]
+            assert tk._dw_sched(fi) is got[1]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("dense_oracle", [False, True])

@@ -1,7 +1,10 @@
-"""Where the learnable-edge arena sampled backward (kernel 8) spends its
-time, on one NVIDIA card.
+"""Where the learnable-edge arena sampled backward (kernel 8) and the
+learnable-edge weight gradient (kernel 9) spend their time, on one NVIDIA
+card.
 
     PYTHONPATH=src python3 tools/arena_bwd_probe.py [--sweep 16x3,8x1,...]
+    PYTHONPATH=src python3 tools/arena_bwd_probe.py --kernel 9 \
+        [--repeats 3] [--sweep 8x8,32x4,...]
 
 Packs the transposed edge-id arena the ``train-homo-gat`` path hands
 kernel 8 (the homogenized first Table-1 partition, ``generate_design(0,
@@ -36,6 +39,37 @@ together, into ``build/repro_torch/probe/``) and times each over
 the whole arena, the longest runs and the other row-blocks, with iota and
 permuted columns.
 
+``--kernel 9`` packs the forward edge-id arena the ``train-homo-gat`` path
+hands kernel 9 (the same partition: 13,872 chunks of 8 x 4 in 1,482
+row-blocks, 424,878 real slots, k = dim = 64) with a random cotangent gY
+and a random CBSR operand at iota and at permuted columns, all made from a
+seed, prints the arena's chunk runs (mean, p99, longest, how many reach
+``LONG_RUN`` chunks), and times, by events (``ms``) and by the profiler
+(``device_ms``), as above:
+
+* kernel 9 over the whole arena, ``--repeats`` times, each with the
+  SHA-256 of ``gw`` and its error against the plain version, and once at
+  permuted columns;
+* kernel 9 over the row-blocks of at least ``LONG_RUN`` chunks alone and
+  over the other row-blocks alone (``only_blocks``: the same arena with
+  the other blocks' chunks taken out; the error is read at the ids of the
+  kept slots): if the long runs alone take most of the whole, the chain
+  of a long run sets kernel 9's time;
+* ``torch.sparse.sampled_addmm`` of the arena's CSR pattern, gY and the
+  dense operand (the library yardstick: the same function at iota
+  columns).
+
+On a tree whose kernel 9 takes a work list (``_dw_sched``), it then
+times the wrapper's build, and with ``--sweep LANESxBLOCKS,...``
+kernel 9 built at other ``kDwLanes`` x ``kDwMinBlocks`` of
+``csrc/drspmm_learnable_dw.cu`` (lanes a slot at k 64 x the blocks an
+SM must hold; one ``nvcc``
+each, all started together; each build's registers and spills printed),
+over the whole arena, the long runs and the other row-blocks, with iota
+and permuted columns, with the work list in the wrapper's destination
+order and sorted by source instead, each output checked bit for bit
+against the wrapper's (a build at other lanes sums in another order).
+
 Prints one JSON object a line, then the card's name and power limit.
 Needs one card; imports no JAX.
 """
@@ -54,9 +88,11 @@ import torch
 
 from arena_fwd_probe import (HEAVY_BLOCKS, LONGEST_BLOCKS, SEED,
                              build_variants, card, one_row, only_blocks,
-                             times)
+                             ptxas, sha, times)
 
 DIM = 64
+LONG_RUN = 32           # kernel 9: the row-blocks of at least this many chunks
+DW_NAMES = ("kDwLanes", "kDwMinBlocks")
 
 
 def gat_t_arena():
@@ -87,18 +123,136 @@ def launch(fn, ft, w, gy, xi, out) -> None:
         raise RuntimeError(f"kernel 8 variant: CUDA error {rc}")
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--sweep", default="",
-                    help="comma-separated SLOTSxBLOCKS shapes of the "
-                         "wide walk to build and time, e.g. 16x3,16x1")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit("arena_bwd_probe: no CUDA device visible")
-    root = Path(__file__).resolve().parents[1]
-    sys.path[:0] = [str(root / "src"), str(root)]
+def gat_f_arena():
+    """(forward edge-id arena on the card, nnz, its CSR pattern, gY, CBSR
+    values, iota columns, permuted columns)."""
+    from chip_smoke import coo_csr
+    from repro_torch.graphs.generator import generate_design
+    from repro_torch.models.hgnn import homogenize, learnable_edge_packing
+    adj = homogenize(generate_design(0, "small", 1.0)[0])[0]
+    f, _ft, dst, src, _w, nnz = learnable_edge_packing(adj, "cuda")
+    g = torch.Generator().manual_seed(SEED)
+    gy = torch.randn((f.n_dst, DIM), generator=g).cuda()
+    xv = torch.randn((f.n_src, DIM), generator=g).cuda()
+    n = f.n_src
+    iota = torch.arange(DIM, dtype=torch.int32).expand(n, DIM).contiguous()
+    perm = torch.argsort(torch.rand((n, DIM), generator=g), dim=1)
+    pattern = coo_csr(dst, src, torch.ones(nnz, device="cuda"),
+                      (f.n_dst, f.n_src))
+    return (f, nnz, pattern, gy, xv, iota.cuda(),
+            perm.to(torch.int32).cuda())
+
+
+def launch_dw(fn, sched, gy, xv, xi, gw) -> None:
+    """One launch of a kernel-9 library (the wrapper's or one built by
+    ``build_variants``) over the work list ``sched`` (``_dw_sched``'s
+    rows, in any order)."""
+    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    rc = fn(p(sched), p(gy), p(xv), p(xi), p(gw), sched.shape[0],
+            xi.shape[1], gy.shape[1],
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc:
+        raise RuntimeError(f"kernel 9: CUDA error {rc}")
+
+
+def by_source(sched):
+    """``_dw_sched``'s rows sorted by source instead of destination row
+    (padding still last): the slots of one CBSR row together, their gY
+    rows scattered."""
+    key = torch.where(sched[:, 0] >= 0, sched[:, 1].long(), 2 ** 40)
+    return sched[torch.argsort(key, stable=True)].contiguous()
+
+
+def kernel9(repeats: int, shapes) -> None:
+    """The ``--kernel 9`` probe (module docstring)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import drspmm as K1
-    warnings.filterwarnings("ignore", message="Sparse")
+    f, nnz, pattern, gy, xv, iota, perm = gat_f_arena()
+    _build.build_all()
+    runs = torch.diff(f.blk_ptr)
+    rs = runs.float()
+    long_ = runs >= LONG_RUN
+    print(json.dumps({
+        "kernel": "drspmm_dw_learnable", "chunks": f.n_chunks,
+        "blocks": f.n_blocks, "row_block": f.row_block,
+        "ec": f.nbr.shape[2], "k": DIM, "dim": DIM,
+        "real_slots": int((f.eid >= 0).sum()),
+        "run_mean": float(rs.mean()),
+        "run_p99": float(torch.quantile(rs, 0.99)),
+        "run_max": int(runs.max()), "long_runs": int(long_.sum()),
+        "long_run_blocks": torch.nonzero(long_).flatten().tolist(),
+        "ptxas": ptxas(_build.build_dir() / "drspmm_learnable_dw.log",
+                       "dw_kernel")}), flush=True)
+    cases = {"all": f, "long": only_blocks(f, long_),
+             "others": only_blocks(f, ~long_)}
+    for part, fp in cases.items():
+        ids = fp.eid[fp.eid >= 0].long()
+        r = torch.diff(fp.blk_ptr)
+        col_sets = (("iota", iota), ("perm", perm))[:2 if part == "all"
+                                                     else 1]
+        for cols, xi in col_sets:
+            gw = K1.drspmm_dw_learnable(fp, nnz, gy, xv, xi)
+            ref = K1.drspmm_dw_learnable_plain(fp, nnz, gy, xv, xi)
+            torch.cuda.synchronize()
+            case = {"kernel": "drspmm_dw_learnable", "blocks": part,
+                    "columns": cols}
+            print(json.dumps({
+                **case, "chunks": int(r.sum()), "longest_run": int(r.max()),
+                "real_slots": int(ids.numel()),
+                "max_abs_err": float((gw[ids] - ref[ids]).abs().max()),
+                "max_abs_ref": float(ref[ids].abs().max())}), flush=True)
+            for rep in range(repeats if (part, cols) == ("all", "iota")
+                             else 1):
+                gw = K1.drspmm_dw_learnable(fp, nnz, gy, xv, xi)
+                torch.cuda.synchronize()
+                print(json.dumps({
+                    **case, "repeat": rep,
+                    **({"sha256": sha(gw)} if part == "all" else {}),
+                    **times(lambda: K1.drspmm_dw_learnable(
+                        fp, nnz, gy, xv, xi))}), flush=True)
+    xt = xv.t().contiguous()
+    print(json.dumps({
+        "kernel": "torch.sparse.sampled_addmm", "blocks": "all",
+        **times(lambda: torch.sparse.sampled_addmm(pattern, gy, xt,
+                                                   beta=0.0))}), flush=True)
+    if not hasattr(K1, "_dw_sched"):            # a tree before the work list
+        return
+    libs = {"wrapper": K1._learnable_lib("drspmm_learnable_dw", 5, 3)
+            .drspmm_learnable_dw}
+    variants = build_variants(
+        shapes, header="drspmm_learnable_dw.cu", names=DW_NAMES,
+        entry="drspmm_learnable_dw", n_ptr=5, n_int=3)
+    for shape, fn in variants.items():
+        tag = "x".join(map(str, shape))
+        d = _build.BUILD_ROOT / "probe" / f"drspmm_learnable_dw-{tag}"
+        print(json.dumps({"kernel": "drspmm_dw_learnable", "build": tag,
+                          **dict(zip(DW_NAMES, shape)),
+                          "ptxas": ptxas(d / "nvcc.log", "dw_kernel")}),
+              flush=True)
+        libs[tag] = fn
+    for build, fn in libs.items():
+        for part, fp in cases.items():
+            ids = fp.eid[fp.eid >= 0].long()
+            sched = K1._dw_sched(fp)
+            for order, sc in (("destination", sched),
+                              ("source", by_source(sched))):
+                for cols, xi in (("iota", iota), ("perm", perm)):
+                    want = K1.drspmm_dw_learnable(fp, nnz, gy, xv, xi)
+                    gw = torch.empty_like(want)
+                    launch_dw(fn, sc, gy, xv, xi, gw)
+                    torch.cuda.synchronize()
+                    print(json.dumps({
+                        "kernel": "drspmm_dw_learnable", "build": build,
+                        "blocks": part, "order": order, "columns": cols,
+                        "same_as_wrapper": bool(torch.equal(gw[ids],
+                                                            want[ids])),
+                        **times(lambda: launch_dw(fn, sc, gy, xv, xi,
+                                                  gw))}), flush=True)
+
+
+def kernel8(shapes) -> None:
+    """The kernel-8 probe (module docstring)."""
+    from repro_torch.kernels import drspmm as K1
     ft, nnz, w, gy, iota, perm = gat_t_arena()
     runs = torch.diff(ft.blk_ptr)
     order = torch.argsort(runs, descending=True)
@@ -144,8 +298,6 @@ def main() -> None:
         (ft.n_arena_rows, ft.n_src)).coalesce().to_sparse_csr()
     print(json.dumps({"kernel": "torch.sparse.mm", "blocks": "all",
                       **times(lambda: a @ gy)}), flush=True)
-    shapes = [tuple(int(v) for v in s.split("x"))
-              for s in args.sweep.split(",") if s]
     for (slots, blocks), fn in build_variants(
             shapes, header="arena_bwd_walk.cuh",
             names=("kBwdWideSlots", "kBwdWideMinBlocks"),
@@ -163,6 +315,30 @@ def main() -> None:
                     "max_abs_err": float((out - ref).abs().max()),
                     **times(lambda: launch(fn, fp, w, gy, xi, out))}),
                     flush=True)
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", type=int, choices=(8, 9), default=8,
+                    help="the kernel to probe (default 8)")
+    ap.add_argument("--repeats", type=int, default=3,
+                    help="kernel 9: timings over the whole arena")
+    ap.add_argument("--sweep", default="",
+                    help="comma-separated shapes to build and time: "
+                         "SLOTSxBLOCKS of kernel 8's wide walk (e.g. "
+                         "16x3,16x1), with --kernel 9 LANESxBLOCKS of "
+                         "kernel 9 (e.g. 8x8,32x4)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("arena_bwd_probe: no CUDA device visible")
+    root = Path(__file__).resolve().parents[1]
+    sys.path[:0] = [str(root / "src"), str(root)]
+    warnings.filterwarnings("ignore", message="Sparse")
+    shapes = [tuple(int(v) for v in s.split("x"))
+              for s in args.sweep.split(",") if s]
+    if args.kernel == 9:
+        kernel9(args.repeats, shapes)
+    else:
+        kernel8(shapes)
     print(card())
 
 
