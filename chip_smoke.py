@@ -149,6 +149,45 @@ def bound(n_bytes: float, n_ops: float, peak: float = H100_F32_PER_S):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+def bit_equal(a, b) -> bool:
+    """Equal bit for bit, the sign of a zero included."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def drelu_hard_rows(n, d):
+    """(n, d) rows on the card, seeded normal, with the bisection's hard
+    cases first: +-inf (a NaN mid), ties at the threshold, one value,
+    zeros and -0.0, lo + hi overflowing, values near 1e-10; every other
+    remaining row ReLU'd."""
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.randn((n, d), generator=g)
+    x[0, ::5], x[0, 1::7] = math.inf, -math.inf
+    x[1], x[1, ::3] = -math.inf, math.inf
+    x[2, :d // 2] = 1.25
+    x[3] = 0.5
+    x[4] = 0.0
+    x[4, 1::3] = -0.0
+    x[5] = 3e38 - x[5].abs() * 1e37
+    x[6] *= 1e-10
+    x[7::2] = x[7::2].clamp(min=0.0)
+    return x.cuda()
+
+
+def drelu_ops_a_row(d):
+    """Operations kernel 3 does on a row of d values: its sort network on
+    the row padded to P (fminf and fmaxf a comparator: odd-even merge up
+    to 64 values, bitonic above), min and max, the 64 steps (add,
+    multiply, compare, select) and the output compare."""
+    p = 32
+    while p < d:
+        p *= 2
+    lg = p.bit_length() - 1
+    pairs = (p // 4 * lg * (lg - 1) + p - 1 if p <= 64
+             else p // 2 * lg * (lg + 1) // 2)
+    return 2 * pairs + 2 * d + 64 * 4 + d
+
+
 def first_layer_operands(model, graph, cfg):
     """The CBSR operands the first layer hands the DR-SpMM kernels, and the
     dense cell embedding it hands the D-ReLU kernel."""
@@ -238,10 +277,17 @@ def check_kernels(model, cfg, big, small):
     with torch.inference_mode():
         n_same = int((drelu(h_cell, K) == y).all(dim=1).sum())
     torch.cuda.synchronize()
-    if not torch.equal(y, ref):
+    if not bit_equal(y, ref):
         problem("bisection kernel is not bit-exact against its plain version")
+    y_sha = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
+    for d in (64, 96, 256):     # one lane a row; one warp a row (4, 8 regs)
+        x = drelu_hard_rows(1031, d)
+        for k in (1, d // 4, d - 1):
+            if not bit_equal(drelu_bisect(x, k), drelu_bisect_plain(x, k)):
+                problem(f"bisection kernel is not bit-exact on the hard rows "
+                        f"at d {d}, k {k}")
     n, d = h_cell.shape
-    b_ms, b_by = bound(8.0 * n * d, 64.0 * n * d)
+    b_ms, b_by = bound(8.0 * n * d, n * drelu_ops_a_row(d))
     with torch.inference_mode():
         lib_ms = cuda_ms(lambda: drelu(h_cell, K))
     rows["drelu_bisect"] = dict(
@@ -259,7 +305,8 @@ def check_kernels(model, cfg, big, small):
     log(f"kernel drelu_bisect: N={n} D={d} k={K}; library_ms is the "
         f"torch.topk-threshold D-ReLU, which gives the kernel's rows "
         f"exactly on {n_same} of {n} rows; device ms a call (profiler) "
-        f"{dev[0]} (kernel), {dev[1]} (library)")
+        f"{dev[0]} (kernel), {dev[1]} (library); output SHA-256 {y_sha}; "
+        f"bit-exact on hard rows at d 64, 96 and 256")
 
     # kernel 2: the dense-tier table of a scale-0.02 batch
     plan = small.plan

@@ -83,3 +83,38 @@ def cbsr_operands(plan, k_of, seed=0, dim=HIDDEN):
                       axis=1).astype(np.int32)
         out[t] = (np.take_along_axis(x, idx, axis=1), idx)
     return out
+
+
+def drelu_rows(n, d, seed=0):
+    """Seeded normal (n, d) float32 rows for the D-ReLU bisection, the hard
+    cases first (as many as ``n`` holds): +-inf with ties at +inf; only
+    +-inf (the first step's mid is NaN); ties straddling any threshold; a
+    row of one value; a zero row; +0.0 and -0.0 with a few positives;
+    small-integer ties; all negative; rows scaled by 1e10, 1e-10 and
+    near the float maximum (lo + hi overflows); one finite value among
+    -inf.  Every other remaining row is ReLU'd (many exact zeros)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    s = rng.normal(size=(13, d)).astype(np.float32)
+    s[0, ::5] = np.inf
+    s[0, 1::7] = -np.inf
+    s[1] = -np.inf
+    s[1, ::3] = np.inf
+    s[2, :max(1, d // 2)] = 1.25
+    s[3] = 0.5
+    s[4] = 0.0
+    s[5] = 0.0
+    s[5, 1::3] = -0.0
+    s[5, ::7] = np.abs(s[5, ::7])
+    s[6] = np.round(2 * s[6])
+    s[7] = -np.abs(s[7]) - 1.0
+    s[8] *= 1e10
+    s[9] *= 1e-10
+    s[10] = rng.uniform(1e38, 3e38, size=d)
+    s[11] = -np.inf
+    s[11, d // 2] = 1.0
+    s[12] = np.maximum(s[12], 0.0)
+    m = min(n, len(s))
+    x[:m] = s[:m]
+    x[m::2] = np.maximum(x[m::2], 0.0)
+    return x

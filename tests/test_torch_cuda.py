@@ -47,8 +47,8 @@ from repro_torch.serve.engine import ServeEngine
 from repro_torch.train.circuit_trainer import (CircuitTrainConfig,
                                                CircuitTrainer)
 from _torch_port import (HIDDEN, K, LAYERS, SCALE, assert_bf16_close,
-                         assert_close,
-                         cbsr_operands, cuda)  # noqa: F401  (fixture)
+                         assert_close, cbsr_operands,
+                         cuda, drelu_rows)  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.cuda
 
@@ -102,19 +102,23 @@ def test_dense_tier_kernel_matches_plain(cuda):
         plan.dense_fwd, xv, xi, 64).cpu().numpy())
 
 
-@pytest.mark.parametrize("k,d", [(8, 32), (16, 64), (40, 96)])
-def test_drelu_bisect_kernel_bit_exact(cuda, k, d):
-    g = torch.Generator().manual_seed(k)
-    x = torch.randn((1031, d), generator=g)
-    x[0] = 0.0
-    x[1, :12] = 1.25                        # ties at the threshold
-    x[2, 1::3] = -0.0
-    x = x.to(cuda)
+@pytest.mark.parametrize("n", [1, 31, 1031])
+@pytest.mark.parametrize("d", [1, 7, 32, 33, 64, 65, 96, 128, 200, 256])
+@pytest.mark.parametrize("which_k", ["one", "middle", "last"])
+def test_drelu_bisect_kernel_bit_exact(cuda, which_k, d, n):
+    """Every padded width (32, 64, 128, 256), k = 1, d // 2 and d - 1
+    (0 at d 1), n below, at and above a block's 32 rows; the rows of
+    ``drelu_rows``: ties at the threshold, one value, zeros, -0.0, +-inf
+    (a NaN mid), overflowing lo + hi, ReLU'd rows.  Bit for bit, the sign
+    of a zero included, in one launch."""
+    k = {"one": min(1, d - 1), "middle": d // 2, "last": d - 1}[which_k]
+    x = torch.from_numpy(drelu_rows(n, d, seed=d * 7 + n)).to(cuda)
     before = drelu_topk.drelu_bisect.launches
     y = drelu_topk.drelu_bisect(x, k)
     torch.cuda.synchronize()
     assert drelu_topk.drelu_bisect.launches == before + 1
-    assert torch.equal(y, drelu_topk.drelu_bisect_plain(x, k))
+    ref = drelu_topk.drelu_bisect_plain(x, k)
+    assert torch.equal(y.view(torch.int32), ref.view(torch.int32))
 
 
 @pytest.mark.parametrize("drelu_backend", ["topk", "bisect"])
