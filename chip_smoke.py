@@ -421,12 +421,16 @@ def check_spmm_kernel(model, cfg_dense, big):
             plain_ms=cuda_ms(lambda: K1.spmm_arena_plain(arena, opnd)),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=cuda_ms(lambda: a_csr @ opnd))
+        dev = [device_breakdown(lambda: [fn() for _ in range(REPS)])[1]
+               / REPS for fn in (lambda: K1.spmm_arena(arena, opnd),
+                                 lambda: a_csr @ opnd)]
         log(f"kernel spmm_arena ({what}): C={c} BR={br} Ec={ec} "
             f"R_arena={arena.n_arena_rows} N_src={opnd.shape[0]} "
             f"dim={opnd.shape[1]} real_slots={real} bytes={n_bytes}: "
             f"max_abs_err={err} (max |ref| {r['ref_max']}) ms={r['ms']} "
             f"plain_ms={r['plain_ms']} bound_ms={b_ms} ({b_by}) "
-            f"library_ms={r['library_ms']}")
+            f"library_ms={r['library_ms']}; device ms a call (profiler) "
+            f"{dev[0]} (kernel), {dev[1]} (library: a_csr @ x)")
         row = row or r               # the table's row is the forward
     return {"spmm_arena": row}
 
@@ -823,6 +827,7 @@ def check_bwd_kernels(model, cfg, big, small):
     if not torch.allclose(y, ref, rtol=1e-5, atol=tol(ref)):
         problem(f"arena backward kernel disagrees with its plain version: "
                 f"{err}")
+    y_sha = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
     c, br, ec = f.nbr.shape
     k = xi.shape[1]
     real = int((f.w != 0).sum())
@@ -845,6 +850,11 @@ def check_bwd_kernels(model, cfg, big, small):
         f"library_ms is torch.sparse.mm of the CSR Aᵀ by gY: the unsampled "
         f"(R_arena, dim) product, dim/k = {gy.shape[1] / k} times the "
         f"outputs")
+    dev = [device_breakdown(lambda: [fn() for _ in range(REPS)])[1] / REPS
+           for fn in (lambda: K1.drspmm_bwd_arena(f, src, gy, xi),
+                      lambda: a_t @ gy)]
+    log(f"kernel drspmm_bwd_arena: device ms a call (profiler) {dev[0]} "
+        f"(kernel), {dev[1]} (library: a_t @ gy); output SHA-256 {y_sha}")
 
     # kernel 5: the stacked transposed dense-tier table of a scale-0.02
     # batch, on the dense segments' rows of a real cotangent

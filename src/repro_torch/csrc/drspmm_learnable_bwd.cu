@@ -12,18 +12,20 @@
 // ordered copy of xi).  It is kernel drspmm_arena_bwd.cu with the weight
 // gathered in the kernel (CanonWeights, arena_weights.cuh): the row walk,
 // its bound and its design are in arena_bwd_walk.cuh.  The homogeneous GAT
-// baselines call it with k = dim = 64, which takes the walk's wide variant.
+// baselines call it with k = dim = 64, which takes the walk's wide variant;
+// ``sched`` (drspmm.py, _arena_sched) orders the narrow walk's row-blocks.
 #include "arena_bwd_walk.cuh"
 
-extern "C" int drspmm_learnable_bwd(const int* blk_ptr, const int* nbr,
-                                    const int* eid, const float* w_canon,
-                                    const int* rows, const float* gy,
-                                    const int* xi, float* out, int n_blocks,
-                                    int row_block, int ec, int k, int dim,
+extern "C" int drspmm_learnable_bwd(const int* blk_ptr, const int* sched,
+                                    const int* nbr, const int* eid,
+                                    const float* w_canon, const int* rows,
+                                    const float* gy, const int* xi,
+                                    float* out, int n_blocks, int row_block,
+                                    int ec, int k, int dim,
                                     cudaStream_t stream) {
-  return arena_bwd_dispatch(blk_ptr, nbr, CanonWeights{eid, w_canon}, rows,
-                            gy, xi, out, n_blocks, row_block, ec, k, dim,
-                            stream);
+  return arena_bwd_dispatch(blk_ptr, sched, nbr, CanonWeights{eid, w_canon},
+                            rows, gy, xi, out, n_blocks, row_block, ec, k,
+                            dim, stream);
 }
 
 extern "C" const char* error_string(int e) {

@@ -226,10 +226,11 @@ def _memo(parts, build) -> torch.Tensor:
 
 
 def _arena_sched(f: FusedELL) -> torch.Tensor:
-    """The order in which the arena forward's k <= 32 walk takes ``f``'s
-    row-blocks: (n_blocks, 4) int32 rows (row-block, its first chunk, its
-    end chunk, 0), longest chunk run first (ties in arena order), built
-    once per ``blk_ptr`` tensor (``_memo``)."""
+    """The order in which the arena walks for k <= 32 (the forward's and
+    the sampled backward's) take ``f``'s row-blocks: (n_blocks, 4) int32
+    rows (row-block, its first chunk, its end chunk, 0), longest chunk run
+    first (ties in arena order), built once per ``blk_ptr`` tensor
+    (``_memo``)."""
     def build():
         p64 = f.blk_ptr.long()
         order = torch.argsort(p64[1:] - p64[:-1], descending=True,
@@ -352,10 +353,10 @@ def drspmm_bwd_arena(bwd: FusedELL, bwd_src_rows: torch.Tensor,
                       device=gy_cat.device)
     lib = _arena_bwd_lib()
     rc = lib.drspmm_arena_bwd(
-        _build.ptr(bwd.blk_ptr), _build.ptr(bwd.nbr), _build.ptr(bwd.w),
-        _build.ptr(bwd_src_rows), _build.ptr(gy_cat), _build.ptr(x_idx),
-        _build.ptr(out), bwd.n_blocks, br, ec, k, gy_cat.shape[1],
-        _build.stream_of(out))
+        _build.ptr(bwd.blk_ptr), _build.ptr(_arena_sched(bwd)),
+        _build.ptr(bwd.nbr), _build.ptr(bwd.w), _build.ptr(bwd_src_rows),
+        _build.ptr(gy_cat), _build.ptr(x_idx), _build.ptr(out),
+        bwd.n_blocks, br, ec, k, gy_cat.shape[1], _build.stream_of(out))
     _build.check(lib, rc, "drspmm_arena_bwd")
     drspmm_bwd_arena.launches += 1
     return out
@@ -367,7 +368,7 @@ drspmm_bwd_arena.launches = 0
 def _arena_bwd_lib() -> ctypes.CDLL:
     lib = _build.library("drspmm_arena_bwd")
     fn = lib.drspmm_arena_bwd
-    fn.argtypes = [_c_ptr] * 7 + [_c_int] * 5 + [_c_ptr]
+    fn.argtypes = [_c_ptr] * 8 + [_c_int] * 5 + [_c_ptr]
     fn.restype = _c_int
     return lib
 
@@ -557,12 +558,13 @@ def drspmm_bwd_learnable(ft: FusedELL, nnz: int, w_canon: torch.Tensor,
     k = x_idx.shape[1]
     out = torch.empty((ft.n_arena_rows, k), dtype=torch.float32,
                       device=gy.device)
-    lib = _learnable_lib("drspmm_learnable_bwd", 8)
+    lib = _learnable_lib("drspmm_learnable_bwd", 9)
     rc = lib.drspmm_learnable_bwd(
-        _build.ptr(ft.blk_ptr), _build.ptr(ft.nbr), _build.ptr(ft.eid),
-        _build.ptr(w_canon), _build.ptr(ft.rows), _build.ptr(gy),
-        _build.ptr(x_idx), _build.ptr(out), ft.n_blocks, br, ec, k,
-        gy.shape[1], _build.stream_of(out))
+        _build.ptr(ft.blk_ptr), _build.ptr(_arena_sched(ft)),
+        _build.ptr(ft.nbr), _build.ptr(ft.eid), _build.ptr(w_canon),
+        _build.ptr(ft.rows), _build.ptr(gy), _build.ptr(x_idx),
+        _build.ptr(out), ft.n_blocks, br, ec, k, gy.shape[1],
+        _build.stream_of(out))
     _build.check(lib, rc, "drspmm_learnable_bwd")
     drspmm_bwd_learnable.launches += 1
     return out

@@ -629,6 +629,82 @@ def test_learnable_bwd_kernel_skewed_arena(cuda, k, dim, cols):
                  _bwd_learnable_ref(fb, nnz, w, gy, xi).cpu().numpy())
 
 
+def _bwd_arena_ref(f, src, gy, xi):
+    """Kernel 4's plain version, with the columns outside [0, dim) (which
+    the kernel samples as nothing, and the plain gather cannot index)
+    read at column 0 and their outputs set to 0."""
+    out = (xi < 0) | (xi >= gy.shape[1])
+    ref = tk.drspmm_bwd_arena_plain(f, src, gy, xi.masked_fill(out, 0))
+    return ref.masked_fill(out[src.long()], 0.0)
+
+
+def _skewed_bwd(cuda, ec, k, dim, cols="distinct"):
+    """The skewed arena of ``_skewed_arena`` walked as a transposed arena
+    (its rows sample their own CBSR columns, ``f.rows`` the source-row
+    map), CBSR columns for its rows and a seeded gY over its neighbours."""
+    f, eids = _skewed_arena(cuda, ec)
+    _, xi, _, _ = _narrow_operand(f.n_dst, k, dim, k + dim, cuda, cols)
+    gy = torch.randn((f.n_src, dim), generator=torch.Generator().manual_seed(
+        ec * 1000 + k * dim)).to(cuda)
+    return f, eids, xi, gy
+
+
+@pytest.mark.parametrize("dim", [1, 33, 64, 256])
+@pytest.mark.parametrize("k", [1, 5, 16, 32])
+@pytest.mark.parametrize("ec", [4, 8, 16])
+def test_arena_bwd_kernel_skewed_arena(cuda, ec, k, dim):
+    """Kernel 4's k <= 32 walk over runs of 1 to 75 chunks (the long ones
+    ending mid-window and mid-batch), empty row-blocks and an all-padding
+    row, at 1, 2, 4 and 8 rows a warp (k 32, 16, 5, 1); k > dim repeats
+    columns.  One launch a call."""
+    f, _, xi, gy = _skewed_bwd(cuda, ec, k, dim)
+    runs = torch.diff(f.blk_ptr)
+    assert int((runs == 0).sum()) > 1 and int(runs[runs > 0].min()) == 1
+    assert int(runs.max()) >= (65 if ec == 4 else 260 // ec)
+    before = tk.drspmm_bwd_arena.launches
+    dv = tk.drspmm_bwd_arena(f, f.rows, gy, xi)
+    torch.cuda.synchronize()
+    assert tk.drspmm_bwd_arena.launches == before + 1
+    assert dv.shape == (f.n_arena_rows, k)
+    assert_close(dv.cpu().numpy(), tk.drspmm_bwd_arena_plain(
+        f, f.rows, gy, xi).cpu().numpy())
+
+
+@pytest.mark.parametrize("cols", ["repeat", "outside"])
+@pytest.mark.parametrize("k", [5, 16, 32])
+@pytest.mark.parametrize("ec", [4, 8, 16])
+def test_arena_bwd_kernel_skewed_columns(cuda, ec, k, cols):
+    """Repeated columns (each lane samples its own) and columns outside
+    [0, dim) (they sample nothing: 0) on the skewed arena."""
+    f, _, xi, gy = _skewed_bwd(cuda, ec, k, 64, cols)
+    dv = tk.drspmm_bwd_arena(f, f.rows, gy, xi)
+    assert_close(dv.cpu().numpy(),
+                 _bwd_arena_ref(f, f.rows, gy, xi).cpu().numpy())
+
+
+@pytest.mark.parametrize("ec", [4, 8, 16])
+def test_arena_bwd_kernel_deterministic(cuda, ec):
+    """Two calls on the skewed arena give the same bits."""
+    f, _, xi, gy = _skewed_bwd(cuda, ec, 16, 64)
+    dv1 = tk.drspmm_bwd_arena(f, f.rows, gy, xi)
+    dv2 = tk.drspmm_bwd_arena(f, f.rows, gy, xi)
+    assert torch.equal(dv1, dv2)
+
+
+@pytest.mark.parametrize("k", [5, 16, 32])
+@pytest.mark.parametrize("ec", [4, 8, 16])
+def test_learnable_bwd_kernel_narrow_skewed(cuda, ec, k):
+    """Kernel 8 at k <= 32 (kernel 4's walk, its weights gathered through
+    the edge ids) on the skewed arena's edges; one launch a call."""
+    _, (ff, nnz, w), xi, gy = _skewed_bwd(cuda, ec, k, 64, "repeat")
+    before = tk.drspmm_bwd_learnable.launches
+    dv = tk.drspmm_bwd_learnable(ff, nnz, w, gy, xi)
+    torch.cuda.synchronize()
+    assert tk.drspmm_bwd_learnable.launches == before + 1
+    assert_close(dv.cpu().numpy(),
+                 _bwd_learnable_ref(ff, nnz, w, gy, xi).cpu().numpy())
+
+
 @pytest.mark.parametrize("ec", [4, 8, 16])
 @pytest.mark.parametrize("k", [6, 32, 40, 64])
 def test_learnable_dw_kernel_matches_plain(cuda, k, ec):

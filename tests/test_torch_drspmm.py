@@ -231,6 +231,48 @@ def test_arena_bwd_plain_matches_pallas(seed, size):
     assert_close(out.numpy()[pt.bwd.gather], ref_xla)
 
 
+@pytest.mark.parametrize("k", [5, 16, 32])
+def test_arena_bwd_plain_matches_pallas_long_runs(k):
+    """Kernel 4's path on the CPU over a transposed arena whose chunk runs
+    reach 20-70 chunks (8 rows of 80-280 neighbours at Ec 4, ending
+    mid-window, beside 32 rows of 1-8), each package packing the same COO
+    its own way, against the Pallas kernel in interpret mode.  Every row's
+    columns are distinct but for column 1 repeating column 0 on every
+    fifth row.  The wrapper runs its plain version (no launch)."""
+    rng = np.random.default_rng(29 + k)
+    n_rows, n_gy = 40, 300
+    deg = np.concatenate([rng.integers(80, 281, 8),
+                          rng.integers(1, 9, n_rows - 8)])
+    dst = np.repeat(np.arange(n_rows), deg)
+    src = np.concatenate([rng.choice(n_gy, d, replace=False) for d in deg])
+    perm = rng.permutation(dst.size)
+    dst, src = dst[perm], src[perm]
+    w = rng.normal(size=dst.size).astype(np.float32)
+    fj = jell.fuse_bucketed(jell.pack_ell(dst, src, w, n_rows, n_gy),
+                            chunk=4)
+    ft = tell.fuse_bucketed(tell.pack_ell(dst, src, w, n_rows, n_gy),
+                            chunk=4)
+    runs = np.diff(ft.blk_ptr)
+    assert runs.max() >= 20 and runs.min() <= 1 and ft.n_chunks < 400
+    gy = _cotangent(n_gy, 7 + k)
+    xi = np.argsort(rng.random((n_rows, HIDDEN)), axis=1)[:, :k]
+    xi = xi.astype(np.int32)
+    xi[::5, 1] = xi[::5, 0]
+    ref = np.asarray(jk.drspmm_bwd_fused(fj, jnp.asarray(gy),
+                                         jnp.asarray(xi[fj.rows]),
+                                         interpret=True))
+    before = tk.drspmm_bwd_arena.launches
+    bwd = ft.to("cpu")
+    out = tk.drspmm_bwd_arena(bwd, bwd.rows, torch.from_numpy(gy),
+                              torch.from_numpy(xi))
+    assert tk.drspmm_bwd_arena.launches == before
+    assert out.shape == (ft.n_arena_rows, k)
+    assert_close(out.numpy(), ref)
+    dense = ft.to_dense() @ gy
+    assert_close(out.numpy()[ft.gather],
+                 np.take_along_axis(dense, xi.astype(np.int64), 1))
+
+
 @pytest.mark.parametrize("seed,size", [(0, "small"), (1, "medium")])
 def test_dense_tier_bwd_plain_matches_pallas(seed, size):
     pj, pt = _plans(seed, size)

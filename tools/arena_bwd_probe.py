@@ -1,10 +1,51 @@
-"""Where the learnable-edge arena sampled backward (kernel 8) and the
-learnable-edge weight gradient (kernel 9) spend their time, on one NVIDIA
-card.
+"""Where the arena sampled backward (kernel 4), the learnable-edge arena
+sampled backward (kernel 8) and the learnable-edge weight gradient
+(kernel 9) spend their time, on one NVIDIA card.
 
+    PYTHONPATH=src python3 tools/arena_bwd_probe.py --kernel 4 \
+        [--repeats 3] [--sweep 4,16,...]
     PYTHONPATH=src python3 tools/arena_bwd_probe.py [--sweep 16x3,8x1,...]
     PYTHONPATH=src python3 tools/arena_bwd_probe.py --kernel 9 \
         [--repeats 3] [--sweep 8x8,32x4,...]
+
+``--kernel 4`` packs the transposed super-arena ``chip_smoke.py`` hands
+kernel 4 (the first served Table-1 batch: the first two partitions of
+``generate_design(0, "small", 1.0)`` + ``(1, "medium", 1.0)``, collated;
+Ec 4, 8 rows a block) with the CBSR columns of the first layer of
+``chip_smoke.py``'s seeded model (its seeded D-ReLU, k 16) and a seeded
+cotangent gY (dim 64), prints the arena's chunk runs (a histogram of run
+lengths, how many row-blocks reach ``HEAVY_RUN`` chunks and how many
+chunks they hold, and at which share of the grid the first of them
+starts when the row-blocks are taken in reverse arena order and in the
+order of ``_arena_sched``), and times, with CUDA events (``ms``) and with
+``torch.profiler`` (``device_ms``), as below:
+
+* kernel 4 over the whole arena, ``--repeats`` times, each with the
+  SHA-256 of its output, and its error against the plain version; then
+  with every row's columns 0..k-1 (``contiguous``: the same walk and
+  loads, 2 of a gY row's eight 32-byte sectors touched instead of ~7.3):
+  if that is much faster, the sectors moved set kernel 4's time;
+* kernel 4 over the row-blocks of at least ``HEAVY_RUN`` chunks alone,
+  over the other row-blocks alone (``only_blocks``) and over the whole
+  arena with one row a row-block kept (``one_row``: the same chains, an
+  eighth of the gathers);
+* kernel 6 (``spmm_arena``) over the same arena with gY as its dense
+  operand, whole and over the heavy row-blocks: the full 256-byte rows
+  of the same slots, read by kernel 6's own walk (a chunk at a time, in
+  reverse arena order);
+* ``torch.sparse.mm`` of the CSR Aᵀ by gY (the library yardstick: the
+  unsampled product, dim / k times the outputs).
+
+With ``--sweep LOADS,...`` (a tree whose k <= 32 walk takes
+``_arena_sched``) it also builds kernel 4 at other ``kBwdNarrowLoads`` of
+``csrc/arena_bwd_walk.cuh`` (gY samples a lane issues a batch; one
+``nvcc`` each, all started together), prints each build's registers and
+spills, and times each over the whole arena, the heavy row-blocks and
+the others, its output checked against the plain version and bit for
+bit against the wrapper's (every build adds a row's slots in the same
+order).
+
+Without ``--kernel``, it probes kernel 8:
 
 Packs the transposed edge-id arena the ``train-homo-gat`` path hands
 kernel 8 (the homogenized first Table-1 partition, ``generate_design(0,
@@ -92,7 +133,10 @@ from arena_fwd_probe import (HEAVY_BLOCKS, LONGEST_BLOCKS, SEED,
 
 DIM = 64
 LONG_RUN = 32           # kernel 9: the row-blocks of at least this many chunks
+HEAVY_RUN = 10          # kernel 4: the row-blocks of at least this many chunks
 DW_NAMES = ("kDwLanes", "kDwMinBlocks")
+BWD_NARROW_NAMES = ("kBwdNarrowLoads",)
+BWD_NARROW_WALK = "arena_bwd_narrow"
 
 
 def gat_t_arena():
@@ -114,10 +158,12 @@ def gat_t_arena():
 def launch(fn, ft, w, gy, xi, out) -> None:
     """One launch of a kernel-8 library built by ``build_variants``, as the
     port's wrapper makes it."""
+    from repro_torch.kernels.drspmm import _arena_sched
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     _c, br, ec = ft.nbr.shape
-    rc = fn(p(ft.blk_ptr), p(ft.nbr), p(ft.eid), p(w), p(ft.rows), p(gy),
-            p(xi), p(out), ft.n_blocks, br, ec, xi.shape[1], gy.shape[1],
+    rc = fn(p(ft.blk_ptr), p(_arena_sched(ft)), p(ft.nbr), p(ft.eid), p(w),
+            p(ft.rows), p(gy), p(xi), p(out), ft.n_blocks, br, ec,
+            xi.shape[1], gy.shape[1],
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc:
         raise RuntimeError(f"kernel 8 variant: CUDA error {rc}")
@@ -250,6 +296,134 @@ def kernel9(repeats: int, shapes) -> None:
                                                   gw))}), flush=True)
 
 
+def table1_bwd():
+    """(transposed super-arena, its source-row map, gY, CBSR columns) of
+    the first served Table-1 batch on the card: the columns of the first
+    layer of ``chip_smoke.py``'s seeded model, gY seeded normal."""
+    from chip_smoke import FEAT, HIDDEN, K, LAYERS, first_layer_operands
+    from repro_torch.core.hetero_mp import HeteroMPConfig
+    from repro_torch.graphs.collate import collate_graphs
+    from repro_torch.graphs.generator import generate_design
+    from repro_torch.models.hgnn import DRCircuitGNN
+    table1 = (generate_design(0, "small", 1.0)
+              + generate_design(1, "medium", 1.0))
+    big = collate_graphs(table1[:2], device="cuda")
+    model = DRCircuitGNN(FEAT, FEAT, HIDDEN, LAYERS, device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    cfg = HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K)
+    _xv, xi, _ = first_layer_operands(model, big.graph, cfg)
+    plan = big.plan
+    gy = torch.randn((plan.n_out_total, HIDDEN),
+                     generator=torch.Generator().manual_seed(SEED + 1))
+    return plan.bwd, plan.bwd_src_rows, gy.cuda(), xi
+
+
+def launch_k4(fn, f, src, gy, xi, out) -> None:
+    """One launch of a kernel-4 library built by ``build_variants``, as
+    the port's wrapper makes it."""
+    from repro_torch.kernels.drspmm import _arena_sched
+    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    _c, br, ec = f.nbr.shape
+    rc = fn(p(f.blk_ptr), p(_arena_sched(f)), p(f.nbr), p(f.w), p(src),
+            p(gy), p(xi), p(out), f.n_blocks, br, ec, xi.shape[1],
+            gy.shape[1],
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc:
+        raise RuntimeError(f"kernel 4 variant: CUDA error {rc}")
+
+
+def kernel4(repeats: int, shapes) -> None:
+    """The ``--kernel 4`` probe (module docstring)."""
+    from chip_smoke import arena_csr
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import drspmm as K1
+    f, src, gy, xi = table1_bwd()
+    _build.build_all()
+    runs = torch.diff(f.blk_ptr)
+    heavy = runs >= HEAVY_RUN
+    # position in the grid of each row-block: reverse arena order (the
+    # chunk-at-a-time walk) and longest run first (the schedule)
+    rev = f.n_blocks - 1 - torch.nonzero(heavy).flatten()
+    by_run = torch.argsort(runs, descending=True, stable=True)
+    pos = torch.empty_like(by_run)
+    pos[by_run] = torch.arange(f.n_blocks, device=by_run.device)
+    hist = torch.bincount(runs.long()).tolist()
+    print(json.dumps({
+        "kernel": "drspmm_bwd_arena", "chunks": f.n_chunks,
+        "blocks": f.n_blocks, "row_block": f.row_block,
+        "ec": f.nbr.shape[2], "k": xi.shape[1], "dim": gy.shape[1],
+        "R_arena": f.n_arena_rows, "M": gy.shape[0], "N_src": xi.shape[0],
+        "real_slots": int((f.w != 0).sum()),
+        "run_hist": {n: c for n, c in enumerate(hist) if c},
+        "heavy_blocks": int(heavy.sum()),
+        "heavy_chunks": int(runs[heavy].sum()),
+        "longest_run": int(runs.max()),
+        "first_heavy_reverse_order": float(rev.min()) / f.n_blocks,
+        "first_heavy_sched_order": float(pos[heavy].min()) / f.n_blocks,
+        "ptxas": ptxas(_build.build_dir() / "drspmm_arena_bwd.log",
+                       BWD_NARROW_WALK)}), flush=True)
+    one = torch.ones_like(heavy)
+    cases = {"all": f, "heavy": only_blocks(f, heavy),
+             "others": only_blocks(f, ~heavy), "all-one-row": one_row(f, one)}
+    for part, fp in cases.items():
+        r = torch.diff(fp.blk_ptr)
+        dv = K1.drspmm_bwd_arena(fp, src, gy, xi)
+        ref = K1.drspmm_bwd_arena_plain(fp, src, gy, xi)
+        torch.cuda.synchronize()
+        case = {"kernel": "drspmm_bwd_arena", "blocks": part}
+        print(json.dumps({
+            **case, "chunks": int(r.sum()), "longest_run": int(r.max()),
+            "real_slots": int((fp.w != 0).sum()),
+            "max_abs_err": float((dv - ref).abs().max()),
+            "max_abs_ref": float(ref.abs().max())}), flush=True)
+        for rep in range(repeats if part == "all" else 1):
+            dv = K1.drspmm_bwd_arena(fp, src, gy, xi)
+            torch.cuda.synchronize()
+            print(json.dumps({
+                **case, "repeat": rep,
+                **({"sha256": sha(dv)} if part == "all" else {}),
+                **times(lambda: K1.drspmm_bwd_arena(fp, src, gy, xi))}),
+                flush=True)
+    k = xi.shape[1]
+    xi_c = torch.arange(k, dtype=torch.int32, device=xi.device).expand(
+        xi.shape).contiguous()
+    print(json.dumps({
+        "kernel": "drspmm_bwd_arena", "blocks": "all",
+        "columns": "contiguous",
+        **times(lambda: K1.drspmm_bwd_arena(f, src, gy, xi_c))}), flush=True)
+    for part in ("all", "heavy"):
+        fp = cases[part]
+        print(json.dumps({"kernel": "spmm_arena", "operand": "gY",
+                          "blocks": part,
+                          **times(lambda: K1.spmm_arena(fp, gy))}),
+              flush=True)
+    a_t = arena_csr(f, gy.shape[0])
+    print(json.dumps({"kernel": "torch.sparse.mm", "blocks": "all",
+                      **times(lambda: a_t @ gy)}), flush=True)
+    for shape, fn in build_variants(
+            shapes, header="arena_bwd_walk.cuh", names=BWD_NARROW_NAMES,
+            entry="drspmm_arena_bwd", n_ptr=8).items():
+        d = _build.BUILD_ROOT / "probe" / (
+            "drspmm_arena_bwd-" + "x".join(map(str, shape)))
+        named = dict(zip(BWD_NARROW_NAMES, shape))
+        print(json.dumps({"kernel": "drspmm_bwd_arena", **named,
+                          "ptxas": ptxas(d / "nvcc.log", BWD_NARROW_WALK)}),
+              flush=True)
+        for part in ("all", "heavy", "others"):
+            fp = cases[part]
+            want = K1.drspmm_bwd_arena(fp, src, gy, xi)
+            out = torch.empty_like(want)
+            launch_k4(fn, fp, src, gy, xi, out)
+            ref = K1.drspmm_bwd_arena_plain(fp, src, gy, xi)
+            torch.cuda.synchronize()
+            print(json.dumps({
+                "kernel": "drspmm_bwd_arena", **named, "blocks": part,
+                "same_as_wrapper": bool(torch.equal(out, want)),
+                "max_abs_err": float((out - ref).abs().max()),
+                **times(lambda: launch_k4(fn, fp, src, gy, xi, out))}),
+                flush=True)
+
+
 def kernel8(shapes) -> None:
     """The kernel-8 probe (module docstring)."""
     from repro_torch.kernels import drspmm as K1
@@ -301,7 +475,7 @@ def kernel8(shapes) -> None:
     for (slots, blocks), fn in build_variants(
             shapes, header="arena_bwd_walk.cuh",
             names=("kBwdWideSlots", "kBwdWideMinBlocks"),
-            entry="drspmm_learnable_bwd", n_ptr=8).items():
+            entry="drspmm_learnable_bwd", n_ptr=9).items():
         for part in ("all", "longest", "light"):
             fp = arenas[part]
             for cols, xi in (("iota", iota), ("perm", perm)):
@@ -318,15 +492,17 @@ def kernel8(shapes) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", type=int, choices=(8, 9), default=8,
+    ap.add_argument("--kernel", type=int, choices=(4, 8, 9), default=8,
                     help="the kernel to probe (default 8)")
     ap.add_argument("--repeats", type=int, default=3,
-                    help="kernel 9: timings over the whole arena")
+                    help="kernels 4 and 9: timings over the whole arena")
     ap.add_argument("--sweep", default="",
                     help="comma-separated shapes to build and time: "
                          "SLOTSxBLOCKS of kernel 8's wide walk (e.g. "
-                         "16x3,16x1), with --kernel 9 LANESxBLOCKS of "
-                         "kernel 9 (e.g. 8x8,32x4)")
+                         "16x3,16x1), with --kernel 4 LOADS of the k <= 32 "
+                         "walk (e.g. 4,16), with "
+                         "--kernel 9 LANESxBLOCKS of kernel 9 (e.g. "
+                         "8x8,32x4)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("arena_bwd_probe: no CUDA device visible")
@@ -335,7 +511,9 @@ def main() -> None:
     warnings.filterwarnings("ignore", message="Sparse")
     shapes = [tuple(int(v) for v in s.split("x"))
               for s in args.sweep.split(",") if s]
-    if args.kernel == 9:
+    if args.kernel == 4:
+        kernel4(args.repeats, shapes)
+    elif args.kernel == 9:
         kernel9(args.repeats, shapes)
     else:
         kernel8(shapes)
