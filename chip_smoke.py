@@ -406,11 +406,14 @@ def check_spmm_kernel(model, cfg_dense, big):
         if not torch.allclose(y, ref, rtol=1e-5, atol=tol(ref)):
             problem(f"spmm kernel ({what}) disagrees with its plain "
                     f"version: {err}")
+        y_sha = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
         c, br, ec = arena.nbr.shape
         real = int((arena.w != 0).sum())
         a_csr = arena_csr(arena, opnd.shape[0])
         n_bytes = 4 * (arena.blk_ptr.numel() + 2 * arena.nbr.numel()
                        + opnd.numel() + arena.n_arena_rows * opnd.shape[1])
+        # each real slot reads a whole operand row: its 32-byte L2 sectors
+        sectors = real * -(-4 * opnd.shape[1] // 32) * 32
         b_ms, b_by = bound(n_bytes, 2.0 * real * opnd.shape[1])
         r = dict(
             name="spmm_arena", route="cuda",
@@ -426,8 +429,9 @@ def check_spmm_kernel(model, cfg_dense, big):
                                  lambda: a_csr @ opnd)]
         log(f"kernel spmm_arena ({what}): C={c} BR={br} Ec={ec} "
             f"R_arena={arena.n_arena_rows} N_src={opnd.shape[0]} "
-            f"dim={opnd.shape[1]} real_slots={real} bytes={n_bytes}: "
-            f"max_abs_err={err} (max |ref| {r['ref_max']}) ms={r['ms']} "
+            f"dim={opnd.shape[1]} real_slots={real} bytes={n_bytes} "
+            f"l2_sector_bytes={sectors}: max_abs_err={err} (max |ref| "
+            f"{r['ref_max']}) sha256={y_sha} ms={r['ms']} "
             f"plain_ms={r['plain_ms']} bound_ms={b_ms} ({b_by}) "
             f"library_ms={r['library_ms']}; device ms a call (profiler) "
             f"{dev[0]} (kernel), {dev[1]} (library: a_csr @ x)")

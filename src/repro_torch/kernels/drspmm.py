@@ -227,10 +227,10 @@ def _memo(parts, build) -> torch.Tensor:
 
 def _arena_sched(f: FusedELL) -> torch.Tensor:
     """The order in which the arena walks for k <= 32 (the forward's and
-    the sampled backward's) take ``f``'s row-blocks: (n_blocks, 4) int32
-    rows (row-block, its first chunk, its end chunk, 0), longest chunk run
-    first (ties in arena order), built once per ``blk_ptr`` tensor
-    (``_memo``)."""
+    the sampled backward's) and kernel 6 take ``f``'s row-blocks:
+    (n_blocks, 4) int32 rows (row-block, its first chunk, its end chunk,
+    0), longest chunk run first (ties in arena order), built once per
+    ``blk_ptr`` tensor (``_memo``)."""
     def build():
         p64 = f.blk_ptr.long()
         order = torch.argsort(p64[1:] - p64[:-1], descending=True,
@@ -438,8 +438,9 @@ def spmm_arena_plain(f: FusedELL, x: torch.Tensor) -> torch.Tensor:
 
 def spmm_arena(f: FusedELL, x: torch.Tensor) -> torch.Tensor:
     """Arena-ordered fp32 Y (R_arena, D) = A · x of a fused arena whose
-    tables are tensors on ``x``'s device.  Read the caller-ordered output
-    with ``y[f.gather]``."""
+    tables are tensors on ``x``'s device, its row-blocks taken in
+    ``_arena_sched``'s order.  Read the caller-ordered output with
+    ``y[f.gather]``."""
     if not _on_card(x, f.nbr, f.w, f.blk_ptr):
         return spmm_arena_plain(f, x)
     _check_arena(f)
@@ -454,7 +455,7 @@ def spmm_arena(f: FusedELL, x: torch.Tensor) -> torch.Tensor:
                       device=x.device)
     lib = _spmm_lib()
     rc = lib.spmm_arena(
-        _build.ptr(f.blk_ptr), _build.ptr(f.nbr), _build.ptr(f.w),
+        _build.ptr(_arena_sched(f)), _build.ptr(f.nbr), _build.ptr(f.w),
         _build.ptr(x), _build.ptr(out), f.n_blocks, br, ec, x.shape[1],
         _build.stream_of(out))
     _build.check(lib, rc, "spmm_arena")

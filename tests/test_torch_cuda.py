@@ -638,6 +638,51 @@ def _bwd_arena_ref(f, src, gy, xi):
     return ref.masked_fill(out[src.long()], 0.0)
 
 
+def _skewed_spmm(cuda, ec, dim, seed=6):
+    """The skewed arena of ``_skewed_arena`` for kernel 6, with one more
+    row whose padding sits between real slots (row 5 of the second
+    longest run: its third and fourth chunks and the first and last slot
+    of every chunk weightless), and a seeded dense operand."""
+    f, _ = _skewed_arena(cuda, ec)
+    ptr = f.blk_ptr.long()
+    b = int(torch.argsort(ptr[1:] - ptr[:-1], descending=True)[1])
+    lo, hi = int(ptr[b]), int(ptr[b + 1])
+    w = f.w.clone()
+    w[lo + 2:lo + 4, 5, :] = 0.0
+    w[lo:hi, 5, 0] = 0.0
+    w[lo:hi, 5, -1] = 0.0
+    assert bool((w[lo + 4:hi, 5] != 0).any())
+    x = torch.randn((f.n_src, dim),
+                    generator=torch.Generator().manual_seed(seed + dim))
+    return dataclasses.replace(f, w=w), x.to(cuda)
+
+
+@pytest.mark.parametrize("dim", [1, 33, 64, 96, 256])
+@pytest.mark.parametrize("ec", [4, 8, 16])
+def test_spmm_arena_kernel_skewed_arena(cuda, ec, dim):
+    """Kernel 6 over runs of 1 to 75 chunks (runs longer than one and than
+    two 32-slot windows, ending mid-window and mid-batch), empty
+    row-blocks, an all-padding row and a row with padding between its real
+    slots, at one to eight columns a lane; one launch a call."""
+    f, x = _skewed_spmm(cuda, ec, dim)
+    runs = torch.diff(f.blk_ptr)
+    assert int((runs == 0).sum()) > 1 and int(runs[runs > 0].min()) == 1
+    assert int(runs.max()) * ec > 64
+    before = tk.spmm_arena.launches
+    y = tk.spmm_arena(f, x)
+    torch.cuda.synchronize()
+    assert tk.spmm_arena.launches == before + 1
+    assert y.shape == (f.n_arena_rows, dim)
+    assert_close(y.cpu().numpy(), tk.spmm_arena_plain(f, x).cpu().numpy())
+
+
+@pytest.mark.parametrize("ec", [4, 8, 16])
+def test_spmm_arena_kernel_deterministic(cuda, ec):
+    """Two calls on the skewed arena give the same bits."""
+    f, x = _skewed_spmm(cuda, ec, 64)
+    assert torch.equal(tk.spmm_arena(f, x), tk.spmm_arena(f, x))
+
+
 def _skewed_bwd(cuda, ec, k, dim, cols="distinct"):
     """The skewed arena of ``_skewed_arena`` walked as a transposed arena
     (its rows sample their own CBSR columns, ``f.rows`` the source-row
@@ -894,6 +939,26 @@ def test_homo_step_on_card_matches_cpu(cuda, kind):
     assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
     for p, q in zip(gpu.parameters(), cpu.parameters()):
         _rel_close(p.grad, q.grad)
+
+
+@pytest.mark.parametrize("kind", ["gcn", "sage"])
+def test_homo_spmm_step_launches_kernel6(cuda, kind):
+    """A ``gcn`` / ``sage`` step on ``_SpMM`` launches kernel 6 once a
+    layer forward (over A) and once a layer backward (over Aᵀ): 6 for the
+    3 layers, and nothing of the learnable path."""
+    adj, adj_t, x, y, n_cell = homogenize(
+        generate_design(3, "small", SCALE)[0])
+    model = HomoGNN(x.shape[1], HIDDEN, kind=kind, nnz=adj.nnz, device=cuda)
+    others = [tk.drspmm_fwd_learnable, tk.drspmm_bwd_learnable,
+              tk.drspmm_dw_learnable]
+    before = [f.launches for f in others]
+    n0 = tk.spmm_arena.launches
+    loss = torch.mean((homo_forward(model, adj, adj_t, x.to(cuda), n_cell)
+                       - y.to(cuda)) ** 2)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert tk.spmm_arena.launches - n0 == 2 * len(model.layers) == 6
+    assert [f.launches for f in others] == before
 
 
 def _bucket_cases(device):

@@ -85,6 +85,49 @@ def test_spmm_arena_plain_matches_pallas(seed, size, etype):
     assert_close(out.numpy()[ft.gather], ref_x)
 
 
+@pytest.mark.parametrize("dim", [1, 33, 64])
+def test_spmm_arena_plain_matches_pallas_long_runs(dim):
+    """Kernel 6's path on the CPU over an arena whose chunk runs reach
+    20-70 chunks (8 rows of 80-280 neighbours at Ec 4, ending mid-window,
+    beside 32 rows of 1-8), each package packing the same COO its own way,
+    against the Pallas kernel in interpret mode; the wrapper runs its plain
+    version (no launch).  The launch order of the card's walk
+    (``_arena_sched``) lists every row-block of that arena once, longest
+    run first."""
+    rng = np.random.default_rng(30 + dim)
+    n_dst, n_src = 40, 300
+    deg = np.concatenate([rng.integers(80, 281, 8),
+                          rng.integers(1, 9, n_dst - 8)])
+    dst = np.repeat(np.arange(n_dst), deg)
+    src = np.concatenate([rng.choice(n_src, d, replace=False) for d in deg])
+    perm = rng.permutation(dst.size)
+    dst, src = dst[perm], src[perm]
+    w = rng.normal(size=dst.size).astype(np.float32)
+    fj = jell.fuse_bucketed(jell.pack_ell(dst, src, w, n_dst, n_src),
+                            chunk=4)
+    fh = tell.fuse_bucketed(tell.pack_ell(dst, src, w, n_dst, n_src),
+                            chunk=4)
+    ft = fh.to("cpu")
+    runs = np.diff(fh.blk_ptr)
+    assert runs.max() >= 20 and runs.min() <= 1 and ft.n_chunks < 400
+    x = _features(n_src, 7 + dim, dim)
+    ref = np.asarray(jk.spmm_dense_fused(fj, jnp.asarray(x), interpret=True))
+    before = tk.spmm_arena.launches
+    out = tk.spmm_arena(ft, torch.from_numpy(x))
+    assert tk.spmm_arena.launches == before
+    assert out.shape == (ft.n_arena_rows, dim)
+    assert_close(out.numpy(), ref)
+    assert_close(out.numpy()[fh.gather], fh.to_dense() @ x)
+    sched = tk._arena_sched(ft).long()
+    assert torch.equal(torch.sort(sched[:, 0]).values,
+                       torch.arange(ft.n_blocks))
+    ptr = ft.blk_ptr.long()
+    by_sched = (ptr[1:] - ptr[:-1])[sched[:, 0]]
+    assert int(by_sched[0]) == runs.max()
+    assert bool((by_sched[:-1] >= by_sched[1:]).all())
+    assert torch.equal(sched[:, 2] - sched[:, 1], by_sched)
+
+
 @pytest.mark.parametrize("dense_oracle", [False, True])
 @pytest.mark.parametrize("backend", ["xla_fused", "dense"])
 @pytest.mark.parametrize("etype", ETYPES)

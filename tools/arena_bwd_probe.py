@@ -31,8 +31,8 @@ order of ``_arena_sched``), and times, with CUDA events (``ms``) and with
   eighth of the gathers);
 * kernel 6 (``spmm_arena``) over the same arena with gY as its dense
   operand, whole and over the heavy row-blocks: the full 256-byte rows
-  of the same slots, read by kernel 6's own walk (a chunk at a time, in
-  reverse arena order);
+  of the same slots, read by kernel 6's own walk (flat runs, one warp a
+  row, whole rows);
 * ``torch.sparse.mm`` of the CSR Aᵀ by gY (the library yardstick: the
   unsampled product, dim / k times the outputs).
 

@@ -1,9 +1,11 @@
-"""Where the arena DR-SpMM forward (kernel 1) and the learnable-edge arena
-forward (kernel 7), which share one walk, spend their time, on one NVIDIA
-card.
+"""Where the arena DR-SpMM forward (kernel 1), the learnable-edge arena
+forward (kernel 7), which share one walk, and the dense-operand arena SpMM
+(kernel 6) spend their time, on one NVIDIA card.
 
     PYTHONPATH=src python3 tools/arena_fwd_probe.py --kernel 1 \
         [--repeats 5] [--sweep 2x32x4,1x64x8,...]
+    PYTHONPATH=src python3 tools/arena_fwd_probe.py --kernel 6 \
+        [--repeats 3] [--sweep 32x4,8x8,...]
     PYTHONPATH=src python3 tools/arena_fwd_probe.py [--sweep 2x8,...]
 
 ``--kernel 1`` packs the super-arena ``chip_smoke.py`` hands kernel 1 (the
@@ -35,7 +37,38 @@ build's registers and spills, and times each over the whole arena, the
 longest runs and the other row-blocks, its output checked bit for bit
 against the wrapper's.
 
-Without ``--kernel 1`` it probes kernel 7:
+``--kernel 6`` packs the ``near`` arena of the same batch and its
+transpose, as ``chip_smoke.py::check_spmm_kernel`` hands them to kernel 6
+(Ec 4, 8 rows a block), with a seeded operand x and a seeded cotangent gY
+(dim 64).  For each direction (forward: A by x; transposed: Aᵀ by gY) it
+prints the arena's chunk runs (a histogram of run lengths, how many
+row-blocks reach ``HEAVY_RUN`` and ``LONG_RUN`` chunks and how many chunks
+they hold, at which share of the grid the first and the last of the
+heavy ones start in reverse arena order and in the order of
+``_arena_sched``), the L2 sectors a call reads (real slots x the 32-byte
+sectors of a ``dim``-float row) and kernel 6's registers, and times, with
+CUDA events (``ms``) and with the profiler (``device_ms``):
+
+* kernel 6 over the whole arena, ``--repeats`` times, each with the
+  SHA-256 of its output, and its error against the plain version;
+* kernel 6 over the row-blocks of at least ``HEAVY_RUN`` chunks alone,
+  over the others alone, over the row-blocks of at least ``LONG_RUN``
+  chunks alone (``only_blocks``), and over the whole arena with one row
+  a row-block kept (``one_row``: the same chains, an eighth of the
+  gathers);
+* ``torch.sparse.mm`` of the arena's CSR by the operand (the library
+  yardstick).
+
+With ``--sweep LOADSxBLOCKS,...`` it also builds kernel 6 at other
+``kSpmmLoads`` x ``kSpmmMinBlocks`` of ``csrc/spmm_arena.cu`` (floats a
+lane has in flight a batch x blocks an SM must hold; one ``nvcc`` each,
+all started together), prints each build's registers and spills and the
+order of the row loads (``L``) and FMAs (``F``) in the SASS of its dim-64
+walk (``cuobjdump``), and times each in both directions over the whole
+arena and the heavy row-blocks, its output checked bit for bit against
+the wrapper's (every build adds a row's slots in the same order).
+
+Without ``--kernel`` it probes kernel 7:
 
 Packs the arena the ``train-homo-gat`` path hands kernel 7 (the homogenized
 first Table-1 partition, ``generate_design(0, "small", 1.0)``: 11,840 rows,
@@ -73,8 +106,10 @@ import argparse
 import ctypes
 import dataclasses
 import hashlib
+import itertools
 import json
 import re
+import shutil
 import subprocess
 import sys
 import warnings
@@ -91,6 +126,10 @@ NARROW_NAMES = ("kNarrowParts", "kNarrowSplit", "kNarrowLoads")
 # registers, ...] (arena_fwd_kernel, the chunk-at-a-time walk of older
 # trees: [DPL, Ec, registers, ...])
 NARROW_WALK = r"arena_fwd_(narrow|kernel)"
+HEAVY_RUN = 10          # kernel 6: the row-blocks of at least this many chunks
+LONG_RUN = 40           # and of at least this many
+SPMM_NAMES = ("kSpmmLoads", "kSpmmMinBlocks")
+SPMM_WALK = "spmm_arena_kernel"
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
@@ -154,6 +193,32 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
+
+
+def sass_order(lib: Path, kernel: str) -> str:
+    """The row loads (``L``: ``LDG``) and FMAs (``F``: ``FFMA``) of the
+    first function in ``lib``'s SASS whose mangled name matches the
+    regular expression ``kernel``, in program order, run-length coded
+    (``L16F32``: 16 loads, then 32 FMAs); "" where ``cuobjdump`` is
+    missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return ""
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120).stdout
+    seq, inside = [], False
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            if inside:
+                break
+            inside = re.search(kernel, m.group(1)) is not None
+            continue
+        m = inside and re.search(
+            r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and m.group(1).startswith(("LDG", "FFMA")):
+            seq.append(m.group(1)[0])
+    return "".join(f"{c}{len(list(g))}" for c, g in itertools.groupby(seq))
 
 
 def gat_arena():
@@ -354,6 +419,136 @@ def kernel1(repeats: int, shapes) -> None:
                 flush=True)
 
 
+def table1_near():
+    """(``near`` arena, its transpose, x, gY) of the first served Table-1
+    batch on the card, as ``chip_smoke.py`` hands them to kernel 6; x and
+    gY (dim 64) seeded normal."""
+    from chip_smoke import HIDDEN
+    from repro_torch.graphs.collate import collate_graphs
+    from repro_torch.graphs.generator import generate_design
+    from repro_torch.kernels import ops
+    table1 = (generate_design(0, "small", 1.0)
+              + generate_design(1, "medium", 1.0))
+    near = collate_graphs(table1[:2], device="cuda").graph.edges["near"]
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.randn((near.adj.n_src, HIDDEN), generator=g)
+    gy = torch.randn((near.adj.n_dst, HIDDEN), generator=g)
+    return (ops.device_arena(near.adj, "cuda"),
+            ops.device_arena(near.adj_t, "cuda"), x.cuda(), gy.cuda())
+
+
+def launch_k6(fn, f, x, out) -> None:
+    """One launch of a kernel-6 library built by ``build_variants``, as
+    the port's wrapper makes it."""
+    from repro_torch.kernels.drspmm import _arena_sched
+    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    _c, br, ec = f.nbr.shape
+    rc = fn(p(_arena_sched(f)), p(f.nbr), p(f.w), p(x), p(out), f.n_blocks,
+            br, ec, x.shape[1],
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc:
+        raise RuntimeError(f"kernel 6 variant: CUDA error {rc}")
+
+
+def kernel6(repeats: int, shapes) -> None:
+    """The ``--kernel 6`` probe (module docstring)."""
+    from chip_smoke import arena_csr
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import drspmm as K1
+    f_fwd, f_t, x, gy = table1_near()
+    _build.build_all()
+    dirs = {"forward": (f_fwd, x), "transposed": (f_t, gy)}
+    cases = {}
+    for what, (f, opnd) in dirs.items():
+        runs = torch.diff(f.blk_ptr)
+        heavy, long = runs >= HEAVY_RUN, runs >= LONG_RUN
+        # position in the grid of each row-block: reverse arena order (the
+        # chunk-at-a-time walk) and longest run first (the schedule)
+        rev = (f.n_blocks - 1 - torch.nonzero(heavy).flatten()).float()
+        by_run = torch.argsort(runs, descending=True, stable=True)
+        pos = torch.empty_like(by_run)
+        pos[by_run] = torch.arange(f.n_blocks, device=by_run.device)
+        sched = pos[heavy].float()
+        real = int((f.w != 0).sum())
+        dim = opnd.shape[1]
+        hist = torch.bincount(runs.long()).tolist()
+        print(json.dumps({
+            "kernel": "spmm_arena", "direction": what,
+            "chunks": f.n_chunks, "blocks": f.n_blocks,
+            "row_block": f.row_block, "ec": f.nbr.shape[2], "dim": dim,
+            "R_arena": f.n_arena_rows, "N_src": opnd.shape[0],
+            "real_slots": real,
+            "padding": 1 - real / f.nbr.numel(),
+            "l2_sector_bytes": real * -(-4 * dim // 32) * 32,
+            "run_hist": {n: c for n, c in enumerate(hist) if c},
+            "heavy_blocks": int(heavy.sum()),
+            "heavy_chunks": int(runs[heavy].sum()),
+            "long_blocks": int(long.sum()),
+            "long_chunks": int(runs[long].sum()),
+            "longest_run": int(runs.max()),
+            "heavy_start_reverse_order": [float(rev.min()) / f.n_blocks,
+                                          float(rev.max()) / f.n_blocks],
+            "heavy_start_sched_order": [float(sched.min()) / f.n_blocks,
+                                        float(sched.max()) / f.n_blocks],
+            "ptxas": ptxas(_build.build_dir() / "spmm_arena.log",
+                           SPMM_WALK)}), flush=True)
+        parts = {"all": f, "heavy": only_blocks(f, heavy),
+                 "others": only_blocks(f, ~heavy)}
+        if bool(long.any()):
+            parts["long"] = only_blocks(f, long)
+        parts["all-one-row"] = one_row(f, torch.ones_like(heavy))
+        cases[what] = parts
+        for part, fp in parts.items():
+            r = torch.diff(fp.blk_ptr)
+            y = K1.spmm_arena(fp, opnd)
+            ref = K1.spmm_arena_plain(fp, opnd)
+            torch.cuda.synchronize()
+            case = {"kernel": "spmm_arena", "direction": what,
+                    "blocks": part}
+            print(json.dumps({
+                **case, "chunks": int(r.sum()), "longest_run": int(r.max()),
+                "real_slots": int((fp.w != 0).sum()),
+                "max_abs_err": float((y - ref).abs().max()),
+                "max_abs_ref": float(ref.abs().max())}), flush=True)
+            for rep in range(repeats if part == "all" else 1):
+                y = K1.spmm_arena(fp, opnd)
+                torch.cuda.synchronize()
+                print(json.dumps({
+                    **case, "repeat": rep,
+                    **({"sha256": sha(y)} if part == "all" else {}),
+                    **times(lambda: K1.spmm_arena(fp, opnd))}), flush=True)
+        a = arena_csr(f, opnd.shape[0])
+        print(json.dumps({"kernel": "torch.sparse.mm", "direction": what,
+                          "blocks": "all", **times(lambda: a @ opnd)}),
+              flush=True)
+    for shape, fn in build_variants(
+            shapes, header="spmm_arena.cu", names=SPMM_NAMES,
+            entry="spmm_arena", n_ptr=5, n_int=4).items():
+        d = _build.BUILD_ROOT / "probe" / (
+            "spmm_arena-" + "x".join(map(str, shape)))
+        named = dict(zip(SPMM_NAMES, shape))
+        print(json.dumps({"kernel": "spmm_arena", **named,
+                          "ptxas": ptxas(d / "nvcc.log", SPMM_WALK),
+                          "sass_dim64": sass_order(d / "lib.so",
+                                                   SPMM_WALK + "ILi2E")}),
+              flush=True)
+        for what, (_f, opnd) in dirs.items():
+            for part in ("all", "heavy"):
+                fp = cases[what][part]
+                want = K1.spmm_arena(fp, opnd)
+                out = torch.empty_like(want)
+                launch_k6(fn, fp, opnd, out)
+                ref = K1.spmm_arena_plain(fp, opnd)
+                torch.cuda.synchronize()
+                print(json.dumps({
+                    "kernel": "spmm_arena", **named, "direction": what,
+                    "blocks": part,
+                    "same_as_wrapper": bool(torch.equal(out, want)),
+                    "max_abs_err": float((out - ref).abs().max()),
+                    **times(lambda: launch_k6(fn, fp, opnd, out))}),
+                    flush=True)
+
+
 def kernel7(shapes) -> None:
     """The kernel-7 probe (module docstring)."""
     from repro_torch.kernels import drspmm as K1
@@ -414,15 +609,17 @@ def kernel7(shapes) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", type=int, choices=(1, 7), default=7,
+    ap.add_argument("--kernel", type=int, choices=(1, 6, 7), default=7,
                     help="the kernel to probe (default 7)")
     ap.add_argument("--repeats", type=int, default=3,
-                    help="kernel 1: timings over the whole arena")
+                    help="kernels 1 and 6: timings over the whole arena")
     ap.add_argument("--sweep", default="",
                     help="comma-separated shapes of the walk to build and "
                          "time: PARTSxSPLITxLOADS of the k <= 32 walk with "
-                         "--kernel 1 (e.g. 2x32x4,1x64x8), else PARTSxPAIRS "
-                         "of the wide walk (e.g. 1x32,2x8,4x8)")
+                         "--kernel 1 (e.g. 2x32x4,1x64x8), LOADSxBLOCKS of "
+                         "kernel 6 with --kernel 6 (e.g. 32x4,8x8), "
+                         "else PARTSxPAIRS of the wide walk (e.g. "
+                         "1x32,2x8,4x8)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("arena_fwd_probe: no CUDA device visible")
@@ -434,6 +631,8 @@ def main() -> None:
               for s in args.sweep.split(",") if s]
     if args.kernel == 1:
         kernel1(args.repeats, shapes)
+    elif args.kernel == 6:
+        kernel6(args.repeats, shapes)
     else:
         kernel7(shapes)
     print(card())
