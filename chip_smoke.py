@@ -616,7 +616,10 @@ def check_bucket_kernels(model, graph, bucket_cfg):
     and its library yardstick's (``torch.sparse.mm`` of each bucket's CSR)
     are summed over the buckets, its bound is the whole loop's (operand
     rows counted once).  Each kernel and its library call are also timed by
-    ``torch.profiler`` on each bucket (logged, not in the row)."""
+    ``torch.profiler`` on each bucket (logged, not in the row).  Kernels
+    11 and 12 also log each output's SHA-256 and the L2 sectors their
+    gathers touch beside the byte bound, and kernel 12 is logged over the
+    transposed buckets with kernel 11's cotangent as well."""
     from repro_torch.kernels import drspmm as K1
     from repro_torch.kernels import ops
     from repro_torch.models.hgnn import loss_fn
@@ -692,10 +695,16 @@ def check_bucket_kernels(model, graph, bucket_cfg):
             t = dict(ms=cuda_ms(lambda: kern(b, *args)),
                      plain_ms=cuda_ms(lambda: plain(b, *args)),
                      library_ms=cuda_ms(lib))
+            tail = ""
+            if name != "drspmm_fwd_bucket":
+                sectors = bucket_sectors(b, args)
+                tot["sectors"] = tot.get("sectors", 0) + sectors
+                y_sha = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+                tail = f" sha256={y_sha} l2_sector_bytes={sectors}"
             log(f"kernel {name} bucket R={r} E={e} real_slots={n_real}: "
                 f"max_abs_err={err} (max |ref| {float(ref.abs().max())}) "
                 f"ms={t['ms']} plain_ms={t['plain_ms']} bound_ms={b_ms} "
-                f"({b_by}) library_ms={t['library_ms']}")
+                f"({b_by}) library_ms={t['library_ms']}{tail}")
             # the kernel's own device time beside its library call's (the
             # events read the host's launch rate where a call is shorter
             # than its launch)
@@ -727,8 +736,48 @@ def check_bucket_kernels(model, graph, bucket_cfg):
             f"library_ms={tot['library_ms']} (sums over the buckets)")
         log(f"kernel {name}: device ms (profiler, sums over the "
             f"buckets) {tot['device_ms']} (kernel), "
-            f"{tot['library_device_ms']} (library)")
+            f"{tot['library_device_ms']} (library)"
+            + (f"; l2_sector_bytes={tot['sectors']} beside the bound's "
+               f"{n_bytes} bytes" if "sectors" in tot else ""))
+    # kernel 12 over the transposed buckets, the cotangent as its operand
+    # (the gcn baseline's backward on buckets walks such slabs)
+    dev_sum = [0.0, 0.0]
+    for b in bk_t.buckets:
+        gy = bwd_of[id(b)][1]
+        out, ref = K1.spmm_bucket(b, gy), K1.spmm_bucket_plain(b, gy)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        if not torch.allclose(out, ref, rtol=1e-5,
+                              atol=1e-5 * float(ref.abs().max())):
+            problem(f"spmm_bucket kernel disagrees with its plain version "
+                    f"on transposed bucket {tuple(b.nbr.shape)}: {err}")
+        csr = bucket_csr(b, gy.shape[0])
+        dev = [device_breakdown(
+            lambda: [fn() for _ in range(REPS)])[1] / REPS
+            for fn in (lambda: K1.spmm_bucket(b, gy), lambda: csr @ gy)]
+        dev_sum = [a + d for a, d in zip(dev_sum, dev)]
+        y_sha = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+        log(f"kernel spmm_bucket transposed bucket R={b.nbr.shape[0]} "
+            f"E={b.nbr.shape[1]} real_slots={int((b.w != 0).sum())} "
+            f"l2_sector_bytes={bucket_sectors(b, (gy,))}: max_abs_err={err} "
+            f"sha256={y_sha}; device ms a call (profiler) {dev[0]} "
+            f"(kernel), {dev[1]} (library: csr @ gy)")
+    log(f"kernel spmm_bucket: device ms (profiler, sums over the transposed "
+        f"buckets) {dev_sum[0]} (kernel), {dev_sum[1]} (library)")
     return rows
+
+
+def bucket_sectors(b, args):
+    """The 32-byte L2 sectors the real slots of bucket ``b`` touch: a whole
+    operand row a slot (kernel 12, ``args`` = (x,)), or the distinct
+    sectors of the row's sampled columns (kernel 11, ``args`` = (gY,
+    xi_rows))."""
+    real = (b.w != 0).sum(1)
+    if len(args) == 1:
+        return int(real.sum()) * -(-4 * args[0].shape[1] // 32) * 32
+    s = torch.sort(args[1].long() // 8, dim=1).values
+    distinct = 1 + (s[:, 1:] != s[:, :-1]).sum(1)
+    return int((real * distinct).sum()) * 32
 
 
 def learnable_slabs_path(model, graph, wrappers):

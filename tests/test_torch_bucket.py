@@ -199,6 +199,60 @@ def test_spmm_bucket_plain_matches_pallas(case, dim):
         assert_close(out.numpy(), np.asarray(ref), f"{case} {b.nbr.shape}")
 
 
+def _padded_slab(e, seed, r=16, n_src=70):
+    """One (r, e) bucket packed by ``pack_ell`` from a seeded COO, at a
+    width of the main path's buckets: rows 0 and 1 fill all e slots, the
+    others end early; row 1 has weight 0 at slots 32-63 and over its
+    middle third (padding windows between real slots), and every fifth
+    row is all padding."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(1, e + 1, r)
+    deg[:2] = e
+    dst = np.repeat(np.arange(r), deg)
+    j = np.arange(dst.size) - np.repeat(np.cumsum(deg) - deg, deg)
+    w = rng.random(dst.size).astype(np.float32) + 0.1
+    w[(dst == 1) & (((j >= 32) & (j < 64))
+                    | ((j >= e // 3) & (j < 2 * e // 3)))] = 0.0
+    w[dst % 5 == 4] = 0.0
+    (b,) = tell.pack_ell(dst, rng.integers(0, n_src, dst.size), w, r, n_src,
+                         bounds=()).buckets
+    assert b.nbr.shape == (r, e)
+    return b, n_src
+
+
+MAIN_PATH_WIDTHS = [64, 78, 256, 260]
+
+
+@pytest.mark.parametrize("e", MAIN_PATH_WIDTHS)
+@pytest.mark.parametrize("k", [K, 40])
+def test_bucket_bwd_plain_matches_pallas_padded_slabs(e, k):
+    """Kernel 11's plain version against ``drspmm_bwd_bucket`` on slabs of
+    the main path's widths with padding windows mid-row."""
+    b, n_src = _padded_slab(e, e + k)
+    gy = _features(n_src, 5, 64)
+    xi_rows = np.random.default_rng(k).integers(
+        0, 64, (b.n_rows, k)).astype(np.int32)
+    ref = jk.drspmm_bwd_bucket(_jax_bucket(b), jnp.asarray(gy),
+                               jnp.asarray(xi_rows), interpret=True)
+    out = tk.drspmm_bwd_bucket(_torch_bucket(b), torch.from_numpy(gy),
+                               torch.from_numpy(xi_rows))
+    assert out.shape == (b.n_rows, k)
+    assert_close(out.numpy(), np.asarray(ref), f"{b.nbr.shape}")
+
+
+@pytest.mark.parametrize("e", MAIN_PATH_WIDTHS)
+def test_spmm_bucket_plain_matches_pallas_padded_slabs(e):
+    """Kernel 12's plain version against ``spmm_dense_bucket`` on slabs of
+    the main path's widths with padding windows mid-row."""
+    b, n_src = _padded_slab(e, e)
+    x = _features(n_src, 6, HIDDEN)
+    ref = jk.spmm_dense_bucket(_jax_bucket(b), jnp.asarray(x),
+                               interpret=True)
+    out = tk.spmm_bucket(_torch_bucket(b), torch.from_numpy(x))
+    assert out.shape == (b.n_rows, HIDDEN)
+    assert_close(out.numpy(), np.asarray(ref), f"{b.nbr.shape}")
+
+
 def test_bucket_loop_accumulates_padding_rows():
     """The padding rows of a bucket repeat row 0: the caller's indexed add
     must accumulate them, so row 0 keeps its real sum."""

@@ -1092,6 +1092,98 @@ def test_bucket_fwd_kernel_deterministic(cuda, r, e):
     assert torch.equal(y1, y2)
 
 
+WIDE_SLAB_R = [1, 3, 40]
+WIDE_SLAB_E = [33, 64, 78, 256, 260, 300, 1000]
+
+
+@pytest.mark.parametrize("dim", [1, 33, 64, 96, 256])
+@pytest.mark.parametrize("e", WIDE_SLAB_E)
+@pytest.mark.parametrize("r", WIDE_SLAB_R)
+def test_spmm_bucket_kernel_wide_slabs(cuda, r, e, dim):
+    """Kernel 12 on slabs whose rows it splits over several warps (E > 32):
+    real slots ending early, padding windows mid-row, all-padding rows.
+    One launch a call."""
+    b, n_src = _wide_slab(r, e, r * 1000 + e, cuda)
+    x = torch.randn((n_src, dim),
+                    generator=torch.Generator().manual_seed(dim)).to(cuda)
+    before = tk.spmm_bucket.launches
+    y = tk.spmm_bucket(b, x)
+    torch.cuda.synchronize()
+    assert tk.spmm_bucket.launches == before + 1
+    assert_close(y.cpu().numpy(), tk.spmm_bucket_plain(b, x).cpu().numpy())
+
+
+def _sampled_columns(r, k, dim, seed, device):
+    """(xi_rows (r, k) int32, the mask of its columns outside [0, dim)):
+    random columns, every third row with one at -1 and one at dim + 7
+    (they sample nothing), every fourth row repeating its first column."""
+    rng = np.random.default_rng(seed)
+    xi = rng.integers(0, dim, (r, k))
+    xi[::3, 0] = -1
+    xi[::3, -1] = dim + 7
+    if k > 2:
+        xi[1::4, 2] = xi[1::4, 1]
+    xi = torch.from_numpy(xi.astype(np.int32))
+    return xi.to(device), ((xi < 0) | (xi >= dim)).to(device)
+
+
+def _bwd_ref(b, gy, xi_rows, outside):
+    """Kernel 11's plain version with the columns outside [0, dim)
+    contributing 0, as the kernel reads them."""
+    ref = tk.drspmm_bwd_bucket_plain(
+        b, gy, xi_rows.clamp(0, gy.shape[1] - 1))
+    return ref.masked_fill(outside, 0.0)
+
+
+@pytest.mark.parametrize("k", [1, 5, 16, 32, 40, 64])
+@pytest.mark.parametrize("e", WIDE_SLAB_E)
+@pytest.mark.parametrize("r", WIDE_SLAB_R)
+def test_bucket_bwd_kernel_wide_slabs(cuda, r, e, k):
+    """Kernel 11 on the slabs of ``test_spmm_bucket_kernel_wide_slabs``
+    at k 1-32 (the narrow walk) and 40, 64 (the wide one), with columns
+    outside the operand and repeated columns.  One launch a call."""
+    b, n_src = _wide_slab(r, e, r * 1000 + e, cuda)
+    gy = torch.randn((n_src, 64),
+                     generator=torch.Generator().manual_seed(k)).to(cuda)
+    xi_rows, outside = _sampled_columns(r, k, 64, k + e, cuda)
+    before = tk.drspmm_bwd_bucket.launches
+    dv = tk.drspmm_bwd_bucket(b, gy, xi_rows)
+    torch.cuda.synchronize()
+    assert tk.drspmm_bwd_bucket.launches == before + 1
+    assert_close(dv.cpu().numpy(),
+                 _bwd_ref(b, gy, xi_rows, outside).cpu().numpy())
+
+
+DETERMINISTIC_SLABS = [(40, 260), (144, 78), (1696, 256), (7568, 64)]
+
+
+@pytest.mark.parametrize("r,e", DETERMINISTIC_SLABS)
+def test_spmm_bucket_kernel_deterministic(cuda, r, e):
+    """Kernel 12's split rows are added in a fixed order: two calls give
+    bit-identical outputs at the main path's bucket shapes."""
+    b, n_src = _wide_slab(r, e, 7, cuda)
+    x = torch.randn((n_src, 64),
+                    generator=torch.Generator().manual_seed(3)).to(cuda)
+    y1 = tk.spmm_bucket(b, x)
+    y2 = tk.spmm_bucket(b, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+
+
+@pytest.mark.parametrize("r,e", DETERMINISTIC_SLABS)
+def test_bucket_bwd_kernel_deterministic(cuda, r, e):
+    """Kernel 11's split rows are added in a fixed order: two calls give
+    bit-identical outputs at the main path's bucket shapes (k 16)."""
+    b, n_src = _wide_slab(r, e, 7, cuda)
+    gy = torch.randn((n_src, 64),
+                     generator=torch.Generator().manual_seed(3)).to(cuda)
+    xi_rows, _ = _sampled_columns(r, K, 64, 5, cuda)
+    d1 = tk.drspmm_bwd_bucket(b, gy, xi_rows)
+    d2 = tk.drspmm_bwd_bucket(b, gy, xi_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(d1, d2)
+
+
 @pytest.mark.parametrize("k_net", [K, HIDDEN])
 def test_trainer_bucket_step_on_card_matches_cpu(cuda, k_net):
     """A single-graph ``backend="bucket"`` step on the card launches
