@@ -48,6 +48,26 @@ weights and optimizer state:
 13. ``learnable-slabs-bucket``: one call of the edge-id slab entry point
     of ``drspmm_learnable`` under ``backend="bucket"``;
 
+and, over fused and quantized collation (``collate_graphs``' defaults):
+
+* ``padded-arena``: kernels 1 and 4 over the first served batch's
+  quantized arenas and over its exact-size arenas: the real rows bit for
+  bit, and each one's profiler time;
+* ``serve-table1-captured``: the Table-1 partitions and jittered (+-10 %)
+  copies served twice (the second time reversed) with ``max_batch=2`` and
+  filler, every batch a replay of its signature's captured CUDA graph held
+  against the model's eager forward of the same batch, and served twice
+  more with ``max_live_buckets=1`` (evictions, re-captures):
+  ``compiles``, ``live_buckets``, ``evictions``, graphs/s, p50/p95;
+* ``train-table1-bucket-batched`` / ``train-table1-serial-batched``:
+  batches of two under ``backend="bucket"`` / ``use_plan=False``, in
+  lockstep with a CPU trainer: kernels 1 and 4, none of 10-12;
+* ``learnable-collated``: ``drspmm_learnable`` over two partitions'
+  collated edge-id arenas (k 16 and 64): kernels 7-9 against their plain
+  versions and against each member's own product;
+* ``train-auto-k``: ``auto_k=True`` for one epoch; the K equals the CPU's
+  ``profile_k``;
+
 and serves the dense LM at qwen3-0.6b's full width (random weights from a
 seed, fp32 on the card, computed in bf16):
 
@@ -202,6 +222,13 @@ def first_layer_operands(model, graph, cfg):
     return xv, xi, h_cell.contiguous()
 
 
+def walked_slots(f) -> int:
+    """Slots the walks of arena ``f`` visit: a quantized arena's padding
+    chunks are walked by no block, so a bound does not count them."""
+    c, br, ec = f.nbr.shape
+    return int((f.walk_end.long() - f.blk_ptr[:-1].long()).sum()) * br * ec
+
+
 def arena_csr(f, n_src):
     """The (super-)arena ``f`` as a CSR matrix (the library yardstick)."""
     warnings.filterwarnings("ignore", message="Sparse")
@@ -247,7 +274,7 @@ def check_kernels(model, cfg, big, small):
     real = int((f.w != 0).sum())
     a_csr = arena_csr(f, xv.shape[0])
     xd = K1._densify(xv, xi, HIDDEN)
-    n_bytes = 4 * (f.blk_ptr.numel() + 2 * f.nbr.numel() + 2 * xv.numel()
+    n_bytes = 4 * (f.blk_ptr.numel() + 2 * walked_slots(f) + 2 * xv.numel()
                    + f.n_arena_rows * HIDDEN)
     b_ms, b_by = bound(n_bytes, 2.0 * real * xv.shape[1])
     rows["drspmm_fwd_arena"] = dict(
@@ -410,7 +437,7 @@ def check_spmm_kernel(model, cfg_dense, big):
         c, br, ec = arena.nbr.shape
         real = int((arena.w != 0).sum())
         a_csr = arena_csr(arena, opnd.shape[0])
-        n_bytes = 4 * (arena.blk_ptr.numel() + 2 * arena.nbr.numel()
+        n_bytes = 4 * (arena.blk_ptr.numel() + 2 * walked_slots(arena)
                        + opnd.numel() + arena.n_arena_rows * opnd.shape[1])
         # each real slot reads a whole operand row: its 32-byte L2 sectors
         sectors = real * -(-4 * opnd.shape[1] // 32) * 32
@@ -885,7 +912,7 @@ def check_bwd_kernels(model, cfg, big, small):
     k = xi.shape[1]
     real = int((f.w != 0).sum())
     a_t = arena_csr(f, gy.shape[0])
-    n_bytes = 4 * (f.blk_ptr.numel() + 2 * f.nbr.numel() + src.numel()
+    n_bytes = 4 * (f.blk_ptr.numel() + 2 * walked_slots(f) + src.numel()
                    + xi.numel() + gy.numel() + f.n_arena_rows * k)
     b_ms, b_by = bound(n_bytes, 2.0 * real * k)
     rows["drspmm_bwd_arena"] = dict(
@@ -954,11 +981,55 @@ def check_bwd_kernels(model, cfg, big, small):
     return rows
 
 
+def record_engine(eng, keep_outputs=False):
+    """Wrap ``eng``'s dispatch and capture to record, for every dispatched
+    batch, how it ran (``first``: the eager run before its signature's
+    capture, ``replay``, or ``eager``: its bucket was evicted while it was
+    prepared), its batch, its requests and (``keep_outputs``) a copy of
+    its output, and for every capture its signature and the kernel
+    launches recorded in it.  Returns ``(seen, captures)``."""
+    from repro_torch.graphs.collate import graph_signature
+    seen, captures = [], []
+    dispatch, capture = eng._dispatch, eng._capture
+
+    def rec_dispatch(prepared):
+        n = len(captures)
+        entry = dispatch(prepared)
+        kind = ("first" if len(captures) > n else
+                "replay" if entry[3] is not None else "eager")
+        seen.append((entry[1], tuple(r.rid for r in entry[0]),
+                     entry[2].clone() if keep_outputs else None, kind))
+        return entry
+
+    def rec_capture(graph):
+        cap, out = capture(graph)
+        captures.append((graph_signature(graph),
+                         {f.__name__: n for f, n in cap.launches.items()}))
+        return cap, out
+    eng._dispatch, eng._capture = rec_dispatch, rec_capture
+    return seen, captures
+
+
+def replay_summary(seen, captures) -> str:
+    """Batches by how they ran, and the launches a replay of each captured
+    signature runs (the ``launches`` counts hold the eager runs' launches
+    and every replay's)."""
+    kinds = {k: sum(1 for s in seen if s[3] == k)
+             for k in ("first", "replay", "eager")}
+    return (f"batches {kinds} (first: the eager run before its capture); "
+            f"launches a replay runs, by captured signature: "
+            f"{[c[1] for c in captures]}")
+
+
 def serve_path(name, model, cfg, graphs, cpu_model, wrappers, expect):
-    """Serve ``graphs`` (max_batch 2), hold every prediction against the
-    CPU forward, and return the kernels' launch counts of this path."""
+    """Serve ``graphs`` (max_batch 2: each signature's first batch runs
+    eagerly before its capture, later ones replay it), hold every
+    prediction against the CPU forward, and return the kernels' launch
+    counts of this path (launches that ran: the eager runs' and the
+    replays')."""
     from repro_torch.serve.circuit_engine import CircuitServeEngine
     eng = CircuitServeEngine(model, cfg, max_batch=2, device="cuda")
+    seen, captures = record_engine(eng)
     for w in wrappers.values():
         w.launches = 0
     rids = [eng.submit(g) for g in graphs]
@@ -966,30 +1037,12 @@ def serve_path(name, model, cfg, graphs, cpu_model, wrappers, expect):
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
     st = eng.stats()
-    log(f"path {name}: {json.dumps(st)} launches={launches}")
+    log(f"path {name}: {json.dumps(st)} launches={launches}; "
+        f"{replay_summary(seen, captures)}")
     for k in expect:
         if launches[k] == 0:
             problem(f"path {name}: kernel {k} was never launched")
-    n_cells = n_far = 0
-    worst = 0.0
-    for rid, g in zip(rids, graphs):
-        r = done[rid]
-        if r.error is not None:
-            problem(f"path {name}: request {rid} failed: {r.error!r}")
-        if r.pred.shape != (g.n_cell,) or not torch.isfinite(
-                torch.from_numpy(r.pred)).all():
-            problem(f"path {name}: request {rid} output malformed")
-        with torch.no_grad():
-            ref = cpu_model(g, cfg).numpy()
-        diff = abs(r.pred - ref)
-        n_cells += diff.size
-        n_far += int((diff > CELL_ATOL).sum())
-        worst = max(worst, float(diff.max()))
-    share = 1.0 - n_far / n_cells
-    log(f"path {name}: {n_cells} cells, {n_far} beyond {CELL_ATOL} of the "
-        f"CPU forward (share within {share}), max |diff| {worst}")
-    if share < CELL_SHARE:
-        problem(f"path {name}: only {share} of cells within {CELL_ATOL}")
+    hold_against_cpu(name, done, rids, graphs, cpu_model, cfg)
     return launches, st
 
 
@@ -1117,16 +1170,18 @@ def drelu_masks(model, graph, cfg):
 
 def lockstep_path(name, cfg, graphs, state, wrappers, expect, forbid,
                   count_of):
-    """Train single graphs on the card for ``cfg.epochs`` epochs, each step
-    in lockstep with a CPU trainer that takes it from the card's weights
-    and optimizer state, on the same graph.  A step's losses must agree
-    within LOCKSTEP_RTOL; where they do not, both forwards' D-ReLU masks
-    are compared, and a step whose masks differ (a near-tied pick that
-    GPU-vs-CPU rounding flips) is held to LOSS_RTOL instead and reported.
-    ``count_of(g)`` gives each kernel's launches for a step on ``g``; the
-    run's counts must equal their sum.  Returns the card's launch
-    counts."""
-    from repro_torch.models.hgnn import DRCircuitGNN, loss_fn
+    """Train single graphs (or collated batches of ``cfg.batch_size``) on
+    the card for ``cfg.epochs`` epochs, each step in lockstep with a CPU
+    trainer that takes it from the card's weights and optimizer state, on
+    the same graphs.  A step's losses must agree within LOCKSTEP_RTOL;
+    where they do not, both forwards' D-ReLU masks are compared, and a
+    step whose masks differ (a near-tied pick that GPU-vs-CPU rounding
+    flips) is held to LOSS_RTOL instead and reported.  ``count_of(g)``
+    gives each kernel's launches for a step on the card's step graph
+    ``g``; the run's counts must equal their sum.  Returns the card's
+    launch counts."""
+    from repro_torch.models.hgnn import (DRCircuitGNN, batched_loss_fn,
+                                         loss_fn)
     from repro_torch.optim.adamw import adamw_update
     from repro_torch.train.circuit_trainer import CircuitTrainer
     trainers = []
@@ -1135,9 +1190,18 @@ def lockstep_path(name, cfg, graphs, state, wrappers, expect, forbid,
         m.load_state_dict(state)
         trainers.append(CircuitTrainer(cfg, FEAT, FEAT, model=m, device=dev))
     gpu, cpu = trainers
+    bs = cfg.batch_size
+    chunks = [graphs[i:i + bs] for i in range(0, len(graphs), bs)]
+
+    def step_graph(tr, chunk):
+        return tr._planned(chunk[0]) if bs == 1 else tr._collate(chunk)[0]
 
     def first_loss(tr):
-        return loss_fn(tr.model, tr._planned(graphs[0]), tr.mp_cfg, tr.spec)
+        if bs == 1:
+            return loss_fn(tr.model, tr._planned(graphs[0]), tr.mp_cfg,
+                           tr.spec)
+        graph, cell_w, _ = tr._collate(chunks[0])
+        return batched_loss_fn(tr.model, graph, cell_w, tr.mp_cfg, tr.spec)
 
     grads = []
     for tr in trainers:
@@ -1161,8 +1225,8 @@ def lockstep_path(name, cfg, graphs, state, wrappers, expect, forbid,
     diffs, flips = [], []
     t = time.perf_counter()
     for ep in range(cfg.epochs):
-        for g in graphs:
-            for k, v in count_of(g).items():
+        for chunk in chunks:
+            for k, v in count_of(step_graph(gpu, chunk)).items():
                 expected[k] = expected.get(k, 0) + v
             # the CPU trainer takes this step from the card's state
             with torch.no_grad():
@@ -1175,10 +1239,10 @@ def lockstep_path(name, cfg, graphs, state, wrappers, expect, forbid,
             pre_state = {k: v.detach().clone()
                          for k, v in cpu.model.state_dict().items()}
             before = {k: w.launches for k, w in wrappers.items()}
-            lg = gpu.train_epoch([g])
+            lg = gpu.train_epoch(chunk)
             for k, w in wrappers.items():      # the step's own launches
                 launches[k] += w.launches - before[k]
-            lc = cpu.train_epoch([g])
+            lc = cpu.train_epoch(chunk)
             d = abs(lg - lc) / abs(lc)
             diffs.append(d)
             if not d <= LOCKSTEP_RTOL:
@@ -1188,8 +1252,8 @@ def lockstep_path(name, cfg, graphs, state, wrappers, expect, forbid,
                 card = DRCircuitGNN(FEAT, FEAT, HIDDEN, LAYERS,
                                     device="cuda")
                 card.load_state_dict(pre_state)
-                ma = drelu_masks(card, gpu._planned(g), gpu.mp_cfg)
-                mb = drelu_masks(pre, cpu._planned(g), cpu.mp_cfg)
+                ma = drelu_masks(card, step_graph(gpu, chunk), gpu.mp_cfg)
+                mb = drelu_masks(pre, step_graph(cpu, chunk), cpu.mp_cfg)
                 n_flip = sum(int((a != b).any(-1).sum())
                              for a, b in zip(ma, mb))
                 flips.append((len(diffs) - 1, n_flip, d))
@@ -1715,6 +1779,347 @@ def serve_lm_engine_path(lm, wrappers):
 
 
 
+def member_rows(batch):
+    """Per node type, the members' real rows in a collated batch."""
+    out = {}
+    for t, off, size in (("cell", "cell_off", "n_cell"),
+                         ("net", "net_off", "n_net")):
+        out[t] = torch.cat([getattr(m, off) + torch.arange(getattr(m, size))
+                            for m in batch.members]).cuda()
+    return out
+
+
+def padded_vs_exact(model, cfg, exact, padded):
+    """Kernels 1 and 4 over the quantized arenas of a batch and over the
+    exact-size arenas of the same members, fed the first layer's operands
+    and the loss's cotangent at the members' rows: the real rows must be
+    bit for bit equal (the walks skip the padding chunks).  Logs each
+    kernel's profiler time on both arenas."""
+    from repro_torch.kernels import drspmm as K1
+    pe, pp = exact.plan, padded.plan
+    re_, rp = member_rows(exact), member_rows(padded)
+    xv, xi, _ = first_layer_operands(model, exact.graph, cfg)
+    gy, _ = backward_operands(model, exact, cfg)
+    xv_p = xv.new_zeros((pp.n_src_total, xv.shape[1]))
+    xi_p = xi.new_zeros((pp.n_src_total, xi.shape[1]))
+    for t, oe, op in zip(pe.src_types, pe.src_off, pp.src_off):
+        xv_p[op + rp[t]] = xv[oe + re_[t]]
+        xi_p[op + rp[t]] = xi[oe + re_[t]]
+    gy_p = gy.new_zeros((pp.n_out_total, gy.shape[1]))
+    for se, sp in zip(pe.segments, pp.segments):
+        gy_p[sp.out_off + rp[se.dst_type]] = gy[se.out_off + re_[se.dst_type]]
+    runs = {
+        ("fwd", "exact"): lambda: K1.drspmm_fwd_arena(pe.fwd, xv, xi, HIDDEN),
+        ("fwd", "padded"): lambda: K1.drspmm_fwd_arena(pp.fwd, xv_p, xi_p,
+                                                       HIDDEN),
+        ("bwd", "exact"): lambda: K1.drspmm_bwd_arena(
+            pe.bwd, pe.bwd_src_rows, gy, xi),
+        ("bwd", "padded"): lambda: K1.drspmm_bwd_arena(
+            pp.bwd, pp.bwd_src_rows, gy_p, xi_p)}
+    out = {}
+    for (d, which), run in runs.items():
+        plan = pe if which == "exact" else pp
+        f = plan.fwd if d == "fwd" else plan.bwd
+        out[d, which] = run().index_select(0, f.gather)
+    n_diff = 0
+    for se, sp in zip(pe.arena_segments, pp.arena_segments):
+        for d, t, off_e, off_p in (
+                ("fwd", se.dst_type, se.arena_out_off, sp.arena_out_off),
+                ("bwd", se.src_type, se.src_out_off, sp.src_out_off)):
+            a = out[d, "padded"][off_p + rp[t]]
+            b = out[d, "exact"][off_e + re_[t]]
+            n_diff += int((a != b).any(-1).sum())
+    times = {k: device_breakdown(lambda: [run() for _ in range(REPS)])[1]
+             / REPS for k, run in runs.items()}
+    ratio = {d: times[d, "padded"] / times[d, "exact"] for d in ("fwd", "bwd")}
+    log(f"phase padded-arena: kernel 1 device ms a call (profiler) on the "
+        f"quantized batch arena {times['fwd', 'padded']} (C={pp.fwd.n_chunks},"
+        f" walked {walked_slots(pp.fwd) // (pp.fwd.row_block * pp.fwd.chunk)}"
+        f" chunks, R_arena={pp.fwd.n_arena_rows}) and on the exact-size "
+        f"arena {times['fwd', 'exact']} (C={pe.fwd.n_chunks}, "
+        f"R_arena={pe.fwd.n_arena_rows}): ratio {ratio['fwd']}; kernel 4 "
+        f"{times['bwd', 'padded']} against {times['bwd', 'exact']} (C="
+        f"{pp.bwd.n_chunks} / {pe.bwd.n_chunks}): ratio {ratio['bwd']} "
+        f"[{CARD}]; real rows that differ: {n_diff}")
+    if n_diff:
+        problem(f"padded and exact arenas give {n_diff} different real rows "
+                f"through kernels 1 and 4")
+    if max(ratio.values()) > 1.5:
+        log(f"phase padded-arena: padding costs more than 1.5x: {ratio}")
+    return times
+
+
+def jittered(graphs, seed):
+    """A copy of each graph's size class with +-10 % in its node counts,
+    made from ``seed`` (the generator's partitions at those sizes)."""
+    import numpy as np
+    from repro_torch.graphs.generator import (generate_partition,
+                                              pack_graph_parallel)
+    rng = np.random.default_rng(seed)
+    out = []
+    for g in graphs:
+        n_cell = int(g.n_cell * rng.uniform(0.9, 1.1))
+        n_net = int(g.n_net * rng.uniform(0.9, 1.1))
+        coo, xc, xn, y = generate_partition(rng, n_cell, n_net, FEAT, FEAT)
+        out.append(pack_graph_parallel(coo, n_cell, n_net, xc, xn, y))
+    return out
+
+
+def captured_serve_path(model, cfg, stream, cpu_model, wrappers):
+    """serve-table1-captured: ``stream`` served twice (max_batch 2,
+    filler to full) by one engine, then by an engine with one live
+    bucket: the stream and its reverse one batch a ``run()`` (each bucket
+    change evicts, each return captures again), then the stream in one
+    ``run()``, where the packing pool evicts a bucket while its batch
+    waits for dispatch (that batch replays or runs eagerly, and no state
+    outlives the live buckets).  Every dispatched
+    batch's output (a replay of its signature's graph, or the eager run
+    before its capture) is held against the model's eager forward of the
+    same collated batch; the wrappers count the launches that ran (eager
+    runs and replays), a capture's recorded launches only as they
+    replay."""
+    from repro_torch.serve.circuit_engine import CircuitServeEngine
+    from repro_torch.train.metrics import percentile
+    total = dict.fromkeys(wrappers, 0)
+    for name, max_live in (("serve-table1-captured", None),
+                           ("serve-table1-captured-evict", 1)):
+        eng = CircuitServeEngine(model, cfg, max_batch=2, pad_to_full=True,
+                                 max_live_buckets=max_live, device="cuda")
+        seen, captures = record_engine(eng, keep_outputs=True)
+        zero_counts(wrappers)
+        passes = []
+        orders = (stream, stream[::-1]) if max_live is None \
+            else (stream, stream[::-1], stream)
+        for i, order in enumerate(orders):
+            # one live bucket: the first two passes one batch a run()
+            per_batch = max_live is not None and i < 2
+            groups = {}
+            for g in order:
+                groups.setdefault(eng._group_key(g), []).append(g)
+            batches = [gs[j:j + 2] for gs in groups.values()
+                       for j in range(0, len(gs), 2)] if per_batch \
+                else [order]
+            order = [g for gs in batches for g in gs]
+            rids, done = [], {}
+            t = time.perf_counter()
+            for gs in batches:
+                rids += [eng.submit(g) for g in gs]
+                done = eng.run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            lat = sorted(done[r].latency_ms for r in rids)
+            passes.append(dict(
+                graphs_per_s=len(rids) / dt, p50_ms=percentile(lat, 0.5),
+                p95_ms=percentile(lat, 0.95), compiles=eng.compiles,
+                live_buckets=eng.live_buckets, evictions=eng.evictions,
+                buckets_held=len(eng._buckets),
+                runs=len(batches) if per_batch else 1))
+            if i == 0 and max_live is None:
+                hold_against_cpu(name, done, rids, order, cpu_model, cfg)
+            if any(done[r].error is not None for r in rids):
+                problem(f"path {name}: a request failed")
+            if len(eng._buckets) > eng.live_buckets:
+                problem(f"path {name}: {len(eng._buckets)} bucket states "
+                        f"held for {eng.live_buckets} live buckets")
+        launches = lm_counts(wrappers)
+        for k, v in launches.items():
+            total[k] += v
+        # every replay against the eager forward of its own batch
+        n_equal, worst = 0, 0.0
+        replays = [s for s in seen if s[3] == "replay"]
+        for batch, _rids, out, _kind in replays:
+            with torch.inference_mode():
+                ref = model(batch.graph, cfg)
+            n_equal += bool(bit_equal(out, ref))
+            worst = max(worst, float((out - ref).abs().max()))
+        sigs = [s[0].signature for s in seen]
+        n_sigs = len(set(sigs))
+        # a replay of a signature whose graph was captured over other
+        # members: the check that no schedule is replayed stale
+        shared = sum(1 for i in range(len(seen)) for j in range(i)
+                     if seen[i][3] == "replay" and sigs[i] == sigs[j]
+                     and set(seen[i][1]) != set(seen[j][1]))
+        log(f"path {name}: passes (cold with captures, the stream "
+            f"reversed{', the stream in one run' if max_live else ''}) "
+            f"{json.dumps(passes)} [{CARD}]; {len(seen)} batches, "
+            f"{n_sigs} signatures, {len(captures)} captures, compiles "
+            f"{eng.compiles}, evictions {eng.evictions}; {shared} replays "
+            f"of a signature first served with other members; replay vs "
+            f"eager: {n_equal} of {len(replays)} bit-equal, max |diff| "
+            f"{worst} (limit: bit-equal, since a replay runs the captured "
+            f"launches on the same tables); launches={launches}; "
+            f"{replay_summary(seen, captures)}")
+        if (max_live is None and not replays) or n_equal != len(replays):
+            problem(f"path {name}: {len(replays) - n_equal} of "
+                    f"{len(replays)} replays differ from the eager forward "
+                    f"(max |diff| {worst})")
+        if eng.compiles != len(captures):
+            problem(f"path {name}: compiles {eng.compiles} but "
+                    f"{len(captures)} captures")
+        if max_live is None:
+            if eng.compiles != n_sigs:
+                problem(f"path {name}: {eng.compiles} captures for {n_sigs} "
+                        f"signatures with no eviction")
+            if shared == 0:
+                problem(f"path {name}: no replay of a signature first "
+                        f"served with other members")
+        elif eng.evictions == 0 or eng.compiles <= n_sigs:
+            problem(f"path {name}: {eng.evictions} evictions and "
+                    f"{eng.compiles} captures for {n_sigs} signatures: no "
+                    f"re-capture after an eviction")
+        check_launches(name, launches, ["drspmm_fwd_arena"],
+                       ["drspmm_bwd_arena", "drspmm_fwd_bucket"])
+    return total
+
+
+def hold_against_cpu(name, done, rids, graphs, cpu_model, cfg):
+    """Every served prediction against the port's CPU forward of its own
+    graph: a share CELL_SHARE of cells within CELL_ATOL."""
+    n_cells = n_far = 0
+    worst = 0.0
+    for rid, g in zip(rids, graphs):
+        r = done[rid]
+        if r.error is not None:
+            problem(f"path {name}: request {rid} failed: {r.error!r}")
+            continue
+        if r.pred.shape != (g.n_cell,) or not torch.isfinite(
+                torch.from_numpy(r.pred)).all():
+            problem(f"path {name}: request {rid} output malformed")
+        with torch.no_grad():
+            ref = cpu_model(g, cfg).numpy()
+        diff = abs(r.pred - ref)
+        n_cells += diff.size
+        n_far += int((diff > CELL_ATOL).sum())
+        worst = max(worst, float(diff.max()))
+    share = 1.0 - n_far / max(n_cells, 1)
+    log(f"path {name}: {n_cells} cells, {n_far} beyond {CELL_ATOL} of the "
+        f"CPU forward (share within {share}), max |diff| {worst}")
+    if share < CELL_SHARE:
+        problem(f"path {name}: only {share} of cells within {CELL_ATOL}")
+
+
+def learnable_collated_path(graphs, wrappers):
+    """learnable-collated: ``collate_graphs(with_eids=True)`` over two
+    partitions and ``drspmm_learnable`` over its quantized ``near``
+    edge-id arenas with the members' weights concatenated
+    (``concat_edge_weights``), at k = 16 and k = 64 (the narrow and the
+    wide walks): kernels 7, 8 and 9 against their plain versions on the
+    batch's tables, and the output and both gradients against each
+    member's own product."""
+    from repro_torch.graphs.collate import collate_graphs
+    from repro_torch.graphs.ell import ell_to_coo, pack_fused_eid_pair
+    from repro_torch.kernels import drspmm as K1
+    from repro_torch.kernels import ops
+    batch = collate_graphs(graphs[:2], with_eids=True, device="cuda")
+    es, nnz = batch.graph.edges["near"], batch.edge_nnz["near"]
+    g = torch.Generator().manual_seed(SEED + 5)
+    coo = [ell_to_coo(m.edges["near"].adj) for m in graphs[:2]]
+    member_ws = [(torch.rand(c[0].shape[0], generator=g) + 0.1).cuda()
+                 for c in coo]
+    w_cat = batch.concat_edge_weights("near", member_ws)
+    n = batch.graph.n_cell
+    tol = lambda ref: 1e-5 * max(1.0, float(ref.abs().max()))
+    total = dict.fromkeys(wrappers, 0)
+    for k in (K, HIDDEN):
+        x = torch.randn((n, HIDDEN), generator=g).cuda()
+        xi = torch.sort(torch.topk(x, k, dim=1).indices, dim=1).values \
+            .to(torch.int32).contiguous()
+        xv = torch.gather(x, 1, xi.long()).contiguous()
+        gy = torch.randn((n, HIDDEN), generator=g).cuda()
+        zero_counts(wrappers)
+        w = w_cat.clone().requires_grad_(True)
+        v = xv.clone().requires_grad_(True)
+        y = ops.drspmm_learnable(es.adj, es.adj_t, nnz, w, v, xi, HIDDEN)
+        y.backward(gy)
+        torch.cuda.synchronize()
+        launches = lm_counts(wrappers)
+        for key, val in launches.items():
+            total[key] += val
+        errs = {}
+        for kname, kern, plain in (
+                ("drspmm_fwd_learnable",
+                 lambda: K1.drspmm_fwd_learnable(es.adj, nnz, w_cat, xv, xi,
+                                                 HIDDEN),
+                 lambda: K1.drspmm_fwd_learnable_plain(es.adj, nnz, w_cat,
+                                                       xv, xi, HIDDEN)),
+                ("drspmm_bwd_learnable",
+                 lambda: K1.drspmm_bwd_learnable(es.adj_t, nnz, w_cat, gy,
+                                                 xi),
+                 lambda: K1.drspmm_bwd_learnable_plain(es.adj_t, nnz, w_cat,
+                                                       gy, xi)),
+                ("drspmm_dw_learnable",
+                 lambda: K1.drspmm_dw_learnable(es.adj, nnz, gy, xv, xi),
+                 lambda: K1.drspmm_dw_learnable_plain(es.adj, nnz, gy, xv,
+                                                      xi))):
+            a, ref = kern(), plain()
+            errs[kname] = float((a - ref).abs().max())
+            if not torch.allclose(a, ref, rtol=1e-5, atol=tol(ref)):
+                problem(f"learnable-collated: {kname} at k {k} disagrees "
+                        f"with its plain version: {errs[kname]}")
+        m_err = 0.0
+        for i, (m, (dst, src, _w), mw) in enumerate(
+                zip(batch.members, coo, member_ws)):
+            f, ft, _order, m_nnz = pack_fused_eid_pair(dst, src, m.n_cell,
+                                                       m.n_cell)
+            rows = slice(m.cell_off, m.cell_off + m.n_cell)
+            off = batch.edge_eid_offsets["near"][i]
+            wm = mw.clone().requires_grad_(True)
+            vm = xv[rows].clone().requires_grad_(True)
+            ym = ops.drspmm_learnable(f, ft, m_nnz, wm, vm,
+                                      xi[rows].contiguous(), HIDDEN)
+            ym.backward(gy[rows])
+            for a, ref in ((y[rows], ym), (w.grad[off:off + m_nnz], wm.grad),
+                           (v.grad[rows], vm.grad)):
+                m_err = max(m_err, float((a - ref).abs().max()))
+                if not torch.allclose(a, ref, rtol=1e-5, atol=tol(ref)):
+                    problem(f"learnable-collated: the batch at k {k} "
+                            f"disagrees with member {m} on its own edges")
+        log(f"path learnable-collated: k={k} arenas fwd "
+            f"{tuple(es.adj.nbr.shape)} bwd {tuple(es.adj_t.nbr.shape)}, "
+            f"nnz {nnz} (exact "
+            f"{batch.edge_nnz_exact['near']}); kernel vs plain max |diff| "
+            f"{errs}; batch vs members max |diff| {m_err}; "
+            f"launches={launches}")
+        check_launches("learnable-collated", launches,
+                       ["drspmm_fwd_learnable", "drspmm_bwd_learnable",
+                        "drspmm_dw_learnable"])
+    return total
+
+
+def auto_k_path(graphs, state, wrappers):
+    """train-auto-k: ``CircuitTrainConfig(auto_k=True)`` on the card for
+    one epoch of batches of two; the K it trains with equals a CPU
+    trainer's ``profile_k`` on the same graphs."""
+    from repro_torch.models.hgnn import DRCircuitGNN
+    from repro_torch.train.circuit_trainer import (CircuitTrainConfig,
+                                                   CircuitTrainer)
+    cfg = CircuitTrainConfig(hidden=HIDDEN, n_layers=LAYERS, epochs=1,
+                             batch_size=2, auto_k=True)
+    m = DRCircuitGNN(FEAT, FEAT, HIDDEN, LAYERS, device="cuda")
+    m.load_state_dict(state)
+    gpu = CircuitTrainer(cfg, FEAT, FEAT, model=m, device="cuda")
+    zero_counts(wrappers)
+    t = time.perf_counter()
+    hist = gpu.fit(graphs)["history"]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    launches = lm_counts(wrappers)
+    cpu = CircuitTrainer(CircuitTrainConfig(hidden=HIDDEN, n_layers=LAYERS),
+                         FEAT, FEAT, device="cpu")
+    ks = cpu.profile_k(graphs)
+    got = {"cell": gpu.mp_cfg.k_cell, "net": gpu.mp_cfg.k_net}
+    log(f"path train-auto-k: K on the card {got}, CPU profile_k {ks}; fit "
+        f"{fit_s:.3f} s, losses {gpu.step_loss}, launches={launches}")
+    if got != ks:
+        problem(f"train-auto-k: K {got} on the card, {ks} by the CPU")
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        problem(f"train-auto-k: non-finite loss {hist}")
+    if max(ks.values()) < HIDDEN:
+        check_launches("train-auto-k", launches,
+                       ["drspmm_fwd_arena", "drspmm_bwd_arena"])
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device visible")
@@ -1809,16 +2214,32 @@ def main() -> None:
     log(f"phase kernels: {time.perf_counter() - t:.1f} s")
 
     # where a batch's time goes: host collation (numpy packing + the
-    # pinned copies) against the device forward of the same batch
-    t = time.perf_counter()
-    collate_graphs(table1[:2], device="cuda")
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t) * 1e3
+    # pinned copies: fused and quantized as served, fused at exact sizes,
+    # and the exact bucketed packing without arenas or plan) against the
+    # device forward of the same batch, quantized and exact
+    host_ms = {}
+    for what, kw in (("fused-quantized", {}), ("fused-exact",
+                                               {"quantize": False}),
+                     ("bucketed-exact", {"fused": False,
+                                         "quantize": False})):
+        t = time.perf_counter()
+        collate_graphs(table1[:2], device="cuda", **kw)
+        torch.cuda.synchronize()
+        host_ms[what] = (time.perf_counter() - t) * 1e3
+    exact = collate_graphs(table1[:2], quantize=False, device="cuda")
     with torch.inference_mode():
-        fwd_ms = {c.drelu_backend: cuda_ms(lambda: model(big.graph, c), 5)
-                  for c in (topk, bisect)}
-    log(f"phase breakdown: collate 2 Table-1 partitions {host_ms:.3f} ms on "
-        f"the host; batch forward on the card {fwd_ms} ms")
+        fwd_ms = {f"{c.drelu_backend}-{w}": cuda_ms(lambda: model(b.graph, c),
+                                                    5)
+                  for c in (topk, bisect)
+                  for w, b in (("quantized", big), ("exact", exact))}
+    log(f"phase breakdown: collate 2 Table-1 partitions on the host "
+        f"{host_ms} ms; batch forward on the card {fwd_ms} ms [{CARD}]")
+
+    # kernels 1 and 4 on the quantized arenas against the exact-size ones
+    t = time.perf_counter()
+    padded_vs_exact(model, topk, exact, big)
+    del exact
+    log(f"phase padded-arena: {time.perf_counter() - t:.1f} s")
 
     wrappers = {"drspmm_fwd_arena": drspmm_fwd_arena,
                 "drspmm_dense_tier_fwd": drspmm_dense_tier_fwd,
@@ -1849,6 +2270,17 @@ def main() -> None:
         for k, v in launches.items():
             total[k] += v
         log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+
+    # captured serving: Table-1 partitions and jittered copies
+    t = time.perf_counter()
+    stream = table1 + jittered(table1, SEED + 9)
+    log(f"phase jitter: {[(g.n_cell, g.n_net) for g in stream[5:]]} in "
+        f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches = captured_serve_path(model, topk, stream, cpu_model, wrappers)
+    for k, v in launches.items():
+        total[k] += v
+    log(f"phase serve-table1-captured: {time.perf_counter() - t:.1f} s")
 
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
     train = dict(hidden=HIDDEN, n_layers=LAYERS, k_cell=K, k_net=K,
@@ -1920,7 +2352,22 @@ def main() -> None:
              ["drspmm_fwd_arena", "drspmm_bwd_arena",
               "drspmm_dense_tier_fwd", "drspmm_dense_tier_bwd"],
              bucket_kernels + ["spmm_arena"] + learnable_kernels,
-             serial_counts)):
+             serial_counts),
+            # batches of two: their fused arenas run kernels 1 and 4 under
+            # either setting, one launch per relation (nnz -1: no dense
+            # tier), no per-bucket kernel
+            ("train-table1-bucket-batched",
+             CircuitTrainConfig(**dict(serial, batch_size=2),
+                                backend="bucket"), table1,
+             ["drspmm_fwd_arena", "drspmm_bwd_arena"],
+             fused_only[1:2] + fused_only[3:] + bucket_kernels
+             + learnable_kernels, serial_counts),
+            ("train-table1-serial-batched",
+             CircuitTrainConfig(**dict(serial, batch_size=2),
+                                use_plan=False), table1,
+             ["drspmm_fwd_arena", "drspmm_bwd_arena"],
+             fused_only[1:2] + fused_only[3:] + bucket_kernels
+             + learnable_kernels, serial_counts)):
         t = time.perf_counter()
         launches = lockstep_path(name, cfg, graphs, state, wrappers, expect,
                                  forbid, count_of)
@@ -1944,6 +2391,16 @@ def main() -> None:
     for k, v in launches.items():
         total[k] += v
     log(f"phase learnable-slabs-bucket: {time.perf_counter() - t:.1f} s")
+
+    for name, run in (
+            ("learnable-collated",
+             lambda: learnable_collated_path(table1, wrappers)),
+            ("train-auto-k", lambda: auto_k_path(table1, state, wrappers))):
+        t = time.perf_counter()
+        launches = run()
+        for k, v in launches.items():
+            total[k] += v
+        log(f"phase {name}: {time.perf_counter() - t:.1f} s")
 
     # the dense LM at qwen3-0.6b's full width and depth (bf16)
     t = time.perf_counter()

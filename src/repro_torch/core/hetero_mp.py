@@ -19,7 +19,8 @@ k is at least the width, or every type with D-ReLU off, stays dense.
 * **serial path** (every other config): the reference's per-relation loop
   over ``graph.edges``, one ``ops.drspmm`` per CBSR-sourced relation and
   one ``ops.spmm`` per dense-sourced one, each with ``cfg.backend``, then
-  the same merge.
+  the same merge.  A collated batch's edges are fused arenas, which run
+  the fused kernels under either backend.
 """
 
 from __future__ import annotations
@@ -120,18 +121,6 @@ def plan_applicable(cfg: HeteroMPConfig, hidden: int) -> bool:
     by the model and the trainer's plan attachment."""
     return (cfg.use_plan and cfg.use_drelu and cfg.backend == "fused"
             and cfg.k_cell < hidden and cfg.k_net < hidden)
-
-
-def single_graph_field(cfg) -> Optional[str]:
-    """The field of ``cfg`` (a :class:`HeteroMPConfig` or a trainer config)
-    that confines it to single graphs, or None: ``backend="bucket"`` and
-    ``use_plan=False`` run the per-relation ops over a graph's own
-    packings.  The reference collates batches into fused arenas, which
-    upgrade both to the fused kernels; the port's collation packs bucket
-    slabs, so batches and serving refuse both."""
-    if cfg.backend != "fused":
-        return "backend"
-    return None if cfg.use_plan else "use_plan"
 
 
 def _aggregate(graph: CircuitGraph, etype: str, x_src: torch.Tensor,

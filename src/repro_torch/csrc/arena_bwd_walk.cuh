@@ -12,7 +12,7 @@
 // built.
 //
 // One thread block per output row-block (the trailing all-zero sentinel
-// included).  A block walks its chunk run blk_ptr[b]..blk_ptr[b+1] and keeps
+// included).  A block walks its chunk run (its schedule entry) and keeps
 // each output row's sums in registers, so the result is fp32, has no
 // atomics and is deterministic; a block with no chunk writes zeros.
 //
@@ -171,17 +171,17 @@ __global__ void __launch_bounds__(32 * kBwdMaxRows)
 // together.
 template <int NG, class W>
 __global__ void __launch_bounds__(32 * kBwdMaxRows, kBwdWideMinBlocks)
-    arena_bwd_wide(const int* __restrict__ blk_ptr,
+    arena_bwd_wide(const int4* __restrict__ sched,
                    const int* __restrict__ nbr, W wsrc,
                    const int* __restrict__ src_rows,
                    const float* __restrict__ gy, const int* __restrict__ xi,
-                   float* __restrict__ out, int n_blocks, int ec, int k,
-                   int dim) {
+                   float* __restrict__ out, int ec, int k, int dim) {
   constexpr int S = 2 * kBwdWideSlots / NG;
   static_assert(S >= 1 && S <= 32 && 32 % S == 0,
                 "a batch of slots must divide a 32-slot window");
   using WS = WeightStages<W>;
-  const int b = n_blocks - 1 - blockIdx.x;
+  const int4 blk = sched[blockIdx.x];
+  const int b = blk.x;
   const int br = blockDim.y;
   const int r = threadIdx.y;
   const int lane = threadIdx.x;
@@ -197,8 +197,8 @@ __global__ void __launch_bounds__(32 * kBwdMaxRows, kBwdWideMinBlocks)
     if (t < k && (unsigned)xr[t] < (unsigned)dim) col[j] = xr[t];
   }
 
-  const int c0 = blk_ptr[b];
-  const int n = (blk_ptr[b + 1] - c0) * ec;   // the row's slots
+  const int c0 = blk.y;
+  const int n = (blk.z - c0) * ec;            // the row's slots
   const int sh = __ffs(ec) - 1;               // ec is 4, 8 or 16
   // lane l holds slot s0 + l of the current window (tgt_cur, w_cur) and of
   // the next one (tgt_nxt, its weight's first stage raw_nxt)
@@ -261,11 +261,10 @@ static void arena_bwd_launch_narrow(const int* sched, const int* nbr, W wsrc,
 
 // Launch the walk for any k <= 256 and Ec in {4, 8, 16}; returns a CUDA
 // error code (cudaGetLastError right after the launch).  ``sched`` is the
-// narrow walk's launch order, (n_blocks, 4) int32 rows (row-block, its
-// first chunk, its end chunk, 0), longest chunk run first; the wide walk
-// takes the blocks in reverse arena order.
+// launch order of both walks, (n_blocks, 4) int32 rows (row-block, its
+// first chunk, its end chunk, 0), longest chunk run first.
 template <class W>
-static int arena_bwd_dispatch(const int* blk_ptr, const int* sched,
+static int arena_bwd_dispatch(const int* sched,
                               const int* nbr, W wsrc, const int* src_rows,
                               const float* gy, const int* xi, float* out,
                               int n_blocks, int row_block, int ec, int k,
@@ -275,6 +274,7 @@ static int arena_bwd_dispatch(const int* blk_ptr, const int* sched,
     return (int)cudaErrorInvalidValue;
   if (n_blocks == 0) return 0;
   const dim3 wide(32, row_block);
+  const int4* blocks = reinterpret_cast<const int4*>(sched);
   if (k <= 4)
     arena_bwd_launch_narrow<4>(sched, nbr, wsrc, src_rows, gy, xi, out, n_blocks, row_block, ec, k, dim, stream);
   else if (k <= 8)
@@ -284,10 +284,10 @@ static int arena_bwd_dispatch(const int* blk_ptr, const int* sched,
   else if (k <= 32)
     arena_bwd_launch_narrow<32>(sched, nbr, wsrc, src_rows, gy, xi, out, n_blocks, row_block, ec, k, dim, stream);
   else if (k <= 64)
-    arena_bwd_wide<2, W><<<n_blocks, wide, 0, stream>>>(blk_ptr, nbr, wsrc, src_rows, gy, xi, out, n_blocks, ec, k, dim);
+    arena_bwd_wide<2, W><<<n_blocks, wide, 0, stream>>>(blocks, nbr, wsrc, src_rows, gy, xi, out, ec, k, dim);
   else if (k <= 128)
-    arena_bwd_wide<4, W><<<n_blocks, wide, 0, stream>>>(blk_ptr, nbr, wsrc, src_rows, gy, xi, out, n_blocks, ec, k, dim);
+    arena_bwd_wide<4, W><<<n_blocks, wide, 0, stream>>>(blocks, nbr, wsrc, src_rows, gy, xi, out, ec, k, dim);
   else
-    arena_bwd_wide<8, W><<<n_blocks, wide, 0, stream>>>(blk_ptr, nbr, wsrc, src_rows, gy, xi, out, n_blocks, ec, k, dim);
+    arena_bwd_wide<8, W><<<n_blocks, wide, 0, stream>>>(blocks, nbr, wsrc, src_rows, gy, xi, out, ec, k, dim);
   return (int)cudaGetLastError();
 }

@@ -77,8 +77,8 @@
 //    x_idx is read and no host code looks at it;
 //  * issues no load for a padding slot and skips S slots of padding (all
 //    weights 0) warp-uniformly;
-//  * takes the row-blocks in reverse arena order, block n_blocks-1-i
-//    first: a single arena stores its degree buckets in ascending degree.
+//  * takes its row-blocks in the narrow walk's schedule order (longest
+//    chunk run first), each entry the block and its chunk range.
 // tools/arena_fwd_probe.py times the walk at other kWideParts and
 // kWidePairs.
 #pragma once
@@ -287,16 +287,16 @@ constexpr int kWidePairs = 8;   // pairs a lane has in flight
 // The parts' sums are added in the order p = 0, 1, ... at the end.
 template <int DPL, int NG, class W>
 __global__ void __launch_bounds__(32 * kFwdMaxRows * kWideParts)
-    arena_fwd_wide(const int* __restrict__ blk_ptr,
+    arena_fwd_wide(const int4* __restrict__ sched,
                    const int* __restrict__ nbr, W wsrc,
                    const float* __restrict__ xv, const int* __restrict__ xi,
-                   float* __restrict__ out, int n_blocks, int ec, int k,
-                   int dim) {
+                   float* __restrict__ out, int ec, int k, int dim) {
   constexpr int S = kWidePairs / NG;
   using WS = WeightStages<W>;
   // one owner table a warp; after the walk, the parts' partial rows
   __shared__ int owner_tab[kFwdMaxRows * kWideParts][32 * DPL];
-  const int b = n_blocks - 1 - blockIdx.x;
+  const int4 blk = sched[blockIdx.x];
+  const int b = blk.x;
   const int br = blockDim.y / kWideParts;
   const int r = threadIdx.y % br;
   const int p = threadIdx.y / br;
@@ -309,8 +309,8 @@ __global__ void __launch_bounds__(32 * kFwdMaxRows * kWideParts)
 #pragma unroll
   for (int j = 0; j < DPL; ++j) acc[j] = 0.f;
 
-  const int c0 = blk_ptr[b];
-  const int n = (blk_ptr[b + 1] - c0) * ec;  // the row's slots
+  const int c0 = blk.y;
+  const int n = (blk.z - c0) * ec;           // the row's slots
   const int lo = n * p / kWideParts;         // this part: slots [lo, hi)
   const int hi = n * (p + 1) / kWideParts;
   const int sh = __ffs(ec) - 1;              // ec is 4, 8 or 16
@@ -415,24 +415,24 @@ __global__ void __launch_bounds__(32 * kFwdMaxRows * kWideParts)
 }
 
 template <int DPL, class W>
-static int arena_fwd_launch_ec(const int* blk_ptr, const int* sched,
+static int arena_fwd_launch_ec(const int* sched,
                                const int* nbr, W wsrc,
                                const float* xv, const int* xi, float* out,
                                int n_blocks, int row_block, int ec, int k,
                                int dim, cudaStream_t stream) {
   if (ec != 4 && ec != 8 && ec != 16) return (int)cudaErrorInvalidValue;
+  const int4* blocks = reinterpret_cast<const int4*>(sched);
   if (k > 32) {  // wide CBSR rows: kWideParts warps a row
     const dim3 wide(32, row_block * kWideParts);
     if (k <= 64)
-      arena_fwd_wide<DPL, 2, W><<<n_blocks, wide, 0, stream>>>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, ec, k, dim);
+      arena_fwd_wide<DPL, 2, W><<<n_blocks, wide, 0, stream>>>(blocks, nbr, wsrc, xv, xi, out, ec, k, dim);
     else if (k <= 128)
-      arena_fwd_wide<DPL, 4, W><<<n_blocks, wide, 0, stream>>>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, ec, k, dim);
+      arena_fwd_wide<DPL, 4, W><<<n_blocks, wide, 0, stream>>>(blocks, nbr, wsrc, xv, xi, out, ec, k, dim);
     else
-      arena_fwd_wide<DPL, 8, W><<<n_blocks, wide, 0, stream>>>(blk_ptr, nbr, wsrc, xv, xi, out, n_blocks, ec, k, dim);
+      arena_fwd_wide<DPL, 8, W><<<n_blocks, wide, 0, stream>>>(blocks, nbr, wsrc, xv, xi, out, ec, k, dim);
     return 0;
   }
   // KP lanes a row: four rows a warp at k <= 8, two at k <= 16
-  const int4* blocks = reinterpret_cast<const int4*>(sched);
   if (k <= 8)
     arena_fwd_narrow<DPL, 8, W><<<n_blocks, dim3(32, (row_block + 3) / 4 * kNarrowParts), 0, stream>>>(blocks, nbr, wsrc, xv, xi, out, row_block, ec, k, dim);
   else if (k <= 16)
@@ -444,11 +444,10 @@ static int arena_fwd_launch_ec(const int* blk_ptr, const int* sched,
 
 // Launch the walk for any dim <= 256 and Ec in {4, 8, 16}; returns a CUDA
 // error code (cudaGetLastError right after the launch).  ``sched`` is the
-// narrow walk's launch order, (n_blocks, 4) int32 rows (row-block, its
-// first chunk, its end chunk, 0), longest chunk run first; the wide walk
-// takes the blocks in reverse arena order.
+// launch order of both walks, (n_blocks, 4) int32 rows (row-block, its
+// first chunk, its end chunk, 0), longest chunk run first.
 template <class W>
-static int arena_fwd_dispatch(const int* blk_ptr, const int* sched,
+static int arena_fwd_dispatch(const int* sched,
                               const int* nbr, W wsrc,
                               const float* xv, const int* xi, float* out,
                               int n_blocks, int row_block, int ec, int k,
@@ -458,14 +457,14 @@ static int arena_fwd_dispatch(const int* blk_ptr, const int* sched,
   if (n_blocks == 0) return 0;
   int rc;
   switch ((dim + 31) / 32) {
-    case 1: rc = arena_fwd_launch_ec<1>(blk_ptr, sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
-    case 2: rc = arena_fwd_launch_ec<2>(blk_ptr, sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
-    case 3: rc = arena_fwd_launch_ec<3>(blk_ptr, sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
-    case 4: rc = arena_fwd_launch_ec<4>(blk_ptr, sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
-    case 5: rc = arena_fwd_launch_ec<5>(blk_ptr, sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
-    case 6: rc = arena_fwd_launch_ec<6>(blk_ptr, sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
-    case 7: rc = arena_fwd_launch_ec<7>(blk_ptr, sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
-    case 8: rc = arena_fwd_launch_ec<8>(blk_ptr, sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
+    case 1: rc = arena_fwd_launch_ec<1>(sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
+    case 2: rc = arena_fwd_launch_ec<2>(sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
+    case 3: rc = arena_fwd_launch_ec<3>(sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
+    case 4: rc = arena_fwd_launch_ec<4>(sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
+    case 5: rc = arena_fwd_launch_ec<5>(sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
+    case 6: rc = arena_fwd_launch_ec<6>(sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
+    case 7: rc = arena_fwd_launch_ec<7>(sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
+    case 8: rc = arena_fwd_launch_ec<8>(sched, nbr, wsrc, xv, xi, out, n_blocks, row_block, ec, k, dim, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (rc != 0) return rc;

@@ -13,13 +13,13 @@
 // ``sched`` is the arena's launch order (drspmm.py, _arena_sched).
 #include "arena_bwd_walk.cuh"
 
-extern "C" int drspmm_arena_bwd(const int* blk_ptr, const int* sched,
+extern "C" int drspmm_arena_bwd(const int* sched,
                                 const int* nbr, const float* w,
                                 const int* src_rows, const float* gy,
                                 const int* xi, float* out, int n_blocks,
                                 int row_block, int ec, int k, int dim,
                                 cudaStream_t stream) {
-  return arena_bwd_dispatch(blk_ptr, sched, nbr, FixedWeights{w}, src_rows,
+  return arena_bwd_dispatch(sched, nbr, FixedWeights{w}, src_rows,
                             gy, xi, out, n_blocks, row_block, ec, k, dim,
                             stream);
 }

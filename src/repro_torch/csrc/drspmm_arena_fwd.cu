@@ -11,12 +11,12 @@
 // ``sched`` is the arena's launch order (drspmm.py, _arena_sched).
 #include "arena_fwd_walk.cuh"
 
-extern "C" int drspmm_arena_fwd(const int* blk_ptr, const int* sched,
+extern "C" int drspmm_arena_fwd(const int* sched,
                                 const int* nbr, const float* w,
                                 const float* xv, const int* xi, float* out,
                                 int n_blocks, int row_block, int ec, int k,
                                 int dim, cudaStream_t stream) {
-  return arena_fwd_dispatch(blk_ptr, sched, nbr, FixedWeights{w}, xv, xi,
+  return arena_fwd_dispatch(sched, nbr, FixedWeights{w}, xv, xi,
                             out, n_blocks, row_block, ec, k, dim, stream);
 }
 

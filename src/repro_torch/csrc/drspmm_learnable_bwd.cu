@@ -16,14 +16,14 @@
 // ``sched`` (drspmm.py, _arena_sched) orders the narrow walk's row-blocks.
 #include "arena_bwd_walk.cuh"
 
-extern "C" int drspmm_learnable_bwd(const int* blk_ptr, const int* sched,
+extern "C" int drspmm_learnable_bwd(const int* sched,
                                     const int* nbr, const int* eid,
                                     const float* w_canon, const int* rows,
                                     const float* gy, const int* xi,
                                     float* out, int n_blocks, int row_block,
                                     int ec, int k, int dim,
                                     cudaStream_t stream) {
-  return arena_bwd_dispatch(blk_ptr, sched, nbr, CanonWeights{eid, w_canon},
+  return arena_bwd_dispatch(sched, nbr, CanonWeights{eid, w_canon},
                             rows, gy, xi, out, n_blocks, row_block, ec, k,
                             dim, stream);
 }

@@ -16,13 +16,13 @@
 // w_canon at it); w_canon (4 bytes an edge) stays in L2.
 #include "arena_fwd_walk.cuh"
 
-extern "C" int drspmm_learnable_fwd(const int* blk_ptr, const int* sched,
+extern "C" int drspmm_learnable_fwd(const int* sched,
                                     const int* nbr, const int* eid,
                                     const float* w_canon, const float* xv,
                                     const int* xi, float* out, int n_blocks,
                                     int row_block, int ec, int k, int dim,
                                     cudaStream_t stream) {
-  return arena_fwd_dispatch(blk_ptr, sched, nbr, CanonWeights{eid, w_canon},
+  return arena_fwd_dispatch(sched, nbr, CanonWeights{eid, w_canon},
                             xv, xi, out, n_blocks, row_block, ec, k, dim,
                             stream);
 }

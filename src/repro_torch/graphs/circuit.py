@@ -6,25 +6,26 @@ Two node types (``cell``, ``net``), three edge types::
     pin    : cell -> net    (topological)
     pinned : net  -> cell   (= pinᵀ)
 
-Each edge type carries a forward and a transposed degree-bucketed ELL
-packing (host numpy); features and labels are tensors, and the relation
-plan of a collated batch rides along.  :meth:`CircuitGraph.to` moves the
-tensors and the plan to a device; the ELL packings stay on the host, where
-plans are built.
+Each edge type carries a forward and a transposed packing: degree-bucketed
+ELL (host numpy) for a member graph, or the fused arenas a collated batch
+is packed into (``graphs/collate.py``).  Features and labels are tensors,
+and the relation plan of a collated batch rides along.
+:meth:`CircuitGraph.to` moves the tensors, the fused arenas and the plan to
+a device; bucketed packings stay on the host, where plans are built.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import weakref
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.graphs.ell import (BucketedELL, RelationPlan, _to_tensor,
-                                    build_relation_plan, ell_to_coo,
-                                    pack_ell_pair)
+from repro_torch.graphs.ell import (BucketedELL, FusedELL, RelationPlan,
+                                    _to_tensor, build_relation_plan,
+                                    ell_to_coo, pack_ell_pair)
 
 EDGE_TYPES = ("near", "pin", "pinned")
 # (source node type, destination node type) per edge type.
@@ -34,8 +35,14 @@ EDGE_SCHEMA = {"near": ("cell", "cell"), "pin": ("cell", "net"),
 
 @dataclasses.dataclass(frozen=True)
 class EdgeSet:
-    adj: BucketedELL      # A   (n_dst x n_src)
-    adj_t: BucketedELL    # Aᵀ  (n_src x n_dst)
+    adj: Union[BucketedELL, FusedELL]      # A   (n_dst x n_src)
+    adj_t: Union[BucketedELL, FusedELL]    # Aᵀ  (n_src x n_dst)
+
+    def to(self, device) -> "EdgeSet":
+        """Fused arenas on ``device``; bucketed packings stay as they are."""
+        if not isinstance(self.adj, FusedELL):
+            return self
+        return EdgeSet(adj=self.adj.to(device), adj_t=self.adj_t.to(device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +60,8 @@ class CircuitGraph:
     def to(self, device) -> "CircuitGraph":
         device = torch.device(device)
         return dataclasses.replace(
-            self, x_cell=_to_tensor(self.x_cell, device),
+            self, edges={et: es.to(device) for et, es in self.edges.items()},
+            x_cell=_to_tensor(self.x_cell, device),
             x_net=_to_tensor(self.x_net, device),
             y_cell=_to_tensor(self.y_cell, device),
             plan=None if self.plan is None else self.plan.to(device))

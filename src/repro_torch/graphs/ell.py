@@ -182,6 +182,14 @@ def decode_eids(slab_w) -> np.ndarray:
     return np.asarray(slab_w).astype(np.int32) - 1
 
 
+def degree_stats(dst: np.ndarray, n_dst: int) -> dict:
+    """Per-row degrees of a COO destination list, with their max and
+    mean."""
+    deg = np.bincount(np.asarray(dst, np.int64), minlength=n_dst)
+    return dict(degrees=deg, max=int(deg.max()) if deg.size else 0,
+                mean=float(deg.mean()) if deg.size else 0.0)
+
+
 def ell_to_coo(adj: BucketedELL) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(dst, src, w) of the non-zero slots -- the inverse of
     :func:`pack_ell` (zero-weight slots are padding by construction)."""
@@ -224,8 +232,10 @@ class FusedELL:
 
     ``block_of``/``start`` say which output row-block each chunk
     accumulates into and whether it opens that block; ``blk_ptr`` is the
-    same information as a per-block chunk range, which is what the CUDA
-    kernel walks.  ``rows`` maps arena rows to original row ids and
+    same information as a per-block chunk range.  The CUDA kernels walk
+    ``blk_ptr[b]..walk_end[b]``: ``blk_end`` stops a padded arena's
+    sentinel runs before their zero-weight padding chunks
+    (:func:`pad_fused_arena`).  ``rows`` maps arena rows to original row ids and
     ``gather`` is its inverse (original rows absent from every bucket read
     the trailing all-zero sentinel block).  ``rel`` is the relation id per
     chunk in a super-arena.  Tables are numpy on the host and tensors after
@@ -247,6 +257,9 @@ class FusedELL:
     # (C, BR, Ec) int32 canonical edge id per slot, -1 on padding (edge-id
     # arenas only; ``w`` is then the 0/1 real-slot mask)
     eid: Optional[np.ndarray] = None
+    # (n_blocks,) int32 end of each block's walked chunk run (padded arenas
+    # only; None: ``blk_ptr[1:]``)
+    blk_end: Optional[np.ndarray] = None
 
     def __post_init__(self):
         if self.blk_ptr is None:
@@ -265,11 +278,16 @@ class FusedELL:
     def n_blocks(self) -> int:
         return self.n_arena_rows // self.row_block
 
+    @property
+    def walk_end(self):
+        """(n_blocks,) end of each block's walked chunk run."""
+        return self.blk_ptr[1:] if self.blk_end is None else self.blk_end
+
     def to(self, device) -> "FusedELL":
         device = torch.device(device)
         conv = {f: _to_tensor(getattr(self, f), device)
                 for f in ("nbr", "w", "block_of", "start", "rows", "gather",
-                          "rel", "blk_ptr", "eid")
+                          "rel", "blk_ptr", "eid", "blk_end")
                 if getattr(self, f) is not None}
         return dataclasses.replace(self, **conv)
 
@@ -297,9 +315,7 @@ def _block_widths(adj: BucketedELL, row_block: int) -> list:
         rpad = _round_up(max(width_r.size, 1), row_block)
         width_r = np.concatenate(
             [width_r, np.zeros(rpad - width_r.size, np.int64)])
-        for t in range(rpad // row_block):
-            bws.append(int(width_r[t * row_block:(t + 1) * row_block]
-                           .max(initial=0)))
+        bws.extend(width_r.reshape(-1, row_block).max(axis=1).tolist())
     return bws
 
 
@@ -307,8 +323,10 @@ def _min_slots(bws: Sequence[int], row_block: int,
                candidates: Sequence[int]) -> int:
     """Candidate chunk width minimising Σ_blocks BR·Ec·ceil(bw/Ec); ties go
     to the wider chunk."""
+    bw = np.asarray(bws, np.int64)
+
     def slots(c):
-        return sum(row_block * c * max(1, -(-bw // c)) for bw in bws)
+        return row_block * c * int(np.maximum(1, -(-bw // c)).sum())
     return min(candidates, key=lambda c: (slots(c), -c))
 
 
@@ -384,38 +402,42 @@ def fuse_bucketed(adj: BucketedELL, row_block: int = None,
         gather[rid_p[real]] = arena_off + np.nonzero(real)[0]
         rows_parts.append(rid_p)
         arena_off += rpad
-        for t in range(rpad // row_block):
-            sl = slice(t * row_block, (t + 1) * row_block)
-            bw = int(width_r[sl].max(initial=0))
-            nch = max(1, -(-bw // chunk))            # >= 1 so the block inits
-            for ci in range(nch):
-                cs = slice(ci * chunk, (ci + 1) * chunk)
-                nbr_chunks.append(nb_p[sl, cs])
-                w_chunks.append(wt_p[sl, cs])
-                block_of.append(blk)
-                start.append(1 if ci == 0 else 0)
-            blk += 1
+        # each row-block keeps the chunks up to its own max width (>= 1,
+        # so the block inits), block-major and chunk-minor
+        n_blk, n_ck = rpad // row_block, epad // chunk
+        bw = width_r.reshape(n_blk, row_block).max(axis=1)
+        nch = np.maximum(1, -(-bw // chunk))
+        keep = np.arange(n_ck)[None, :] < nch[:, None]
+        tiles = lambda a: a.reshape(n_blk, row_block, n_ck, chunk) \
+            .transpose(0, 2, 1, 3)[keep]
+        nbr_chunks.append(tiles(nb_p))
+        w_chunks.append(tiles(wt_p))
+        block_of.append(np.repeat(np.arange(blk, blk + n_blk), nch))
+        first = np.zeros(int(nch.sum()), np.int32)
+        first[np.cumsum(nch) - nch] = 1
+        start.append(first)
+        blk += n_blk
 
     # trailing sentinel block: BR all-zero arena rows for empty original rows
-    nbr_chunks.append(np.zeros((row_block, chunk), np.int32))
-    w_chunks.append(np.zeros((row_block, chunk), np.float32))
-    block_of.append(blk)
-    start.append(1)
+    nbr_chunks.append(np.zeros((1, row_block, chunk), np.int32))
+    w_chunks.append(np.zeros((1, row_block, chunk), np.float32))
+    block_of.append(np.array([blk]))
+    start.append(np.ones(1, np.int32))
     sentinel_row = arena_off
     rows_parts.append(np.zeros(row_block, np.int32))
     gather[gather < 0] = sentinel_row
 
     nnz = adj.nnz if adj.nnz >= 0 else int(
         sum(int((np.asarray(b.w) != 0).sum()) for b in adj.buckets))
-    w_arena = np.stack(w_chunks)
+    w_arena = np.concatenate(w_chunks)
     eid_arena = None
     if eids:
         eid_arena = w_arena.astype(np.int32) - 1
         w_arena = (w_arena != 0).astype(np.float32)
     fused = FusedELL(
-        nbr=np.stack(nbr_chunks), w=w_arena,
-        block_of=np.asarray(block_of, np.int32),
-        start=np.asarray(start, np.int32),
+        nbr=np.concatenate(nbr_chunks), w=w_arena,
+        block_of=np.concatenate(block_of).astype(np.int32),
+        start=np.concatenate(start).astype(np.int32),
         rows=np.concatenate(rows_parts).astype(np.int32),
         gather=gather.astype(np.int32),
         n_dst=adj.n_dst, n_src=adj.n_src, nnz=nnz,
@@ -423,6 +445,84 @@ def fuse_bucketed(adj: BucketedELL, row_block: int = None,
     _FUSE_CACHE[key] = (weakref.ref(adj, lambda _: _FUSE_CACHE.pop(key, None)),
                         fused)
     return fused
+
+
+def arena_stats(f: FusedELL, bucketed: Optional[BucketedELL] = None) -> dict:
+    """Pack-time efficiency of an arena: its ``C·BR·Ec`` slots, how many
+    carry edges, the padding and the chunk width; with the source
+    ``bucketed`` packing also the bucket slabs' slot count and
+    ``slot_saving`` (slab slots per arena slot).  A padded arena (nnz -1)
+    counts its non-zero weights."""
+    c, br, ec = (int(s) for s in np.shape(f.nbr))
+    slots = c * br * ec
+    real = f.nnz if f.nnz >= 0 else int(np.count_nonzero(np.asarray(f.w)))
+    out = dict(n_chunks=c, row_block=br, chunk=ec, slots=slots,
+               real_slots=real, padded_slots=slots - real,
+               fill_ratio=real / slots if slots else 0.0)
+    if bucketed is not None:
+        slab = sum(int(np.shape(b.nbr)[0]) * int(np.shape(b.nbr)[1])
+                   for b in bucketed.buckets)
+        out["slab_slots"] = slab
+        out["slot_saving"] = slab / slots if slots else 0.0
+    return out
+
+
+def pack_fused(dst, src, w, n_dst: int, n_src: int,
+               bounds: Sequence[int] = DEFAULT_BOUNDS,
+               row_block: int = None, chunk: int = None) -> FusedELL:
+    """COO -> fused arena (:func:`pack_ell`, then :func:`fuse_bucketed`)."""
+    return fuse_bucketed(pack_ell(dst, src, w, n_dst, n_src, bounds),
+                         row_block=row_block, chunk=chunk)
+
+
+def pack_fused_pair(dst, src, w, n_dst: int, n_src: int,
+                    bounds: Sequence[int] = DEFAULT_BOUNDS
+                    ) -> Tuple[FusedELL, FusedELL]:
+    """Fused forward (A) and transposed (Aᵀ) arenas."""
+    return (pack_fused(dst, src, w, n_dst, n_src, bounds),
+            pack_fused(src, dst, w, n_src, n_dst, bounds))
+
+
+def pad_fused_arena(f: FusedELL, n_chunks: int, n_rows: int) -> FusedELL:
+    """``f`` padded to ``n_chunks`` chunks and ``n_rows`` arena rows, table
+    for table the reference's padding: the padding chunks carry zero
+    weights (edge id -1) and extend the run of the arena's last block, the
+    all-zero sentinel, with ``start`` 0; padding rows are appended, and no
+    chunk or gather reads them.  ``nnz`` becomes -1, so that batches of one
+    shape bucket, which differ in nnz, share one signature.
+
+    The walked runs (``blk_end``) stop where the unpadded arena's did: the
+    padding adds nothing, so the kernels skip it, and the padding rows'
+    blocks walk no chunk (they are written as zeros)."""
+    c, br, ec = f.nbr.shape
+    r = f.n_arena_rows
+    if n_rows % br or n_rows < r or n_chunks < c:
+        raise ValueError(f"cannot pad a ({c} chunks, {r} rows) arena to "
+                         f"({n_chunks}, {n_rows})")
+    pad_chunks = n_chunks - c
+    sentinel = r // br - 1
+    zpad = lambda a, n, dt: np.concatenate(
+        [np.asarray(a), np.zeros((n,) + np.asarray(a).shape[1:], dt)])
+    eid = None if f.eid is None else np.concatenate(
+        [np.asarray(f.eid), np.full((pad_chunks, br, ec), -1, np.int32)])
+    rel = None if f.rel is None else np.concatenate(
+        [np.asarray(f.rel),
+         np.full(pad_chunks, int(np.asarray(f.rel)[-1]), np.int32)])
+    blk_end = np.concatenate(
+        [np.asarray(f.walk_end),
+         np.full(n_rows // br - f.n_blocks, n_chunks)]).astype(np.int32)
+    return FusedELL(
+        nbr=zpad(f.nbr, pad_chunks, np.int32),
+        w=zpad(f.w, pad_chunks, np.float32),
+        block_of=np.concatenate([np.asarray(f.block_of),
+                                 np.full(pad_chunks, sentinel, np.int32)]),
+        start=np.concatenate([np.asarray(f.start),
+                              np.zeros(pad_chunks, np.int32)]),
+        rows=zpad(f.rows, n_rows - r, np.int32),
+        gather=np.asarray(f.gather),
+        n_dst=f.n_dst, n_src=f.n_src, nnz=-1,
+        row_block=f.row_block, chunk=f.chunk, rel=rel, eid=eid,
+        blk_end=blk_end)
 
 
 def pack_fused_eid_pair(dst, src, n_dst: int, n_src: int,
@@ -622,6 +722,7 @@ def _concat_arenas(arenas: Sequence[FusedELL], nbr_offs: Sequence[int],
         raise ValueError("super-arena members must share (row_block, chunk)")
     offs, c_off, r_off = [], 0, 0
     nbr, w, blk, start, rows, gather, rel = [], [], [], [], [], [], []
+    ends = []
     for i, (a, no, ro) in enumerate(zip(arenas, nbr_offs, rows_offs)):
         offs.append((c_off, r_off))
         nbr.append(np.asarray(a.nbr) + np.int32(no))
@@ -631,6 +732,7 @@ def _concat_arenas(arenas: Sequence[FusedELL], nbr_offs: Sequence[int],
         rows.append(np.asarray(a.rows) + np.int32(ro))
         gather.append(np.asarray(a.gather) + np.int32(r_off))
         rel.append(np.full(a.n_chunks, i, np.int32))
+        ends.append(np.asarray(a.walk_end) + np.int32(c_off))
         c_off += a.n_chunks
         r_off += a.n_arena_rows
     nnzs = [a.nnz for a in arenas]
@@ -640,7 +742,9 @@ def _concat_arenas(arenas: Sequence[FusedELL], nbr_offs: Sequence[int],
         rows=np.concatenate(rows), gather=np.concatenate(gather),
         n_dst=n_dst, n_src=n_src,
         nnz=-1 if any(n < 0 for n in nnzs) else int(sum(nnzs)),
-        row_block=br, chunk=ck, rel=np.concatenate(rel))
+        row_block=br, chunk=ck, rel=np.concatenate(rel),
+        blk_end=np.concatenate(ends).astype(np.int32)
+        if any(a.blk_end is not None for a in arenas) else None)
     return fused, offs
 
 
@@ -648,6 +752,7 @@ def build_relation_plan(relations: Sequence[tuple], n_of: Dict[str, int], *,
                         bounds: Sequence[int] = DEFAULT_BOUNDS,
                         row_block: int = None,
                         chunk: Union[int, None, Tuple] = None,
+                        pad=None,
                         packed: Dict[str, Tuple[BucketedELL,
                                                 BucketedELL]] = None,
                         dense_threshold: int = None,
@@ -659,7 +764,10 @@ def build_relation_plan(relations: Sequence[tuple], n_of: Dict[str, int], *,
     w)`` COO lists (its order fixes the output concat); ``n_of`` is the
     ordered ``{node_type: count}`` fixing the source concat.  ``chunk``
     pins the shared chunk width (int, or a ``(fwd, bwd)`` tuple; ``None``
-    picks it per direction), ``packed`` reuses already-built
+    picks it per direction), ``pad`` pads each relation's arenas before
+    they are concatenated (:func:`pad_fused_arena`): a ``{etype: {"fwd" |
+    "bwd": (n_chunks, n_rows)}}`` dict or a callable ``(etype, "fwd" |
+    "bwd", arena) -> (n_chunks, n_rows)``, ``packed`` reuses already-built
     ``(fwd, bwd)`` packings per edge type, ``dense_threshold`` overrides
     :data:`DENSE_TIER_NNZ` (the :data:`DENSE_TIER_AREA` guard always
     applies) and ``tiers`` pins an edge type's tier outright."""
@@ -714,6 +822,13 @@ def build_relation_plan(relations: Sequence[tuple], n_of: Dict[str, int], *,
         np.add.at(dense_fwd,
                   (d + dense_offs[i], s + src_off[relations[i][1]]), wv)
     dense_bwd = np.ascontiguousarray(dense_fwd.T)
+
+    if pad is not None:
+        target = pad if callable(pad) else (lambda et, d, _a: pad[et][d])
+        fwd_a = [pad_fused_arena(a, *target(relations[i][0], "fwd", a))
+                 for a, i in zip(fwd_a, arena_idx)]
+        bwd_a = [pad_fused_arena(a, *target(relations[i][0], "bwd", a))
+                 for a, i in zip(bwd_a, arena_idx)]
 
     out_offs = np.cumsum([0] + [int(n_of[r[2]]) for r in relations])
     arena_out_offs = np.cumsum([0] + [a.n_dst for a in fwd_a])

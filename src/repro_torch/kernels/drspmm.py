@@ -101,9 +101,11 @@ def _check_arena(f: FusedELL, *, eids: bool = False) -> None:
         raise TypeError("learnable kernels need the arena's int32 eid table "
                         "(pack_fused_eid_pair)")
     if ec not in (4, 8, 16) or br > 8 \
-            or f.blk_ptr.shape[0] != f.n_blocks + 1:
+            or f.blk_ptr.shape[0] != f.n_blocks + 1 \
+            or f.walk_end.shape[0] != f.n_blocks:
         raise ValueError(f"arena geometry (BR={br}, Ec={ec}, blk_ptr "
-                         f"{tuple(f.blk_ptr.shape)}) not supported")
+                         f"{tuple(f.blk_ptr.shape)}, walk ends "
+                         f"{tuple(f.walk_end.shape)}) not supported")
 
 
 def _arena_rows(f: FusedELL) -> torch.Tensor:
@@ -173,8 +175,8 @@ def drspmm_fwd_arena(fwd: FusedELL, x_vals: torch.Tensor,
                       device=x_vals.device)
     lib = _arena_lib()
     rc = lib.drspmm_arena_fwd(
-        _build.ptr(fwd.blk_ptr), _build.ptr(_arena_sched(fwd)),
-        _build.ptr(fwd.nbr), _build.ptr(fwd.w), _build.ptr(x_vals),
+        _build.ptr(_arena_sched(fwd)), _build.ptr(fwd.nbr),
+        _build.ptr(fwd.w), _build.ptr(x_vals),
         _build.ptr(x_idx), _build.ptr(out), fwd.n_blocks, br, ec,
         x_vals.shape[1], dim, _build.stream_of(out))
     _build.check(lib, rc, "drspmm_arena_fwd")
@@ -188,7 +190,7 @@ drspmm_fwd_arena.launches = 0
 def _arena_lib() -> ctypes.CDLL:
     lib = _build.library("drspmm_arena_fwd")
     fn = lib.drspmm_arena_fwd
-    fn.argtypes = [_c_ptr] * 7 + [_c_int] * 5 + [_c_ptr]
+    fn.argtypes = [_c_ptr] * 6 + [_c_int] * 5 + [_c_ptr]
     fn.restype = _c_int
     return lib
 
@@ -203,7 +205,14 @@ def _memo(parts, build) -> torch.Tensor:
     """``build()``'s tensor, built once while the tensors ``parts`` live
     (kept in ``_SCHED`` under the first's id), on their device without a
     host synchronisation; a launch on another stream than the one that
-    built it waits for it."""
+    built it waits for it.
+
+    Under a CUDA-graph capture nothing is memoised or read from the memo:
+    a captured graph's tables are its static inputs, whose contents change
+    on every replay, so the build is captured with the launch and runs
+    again on every replay."""
+    if parts[0].is_cuda and torch.cuda.is_current_stream_capturing():
+        return build()
     key = id(parts[0])
     hit = _SCHED.get(key)
     if hit is None or any(r() is not t for r, t in zip(hit[0], parts)):
@@ -226,18 +235,19 @@ def _memo(parts, build) -> torch.Tensor:
 
 
 def _arena_sched(f: FusedELL) -> torch.Tensor:
-    """The order in which the arena walks for k <= 32 (the forward's and
-    the sampled backward's) and kernel 6 take ``f``'s row-blocks:
-    (n_blocks, 4) int32 rows (row-block, its first chunk, its end chunk,
-    0), longest chunk run first (ties in arena order), built once per
-    ``blk_ptr`` tensor (``_memo``)."""
+    """The order in which the arena walks (kernels 1, 4, 6, 7 and 8) take
+    ``f``'s row-blocks: (n_blocks, 4) int32 rows (row-block, its first
+    chunk, its walk end, 0), longest walked run first (ties in arena
+    order), built once per ``blk_ptr`` / ``blk_end`` tensors (``_memo``).
+    A padded arena's sentinel runs end before their padding chunks."""
     def build():
-        p64 = f.blk_ptr.long()
-        order = torch.argsort(p64[1:] - p64[:-1], descending=True,
-                              stable=True)
-        return torch.stack([order, p64[order], p64[order + 1],
+        begin = f.blk_ptr[:-1].long()
+        end = f.walk_end.long()
+        order = torch.argsort(end - begin, descending=True, stable=True)
+        return torch.stack([order, begin[order], end[order],
                             torch.zeros_like(order)], 1).to(torch.int32)
-    return _memo((f.blk_ptr,), build)
+    parts = (f.blk_ptr,) if f.blk_end is None else (f.blk_ptr, f.blk_end)
+    return _memo(parts, build)
 
 
 # ---------------------------------------------------------------------------
@@ -353,8 +363,7 @@ def drspmm_bwd_arena(bwd: FusedELL, bwd_src_rows: torch.Tensor,
                       device=gy_cat.device)
     lib = _arena_bwd_lib()
     rc = lib.drspmm_arena_bwd(
-        _build.ptr(bwd.blk_ptr), _build.ptr(_arena_sched(bwd)),
-        _build.ptr(bwd.nbr), _build.ptr(bwd.w), _build.ptr(bwd_src_rows),
+        _build.ptr(_arena_sched(bwd)), _build.ptr(bwd.nbr), _build.ptr(bwd.w), _build.ptr(bwd_src_rows),
         _build.ptr(gy_cat), _build.ptr(x_idx), _build.ptr(out),
         bwd.n_blocks, br, ec, k, gy_cat.shape[1], _build.stream_of(out))
     _build.check(lib, rc, "drspmm_arena_bwd")
@@ -368,7 +377,7 @@ drspmm_bwd_arena.launches = 0
 def _arena_bwd_lib() -> ctypes.CDLL:
     lib = _build.library("drspmm_arena_bwd")
     fn = lib.drspmm_arena_bwd
-    fn.argtypes = [_c_ptr] * 8 + [_c_int] * 5 + [_c_ptr]
+    fn.argtypes = [_c_ptr] * 7 + [_c_int] * 5 + [_c_ptr]
     fn.restype = _c_int
     return lib
 
@@ -504,10 +513,9 @@ def drspmm_fwd_learnable(f: FusedELL, nnz: int, w_canon: torch.Tensor,
     c, br, ec = f.nbr.shape
     out = torch.empty((f.n_arena_rows, dim), dtype=torch.float32,
                       device=x_vals.device)
-    lib = _learnable_lib("drspmm_learnable_fwd", 8)
+    lib = _learnable_lib("drspmm_learnable_fwd", 7)
     rc = lib.drspmm_learnable_fwd(
-        _build.ptr(f.blk_ptr), _build.ptr(_arena_sched(f)),
-        _build.ptr(f.nbr), _build.ptr(f.eid),
+        _build.ptr(_arena_sched(f)), _build.ptr(f.nbr), _build.ptr(f.eid),
         _build.ptr(w_canon), _build.ptr(x_vals), _build.ptr(x_idx),
         _build.ptr(out), f.n_blocks, br, ec, x_vals.shape[1], dim,
         _build.stream_of(out))
@@ -559,10 +567,9 @@ def drspmm_bwd_learnable(ft: FusedELL, nnz: int, w_canon: torch.Tensor,
     k = x_idx.shape[1]
     out = torch.empty((ft.n_arena_rows, k), dtype=torch.float32,
                       device=gy.device)
-    lib = _learnable_lib("drspmm_learnable_bwd", 9)
+    lib = _learnable_lib("drspmm_learnable_bwd", 8)
     rc = lib.drspmm_learnable_bwd(
-        _build.ptr(ft.blk_ptr), _build.ptr(_arena_sched(ft)),
-        _build.ptr(ft.nbr), _build.ptr(ft.eid), _build.ptr(w_canon),
+        _build.ptr(_arena_sched(ft)), _build.ptr(ft.nbr), _build.ptr(ft.eid), _build.ptr(w_canon),
         _build.ptr(ft.rows), _build.ptr(gy), _build.ptr(x_idx),
         _build.ptr(out), ft.n_blocks, br, ec, k, gy.shape[1],
         _build.stream_of(out))
@@ -633,9 +640,11 @@ def drspmm_dw_learnable(f: FusedELL, nnz: int, gy: torch.Tensor,
         raise ValueError(f"nnz {nnz} does not match the arena's {f.nnz}")
     # every canonical id owns exactly one slot (pack_fused_eid_pair checks
     # it), so the kernel writes each entry once, taking the slots in the
-    # order of _dw_sched
+    # order of _dw_sched; a collated arena's weight vector is padded past
+    # its edges (nnz -1 on the arena), and those ids get no slot: zeros
     sched = _dw_sched(f)
-    gw = torch.empty(nnz, dtype=torch.float32, device=gy.device)
+    gw = (torch.empty if f.nnz == nnz else torch.zeros)(
+        nnz, dtype=torch.float32, device=gy.device)
     lib = _learnable_lib("drspmm_learnable_dw", 5, 3)
     rc = lib.drspmm_learnable_dw(
         _build.ptr(sched), _build.ptr(gy), _build.ptr(x_vals),

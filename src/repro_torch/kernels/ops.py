@@ -223,6 +223,13 @@ _DEVICE_TABLES: Dict[tuple, tuple] = {}
 
 
 def _memo(what, pack, device: torch.device, build):
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        # a memoised table would be baked into the graph and replayed
+        # for every later batch, whatever that batch's tables hold
+        raise RuntimeError(
+            f"{what} tables of a packing cannot be built or reused inside "
+            f"a CUDA-graph capture: capture a collated batch, whose fused "
+            f"arenas are already on the card")
     key = (what, id(pack), str(device))
     hit = _DEVICE_TABLES.get(key)
     if hit is not None and hit[0]() is pack:
@@ -274,8 +281,12 @@ def device_buckets(adj: BucketedELL, device) -> BucketedELL:
 def device_dense(adj: Union[BucketedELL, FusedELL], device) -> torch.Tensor:
     """``adj`` as a contiguous float32 (n_dst, n_src) matrix on
     ``device`` (the single-relation dense tier), built once per adjacency
-    and device."""
+    and device; an arena whose tables are already tensors is densified
+    where they are."""
     device = resolve_device(device)
+    if isinstance(adj, FusedELL) and isinstance(adj.w, torch.Tensor):
+        return _memo("dense", adj, device,
+                     lambda: _dense_of(adj, adj.w).to(device).contiguous())
     return _memo("dense", adj, device,
                  lambda: torch.from_numpy(adj.to_dense()).to(device))
 

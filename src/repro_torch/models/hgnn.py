@@ -39,8 +39,9 @@ from repro_torch.core.drelu import drelu
 from repro_torch.core.hetero_mp import (HeteroLayer, HeteroMPConfig,
                                         hetero_conv, plan_applicable)
 from repro_torch.graphs.circuit import CircuitGraph, relation_plan_of
-from repro_torch.graphs.ell import (BucketedELL, RelationPlan, ell_to_coo,
-                                    pack_ell_pair, pack_fused_eid_pair)
+from repro_torch.graphs.ell import (BucketedELL, FusedELL, RelationPlan,
+                                    ell_to_coo, pack_ell_pair,
+                                    pack_fused_eid_pair)
 from repro_torch.kernels import ops
 from repro_torch.models.backbone import BackboneSpec, apply_stack, spec_for
 
@@ -54,10 +55,13 @@ def _uniform(shape, bound: float, generator, device) -> nn.Parameter:
 
 
 def _device_plan(graph: CircuitGraph, device: torch.device,
-                 dense_threshold: Optional[int]) -> RelationPlan:
+                 dense_threshold: Optional[int]) -> Optional[RelationPlan]:
     """The graph's plan with its tables on ``device``: a collated batch
     brings it there already; a plain graph gets its memoised host plan
-    copied over."""
+    copied over.  A batch collated without a plan has none (its layers run
+    the serial path over its fused arenas, as in the reference)."""
+    if graph.plan is None and isinstance(graph.edges["near"].adj, FusedELL):
+        return None
     plan = graph.plan if graph.plan is not None \
         else relation_plan_of(graph, dense_threshold)
     if isinstance(plan.fwd.nbr, np.ndarray) or plan.fwd.nbr.device != device:
@@ -107,8 +111,8 @@ class DRCircuitGNN(nn.Module):
         h = (graph.x_cell @ self.in_cell, graph.x_net @ self.in_net)
         # the serial path reads the graph's edge packings: no plan is
         # built or read
-        over = _device_plan(graph, dev, cfg.dense_threshold) \
-            if plan_applicable(cfg, self.hidden) else graph
+        over = (_device_plan(graph, dev, cfg.dense_threshold)
+                if plan_applicable(cfg, self.hidden) else None) or graph
         if cfg.use_drelu:
             act = lambda hc, hn: (drelu(hc, cfg.k_cell), drelu(hn, cfg.k_net))
         else:                   # the dense baseline

@@ -10,16 +10,17 @@ moments and the step counter stay) and counted in ``nonfinite_grad_steps``.
 
 Plans and collated batches are built once on the host and cached on the
 card, per graph and per member-id tuple, so an epoch after the first pays
-no host packing.  Where the plan path does not apply
-(``core/hetero_mp.py::plan_applicable``: ``use_plan=False``,
+no host packing.  Batches are collated into fused, quantized arenas
+(``graphs/collate.py``), as in the reference, so they run the fused
+kernels under every ``backend`` and ``use_plan``.  Where the plan path
+does not apply (``core/hetero_mp.py::plan_applicable``: ``use_plan=False``,
 ``backend="bucket"``, k >= hidden on a node type, or ``use_drelu=False``,
 the paper's dense-SpMM baseline) no plan is built: each layer runs one
-single-relation op per relation, whose device tables are memoised on the
-card per edge packing.  ``backend="bucket"`` and ``use_plan=False`` train
-single graphs only: the reference collates batches into fused arenas,
-which run the fused kernels under either setting, and the port's
-collation does not pack those yet.  The reference's observability, chaos,
-data-parallel and K-profiling hooks are not ported: setting them raises.
+single-relation op per relation, over a batch's fused arenas or a single
+graph's packings, whose device tables are memoised on the card.
+``auto_k`` runs the K profiler (:meth:`CircuitTrainer.profile_k`) before
+:meth:`CircuitTrainer.fit` trains.  The reference's observability, chaos,
+data-parallel and sharded-plan hooks are not ported: setting them raises.
 """
 
 from __future__ import annotations
@@ -32,10 +33,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.drelu import profile_optimal_k
 from repro_torch.core.hetero_mp import (DRELU_BACKENDS, HeteroMPConfig,
-                                        plan_applicable, single_graph_field)
-from repro_torch.graphs.circuit import CircuitGraph, relation_plan_of
+                                        plan_applicable)
+from repro_torch.graphs.circuit import (EDGE_SCHEMA, CircuitGraph,
+                                        relation_plan_of)
 from repro_torch.graphs.collate import collate_graphs
+from repro_torch.graphs.ell import ell_to_coo
 from repro_torch.kernels import ops
 from repro_torch.models.backbone import BackboneSpec
 from repro_torch.models.hgnn import DRCircuitGNN, batched_loss_fn, loss_fn
@@ -50,15 +54,15 @@ class CircuitTrainConfig:
     n_layers: int = 2
     k_cell: int = 16
     k_net: int = 16
-    auto_k: bool = False              # not ported: must stay False
+    auto_k: bool = False              # profile per-type optimal K (Sec. 4.3)
     lr: float = 2e-4                  # the paper's DR-CircuitGNN setup
     weight_decay: float = 1e-5
     epochs: int = 10
     drelu_backend: str = "topk"       # "topk" | "bisect" (CUDA kernel)
     use_drelu: bool = True            # False: the dense-SpMM baseline
-    # "fused" | "bucket" (per-degree-bucket kernels, single graphs only)
+    # "fused" | "bucket" (per-degree-bucket kernels on single graphs)
     backend: str = "fused"
-    use_plan: bool = True             # False: serial path, single graphs
+    use_plan: bool = True             # False: the serial per-relation path
     n_shards: int = 0                 # not ported: must stay 0 or 1
     # dense-tier crossover for single-graph plans (None: DENSE_TIER_NNZ);
     # collated batches are tiered at pack time with the constant
@@ -69,28 +73,14 @@ class CircuitTrainConfig:
     wiring: str = "plain"             # plain | residual | dense
 
     def __post_init__(self):
-        unported = {"auto_k": self.auto_k, "n_shards": self.n_shards > 1}
-        bad = [k for k, v in unported.items() if v]
-        if bad:
+        if self.n_shards > 1:
             raise NotImplementedError(
-                f"CircuitTrainConfig fields {bad} are set away from their "
-                f"defaults; the port does not have these paths yet")
+                f"n_shards={self.n_shards}: sharded plans are not ported "
+                f"yet")
         if self.drelu_backend not in DRELU_BACKENDS:
             raise ValueError(f"unknown drelu_backend {self.drelu_backend!r}; "
                              f"expected one of {DRELU_BACKENDS}")
         ops.check_backend(self.backend)
-        check_batchable(self, self.batch_size)
-
-
-def check_batchable(cfg: CircuitTrainConfig, batch_size: int) -> None:
-    """Raise for batches of more than one graph under a single-graph
-    setting (:func:`~repro_torch.core.hetero_mp.single_graph_field`)."""
-    field = single_graph_field(cfg)
-    if batch_size > 1 and field is not None:
-        raise NotImplementedError(
-            f"{field}={getattr(cfg, field)!r} with batch_size={batch_size}:"
-            f" batched training under it is not ported yet (train single "
-            f"graphs, batch_size=1)")
 
 
 class CircuitTrainer:
@@ -165,8 +155,8 @@ class CircuitTrainer:
         return pg
 
     def _collate(self, graphs: List[CircuitGraph]):
-        """Collate a batch once and reuse it across epochs: (graph,
-        cell_weight, n_real) on the device."""
+        """Collate a batch into fused, quantized arenas once and reuse it
+        across epochs: (graph, cell_weight, n_real) on the device."""
         key = tuple(id(g) for g in graphs)
         hit = self._batch_cache.get(key)
         if hit is not None and all(a is b for a, b in zip(hit[0], graphs)):
@@ -208,7 +198,6 @@ class CircuitTrainer:
             raise NotImplementedError("data-parallel steps (devices=) are "
                                       "not ported yet")
         b = self.cfg.batch_size if batch_size is None else batch_size
-        check_batchable(self.cfg, b)
         losses, weights = [], []
         if b <= 1:
             for g in graphs:
@@ -229,9 +218,37 @@ class CircuitTrainer:
         return float(np.average(losses, weights=weights)) if losses \
             else float("nan")
 
+    def profile_k(self, graphs: List[CircuitGraph]) -> Dict[str, int]:
+        """The paper's preprocessing profiler (Sec. 4.3): the cost-model
+        optimal K per source node type from the graphs' degrees (distinct
+        neighbours of each non-empty destination row, over every edge type
+        the type feeds), capped at ``hidden``; the trainer then steps with
+        those K's."""
+        deg_by_src = {"cell": [], "net": []}
+        for g in graphs:
+            for et, es in g.edges.items():
+                dst, src, _w = ell_to_coo(es.adj)
+                pairs = np.unique(dst * es.adj.n_src + src)
+                deg = np.bincount(pairs // es.adj.n_src,
+                                  minlength=es.adj.n_dst)
+                deg_by_src[EDGE_SCHEMA[et][0]].append(deg[deg > 0])
+        ks = {t: min(profile_optimal_k(np.concatenate(d), self.cfg.hidden),
+                     self.cfg.hidden)
+              for t, d in deg_by_src.items()}
+        self.mp_cfg = dataclasses.replace(self.mp_cfg, k_cell=ks["cell"],
+                                          k_net=ks["net"])
+        # whether a plan is built depends on k, so cached graphs go
+        self._with_plan = plan_applicable(self.mp_cfg, self.cfg.hidden)
+        self._plan_cache.clear()
+        self._batch_cache.clear()
+        return ks
+
     def fit(self, train_graphs: List[CircuitGraph],
             eval_graphs: Optional[List[CircuitGraph]] = None,
             log_every: int = 1) -> Dict:
+        if self.cfg.auto_k:
+            ks = self.profile_k(train_graphs)
+            print(f"[profile] optimal K per node type: {ks}")
         history = []
         t0 = time.perf_counter()
         for ep in range(self.cfg.epochs):

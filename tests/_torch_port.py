@@ -118,3 +118,50 @@ def drelu_rows(n, d, seed=0):
     x[:m] = s[:m]
     x[m::2] = np.maximum(x[m::2], 0.0)
     return x
+
+
+def padded_and_exact_rows(exact, padded, k, dim=HIDDEN, seed=2):
+    """Kernels 1 and 4 (through their wrappers) over an exact-size and a
+    quantized collation of the same members, fed the same operands at the
+    members' rows: [(padded rows, exact rows)] of every arena relation's
+    forward output and source gradient, which must agree.  ``exact`` and
+    ``padded`` are :class:`CollatedBatch` es on one device."""
+    from repro_torch.kernels import drspmm as tk
+    pe, pp = exact.plan, padded.plan
+    dev = pe.fwd.nbr.device
+    rows = {}
+    for t, off, size in (("cell", "cell_off", "n_cell"),
+                         ("net", "net_off", "n_net")):
+        rows[t] = tuple(
+            np.concatenate([getattr(m, off) + np.arange(getattr(m, size))
+                            for m in b.members]) for b in (exact, padded))
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(pe.n_src_total, dim)).astype(np.float32)
+    xi = np.sort(np.argsort(-x, axis=1, kind="stable")[:, :k],
+                 axis=1).astype(np.int32)
+    xv = np.take_along_axis(x, xi, axis=1)
+    xv_p = np.zeros((pp.n_src_total, k), np.float32)
+    xi_p = np.zeros((pp.n_src_total, k), np.int32)
+    for t, oe, op in zip(pe.src_types, pe.src_off, pp.src_off):
+        e, p = rows[t]
+        xv_p[op + p], xi_p[op + p] = xv[oe + e], xi[oe + e]
+    gy = rng.normal(size=(pe.n_out_total, dim)).astype(np.float32)
+    gy_p = np.zeros((pp.n_out_total, dim), np.float32)
+    for se, sp in zip(pe.segments, pp.segments):
+        e, p = rows[se.dst_type]
+        gy_p[sp.out_off + p] = gy[se.out_off + e]
+    t = lambda a: torch.from_numpy(a).to(dev)
+    ye = tk.drspmm_fwd_arena(pe.fwd, t(xv), t(xi), dim)[pe.fwd.gather.long()]
+    yp = tk.drspmm_fwd_arena(pp.fwd, t(xv_p), t(xi_p), dim)[
+        pp.fwd.gather.long()]
+    dve = tk.drspmm_bwd_arena(pe.bwd, pe.bwd_src_rows, t(gy), t(xi))[
+        pe.bwd.gather.long()]
+    dvp = tk.drspmm_bwd_arena(pp.bwd, pp.bwd_src_rows, t(gy_p), t(xi_p))[
+        pp.bwd.gather.long()]
+    out = []
+    for se, sp in zip(pe.arena_segments, pp.arena_segments):
+        e, p = rows[se.dst_type]
+        out.append((yp[sp.arena_out_off + p], ye[se.arena_out_off + e]))
+        e, p = rows[se.src_type]
+        out.append((dvp[sp.src_out_off + p], dve[se.src_out_off + e]))
+    return out

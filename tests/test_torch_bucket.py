@@ -5,9 +5,10 @@ package's per-bucket Pallas kernels (interpret mode) on the same
 (values and gradients) under both backends against ``jax.vjp`` of the
 reference ops; the serial ``hetero_conv`` against the plan path and the
 reference; the model, the trainer and the GCN baseline against the
-reference's per-bucket (``"xla"``) runs; and the refusals of what the
-slice leaves out.  The CUDA kernels are held against these plain versions
-on a card in tests/test_torch_cuda.py.
+reference's per-bucket (``"xla"``) runs.  Batches under both settings run
+the fused kernels over collated arenas (tests/test_torch_layouts.py).  The
+CUDA kernels are held against these plain versions on a card in
+tests/test_torch_cuda.py.
 
 Tolerances: fp32 with another summation order than the reference
 (``assert_close``: rtol 1e-5, atol 1e-5 scaled by the reference's
@@ -600,34 +601,6 @@ def test_homo_gat_bucket_runs_fused_kernels(designs, calls):
     assert {k: v for k, v in calls.items() if v} == \
         {"drspmm_fwd_learnable": 4}
     assert learnable_edge_packing(adj, "cpu")[0].eid is not None
-
-
-# ---------------------------------------------------------------------------
-# what the slice leaves out
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("kw", [dict(backend="bucket"),
-                                dict(use_plan=False)])
-def test_batched_serial_training_raises(designs, kw):
-    field = next(iter(kw))
-    with pytest.raises(NotImplementedError, match=field):
-        CircuitTrainConfig(hidden=HIDDEN, k_cell=K, k_net=K, batch_size=2,
-                           **kw)
-    tt = CircuitTrainer(CircuitTrainConfig(hidden=HIDDEN, k_cell=K, k_net=K,
-                                           **kw), 16, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match=field):
-        tt.train_epoch(designs[1][:2], batch_size=2)
-    assert tt.opt_state.step == 0
-
-
-@pytest.mark.parametrize("kw", [dict(backend="bucket"),
-                                dict(use_plan=False)])
-def test_engine_refuses_serial_configs(kw):
-    model = DRCircuitGNN(16, 16, HIDDEN, LAYERS, device="cpu")
-    with pytest.raises(NotImplementedError, match=next(iter(kw))):
-        CircuitServeEngine(model, HeteroMPConfig(hidden=HIDDEN, k_cell=K,
-                                                 k_net=K, **kw),
-                           device="cpu")
 
 
 def test_engine_serves_large_k_on_the_fused_family(params, designs, calls):

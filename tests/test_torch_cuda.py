@@ -3,9 +3,13 @@ version, the serve engine on the card against the port's CPU forward, one
 training step on the card against the same step on the CPU (the D-ReLU
 trainer, the dense-SpMM trainer, the serial per-bucket trainer and the
 homogeneous baselines), the concurrent relation modules against the
-sequential ones, and the flash-attention kernel (fp32 and bf16, k/v at
+sequential ones, the flash-attention kernel (fp32 and bf16, k/v at
 KV <= H heads, up to S 4,096) and the reduced dense LM (prefill, decode,
-``ServeEngine``) on the card against the CPU.
+``ServeEngine``) on the card against the CPU, and the engine's captured
+CUDA graphs (each replay bit for bit the eager forward of its batch, two
+contents of one signature, re-capture after an eviction), padded arenas
+through kernels 1 and 4, and batched steps under ``backend="bucket"`` /
+``use_plan=False``.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs on a machine with the card
@@ -34,7 +38,10 @@ from repro_torch.graphs.circuit import (EDGE_SCHEMA, EDGE_TYPES,
 from repro_torch.graphs.ell import (ELLBucket, build_relation_plan,
                                     ell_to_coo, fuse_bucketed,
                                     pack_ell, pack_fused_eid_pair)
-from repro_torch.graphs.generator import generate_design
+from repro_torch.graphs import collate as tcollate
+from repro_torch.graphs.generator import (generate_design,
+                                          generate_partition,
+                                          pack_graph_parallel)
 from repro_torch.kernels import drelu_topk, flash_attention
 from repro_torch.kernels import drspmm as tk
 from repro_torch.kernels import ops as tops
@@ -48,7 +55,8 @@ from repro_torch.train.circuit_trainer import (CircuitTrainConfig,
                                                CircuitTrainer)
 from _torch_port import (HIDDEN, K, LAYERS, SCALE, assert_bf16_close,
                          assert_close, cbsr_operands,
-                         cuda, drelu_rows)  # noqa: F401  (fixture)
+                         cuda, drelu_rows,  # noqa: F401  (fixture)
+                         padded_and_exact_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -1342,3 +1350,194 @@ def test_lm_bf16_prefill_on_card(cuda):
     assert cache["k"].dtype == torch.bfloat16 and torch.isfinite(lp).all()
     _, ld = lm_serve.decode_step(lm, lm.params(), cache, tok[:, -1:], 63)
     _rel_close(ld, lp, 5e-2)
+
+
+# ---------------------------------------------------------------------------
+# quantized collation and captured serving
+# ---------------------------------------------------------------------------
+
+def _recording_engine(cfg, device, **kw):
+    """An engine over a fresh model that records every dispatched batch
+    with a copy of its output and whether it was a replay, and counts its
+    captures."""
+    model = DRCircuitGNN(16, 16, HIDDEN, LAYERS, device=device)
+    eng = CircuitServeEngine(model, cfg, max_batch=2, device=device, **kw)
+    seen, captures = [], []
+    dispatch, capture = eng._dispatch, eng._capture
+
+    def rec_dispatch(prepared):
+        n = len(captures)
+        entry = dispatch(prepared)
+        replay = entry[3] is not None and len(captures) == n
+        seen.append((entry[1], entry[2].clone(), replay))
+        return entry
+
+    def rec_capture(graph):
+        captures.append(tcollate.graph_signature(graph))
+        return capture(graph)
+    eng._dispatch, eng._capture = rec_dispatch, rec_capture
+    return eng, seen, captures
+
+
+def _partition(n_cell, n_net, seed):
+    coo, xc, xn, y = generate_partition(np.random.default_rng(seed),
+                                        n_cell, n_net)
+    return pack_graph_parallel(coo, n_cell, n_net, xc, xn, y)
+
+
+def _assert_replays_are_eager(eng, seen):
+    for batch, out, _replay in seen:
+        with torch.inference_mode():
+            ref = eng.model(batch.graph, eng.cfg)
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("drelu_backend", ["topk", "bisect"])
+def test_captured_replay_equals_eager(cuda, drelu_backend):
+    """Served twice: each signature's first batch is served by the eager
+    run before its capture, every later one by a replay of the captured
+    graph, bit for bit the eager forward of the same collated batch; one
+    capture per signature.  A replay counts the launches recorded in its
+    graph on their wrappers; the capture counts none."""
+    cfg = HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K,
+                         drelu_backend=drelu_backend)
+    eng, seen, captures = _recording_engine(cfg, cuda)
+    graphs = generate_design(0, "small", SCALE) \
+        + generate_design(1, "medium", SCALE)
+    fwd = (tk.drspmm_fwd_arena, tk.drspmm_dense_tier_fwd)
+    counts = []
+    for _ in range(2):
+        before = sum(f.launches for f in fwd)
+        for g in graphs:
+            eng.submit(g)
+        eng.run()
+        counts.append(sum(f.launches for f in fwd) - before)
+    _assert_replays_are_eager(eng, seen)
+    sigs = {b.signature for b, _, _ in seen}
+    assert len(captures) == eng.compiles == len(sigs)
+    n = len(seen) // 2
+    assert [r for _, _, r in seen] == [False] * n + [True] * n
+    # the replays run the eager runs' forward launches
+    assert counts[0] == counts[1] > 0
+
+
+def test_same_signature_batches_match_their_own_eager(cuda):
+    """Two batches of one signature with different contents: the second
+    replays the first's graph and still matches its own eager forward
+    (the kernels' schedules are rebuilt inside the graph), as does the
+    first batch served again after it."""
+    cfg = HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K)
+    eng, seen, captures = _recording_engine(cfg, cuda)
+    pairs = [[_partition(200, 100, 2 * i), _partition(200, 100, 2 * i + 1)]
+             for i in range(2)]
+    for pair in pairs + pairs[:1]:
+        for g in pair:
+            eng.submit(g)
+        eng.run()
+    assert len(seen) == 3 and len(captures) == eng.compiles == 1
+    assert [r for _, _, r in seen] == [False, True, True]
+    assert seen[0][0].signature == seen[1][0].signature
+    assert not torch.equal(seen[0][1], seen[1][1])
+    assert torch.equal(seen[0][1], seen[2][1])
+    _assert_replays_are_eager(eng, seen)
+
+
+def test_eviction_recaptures(cuda):
+    """With one live bucket, serving buckets A, B, A evicts twice and
+    captures three times; every replay matches its eager forward."""
+    cfg = HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K)
+    eng, seen, captures = _recording_engine(cfg, cuda, max_live_buckets=1)
+    for n_cell, n_net, seed in ((60, 30, 0), (240, 110, 1), (61, 29, 2)):
+        eng.submit(_partition(n_cell, n_net, seed))
+        eng.run()
+    assert (eng.compiles, eng.evictions, eng.live_buckets) == (3, 2, 1)
+    assert len(captures) == 3 and len(eng._buckets) == 1
+    _assert_replays_are_eager(eng, seen)
+
+
+def test_prefetch_eviction_keeps_no_stale_state(cuda):
+    """Alternating buckets through one ``run()`` with one live bucket: the
+    packing pool evicts a bucket while its batch waits for dispatch; that
+    batch replays a graph its bucket holds or runs eagerly, every output
+    is its batch's eager forward, and no evicted bucket's state (nor its
+    graphs) outlives the run."""
+    cfg = HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K)
+    eng, seen, captures = _recording_engine(cfg, cuda, max_live_buckets=1)
+    sizes = [(60, 30), (240, 110)] * 3
+    for i, (n_cell, n_net) in enumerate(sizes):
+        for j in range(2):
+            eng.submit(_partition(n_cell, n_net, 10 * i + j))
+    done = eng.run()
+    assert all(r.error is None for r in done.values())
+    assert len(seen) == len(sizes) and eng.evictions > 0
+    assert len(eng._buckets) <= 1 and eng.live_buckets == 1
+    assert eng.compiles == len(captures)
+    _assert_replays_are_eager(eng, seen)
+
+
+@pytest.mark.parametrize("k,dim", [(8, 32), (16, 64), (40, 64)])
+def test_padded_arena_kernels_match_exact(cuda, k, dim):
+    """Kernels 1 and 4 over a quantized batch's super-arenas give the
+    exact-size batch's real rows bit for bit: the walks skip the padding
+    chunks (narrow walk at k <= 32, wide above)."""
+    gs = generate_design(1, "medium", SCALE)[:2]
+    exact = tcollate.collate_graphs(gs, quantize=False, device=cuda)
+    padded = tcollate.collate_graphs(gs, device=cuda)
+    for a, b in padded_and_exact_rows(exact, padded, k, dim=dim):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kw", [dict(backend="bucket"), dict(use_plan=False)])
+def test_batched_serial_step_on_card_matches_cpu(cuda, kw):
+    """One batched step under ``backend="bucket"`` / ``use_plan=False`` on
+    the card against the same step on the CPU: it runs kernels 1 and 4
+    over the collated arenas and no per-bucket kernel."""
+    gs = generate_design(1, "medium", SCALE)[:2]
+    cfg = CircuitTrainConfig(hidden=HIDDEN, k_cell=K, k_net=K, lr=1e-3,
+                             batch_size=2, **kw)
+    gpu = CircuitTrainer(cfg, 16, 16, device=cuda)
+    cpu = CircuitTrainer(cfg, 16, 16, device="cpu")
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    names = ("drspmm_fwd_arena", "drspmm_bwd_arena", "drspmm_fwd_bucket",
+             "drspmm_bwd_bucket", "spmm_bucket")
+    for n in names:
+        setattr(getattr(tk, n), "launches", 0)
+    lg = gpu.train_epoch(gs)
+    launched = {n: getattr(tk, n).launches for n in names}
+    lc = cpu.train_epoch(gs)
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for pg, pc in zip(gpu.model.parameters(), cpu.model.parameters()):
+        d = (pg.detach().cpu() - pc.detach()).norm()
+        assert d <= 1e-4 * pc.detach().norm()
+    assert launched["drspmm_fwd_arena"] > 0
+    assert launched["drspmm_bwd_arena"] > 0
+    assert not any(launched[n] for n in names[2:])
+
+
+@pytest.mark.parametrize("k", [8, 32])
+def test_learnable_kernels_on_collated_arenas(cuda, k):
+    """Kernels 7-9 over a quantized batch's ``near`` edge-id arenas, whose
+    weight vector is padded past the real edges: each against its plain
+    version (the padding ids' weight gradient is zero)."""
+    gs = generate_design(1, "medium", SCALE)[:2]
+    batch = tcollate.collate_graphs(gs, with_eids=True, device=cuda)
+    es, nnz = batch.graph.edges["near"], batch.edge_nnz["near"]
+    assert nnz > batch.edge_nnz_exact["near"]
+    g = torch.Generator().manual_seed(3)
+    w = (torch.rand(nnz, generator=g) + 0.1).to(cuda)
+    n = batch.graph.n_cell
+    x = torch.randn((n, HIDDEN), generator=g).to(cuda)
+    xi = torch.sort(torch.topk(x, k, dim=1).indices, dim=1).values.to(
+        torch.int32).contiguous()
+    xv = torch.gather(x, 1, xi.long()).contiguous()
+    gy = torch.randn((n, HIDDEN), generator=g).to(cuda)
+    for kern, plain in (
+            (lambda: tk.drspmm_fwd_learnable(es.adj, nnz, w, xv, xi, HIDDEN),
+             lambda: tk.drspmm_fwd_learnable_plain(es.adj, nnz, w, xv, xi,
+                                                   HIDDEN)),
+            (lambda: tk.drspmm_bwd_learnable(es.adj_t, nnz, w, gy, xi),
+             lambda: tk.drspmm_bwd_learnable_plain(es.adj_t, nnz, w, gy, xi)),
+            (lambda: tk.drspmm_dw_learnable(es.adj, nnz, gy, xv, xi),
+             lambda: tk.drspmm_dw_learnable_plain(es.adj, nnz, gy, xv, xi))):
+        out, ref = kern(), plain()
+        assert_close(out.cpu().numpy(), ref.cpu().numpy())

@@ -88,7 +88,7 @@ def test_collate_tables_equal(seed, size):
     gj = jgen.generate_design(seed, size, SCALE)
     gt = tgen.generate_design(seed, size, SCALE)
     bj = jcollate.collate_graphs(gj, quantize=False)
-    bt = tcollate.collate_graphs(gt, device="cpu")
+    bt = tcollate.collate_graphs(gt, quantize=False, device="cpu")
     assert_plan_equal(bj.graph.plan, bt.graph.plan)
     assert [tuple(vars(m).values()) for m in bj.members] == \
         [tuple(vars(m).values()) for m in bt.members]
@@ -120,7 +120,7 @@ def test_blk_ptr_covers_each_block():
 def test_collate_places_members():
     """Member i's rows sit at its offsets in the collated node spaces."""
     gt = tgen.generate_design(1, "medium", SCALE)
-    bt = tcollate.collate_graphs(gt, device="cpu")
+    bt = tcollate.collate_graphs(gt, quantize=False, device="cpu")
     assert (bt.graph.n_cell, bt.graph.n_net) == \
         (sum(g.n_cell for g in gt), sum(g.n_net for g in gt))
     for g, m in zip(gt, bt.members):

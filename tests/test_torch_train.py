@@ -136,7 +136,8 @@ def test_cell_weight_matches_reference(designs, n_real):
     members (after ``n_real``) weighted 0."""
     jb = jcollate.collate_graphs(designs[0][:3], quantize=False,
                                  n_real=n_real)
-    tb = collate_graphs(designs[1][:3], n_real=n_real, device="cpu")
+    tb = collate_graphs(designs[1][:3], quantize=False, n_real=n_real,
+                        device="cpu")
     assert tb.n_real == jb.n_real
     np.testing.assert_array_equal(tb.cell_weight.numpy(),
                                   np.asarray(jb.cell_weight))
@@ -242,9 +243,7 @@ def test_trainer_skips_nonfinite_step(designs):
         assert torch.equal(a, b.detach())
 
 
-@pytest.mark.parametrize("kw", [
-    dict(auto_k=True), dict(backend="bucket", batch_size=2),
-    dict(use_plan=False, batch_size=2), dict(n_shards=2)])
+@pytest.mark.parametrize("kw", [dict(n_shards=2)])
 def test_trainer_refuses_unported_fields(kw):
     with pytest.raises(NotImplementedError, match=next(iter(kw))):
         CircuitTrainConfig(**kw)

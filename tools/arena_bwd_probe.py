@@ -161,7 +161,7 @@ def launch(fn, ft, w, gy, xi, out) -> None:
     from repro_torch.kernels.drspmm import _arena_sched
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     _c, br, ec = ft.nbr.shape
-    rc = fn(p(ft.blk_ptr), p(_arena_sched(ft)), p(ft.nbr), p(ft.eid), p(w),
+    rc = fn(p(_arena_sched(ft)), p(ft.nbr), p(ft.eid), p(w),
             p(ft.rows), p(gy), p(xi), p(out), ft.n_blocks, br, ec,
             xi.shape[1], gy.shape[1],
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
@@ -324,7 +324,7 @@ def launch_k4(fn, f, src, gy, xi, out) -> None:
     from repro_torch.kernels.drspmm import _arena_sched
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     _c, br, ec = f.nbr.shape
-    rc = fn(p(f.blk_ptr), p(_arena_sched(f)), p(f.nbr), p(f.w), p(src),
+    rc = fn(p(_arena_sched(f)), p(f.nbr), p(f.w), p(src),
             p(gy), p(xi), p(out), f.n_blocks, br, ec, xi.shape[1],
             gy.shape[1],
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
@@ -402,7 +402,7 @@ def kernel4(repeats: int, shapes) -> None:
                       **times(lambda: a_t @ gy)}), flush=True)
     for shape, fn in build_variants(
             shapes, header="arena_bwd_walk.cuh", names=BWD_NARROW_NAMES,
-            entry="drspmm_arena_bwd", n_ptr=8).items():
+            entry="drspmm_arena_bwd", n_ptr=7).items():
         d = _build.BUILD_ROOT / "probe" / (
             "drspmm_arena_bwd-" + "x".join(map(str, shape)))
         named = dict(zip(BWD_NARROW_NAMES, shape))
@@ -475,7 +475,7 @@ def kernel8(shapes) -> None:
     for (slots, blocks), fn in build_variants(
             shapes, header="arena_bwd_walk.cuh",
             names=("kBwdWideSlots", "kBwdWideMinBlocks"),
-            entry="drspmm_learnable_bwd", n_ptr=9).items():
+            entry="drspmm_learnable_bwd", n_ptr=8).items():
         for part in ("all", "longest", "light"):
             fp = arenas[part]
             for cols, xi in (("iota", iota), ("perm", perm)):

@@ -284,7 +284,7 @@ def one_row(f, keep: torch.Tensor):
 
 def build_variants(shapes, header="arena_fwd_walk.cuh",
                    names=("kWideParts", "kWidePairs"),
-                   entry="drspmm_learnable_fwd", n_ptr=8, n_int=5):
+                   entry="drspmm_learnable_fwd", n_ptr=7, n_int=5):
     """``csrc/<entry>.cu`` built with the constants ``names`` of ``header``
     set to each shape of ``shapes`` (kernel 7 at each (parts, pairs) by
     default): {shape: the library's C entry ``entry``, taking ``n_ptr``
@@ -328,7 +328,7 @@ def launch(fn, f, w, xv, xi, out) -> None:
     from repro_torch.kernels.drspmm import _arena_sched
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     c, br, ec = f.nbr.shape
-    rc = fn(p(f.blk_ptr), p(_arena_sched(f)), p(f.nbr), p(f.eid), p(w),
+    rc = fn(p(_arena_sched(f)), p(f.nbr), p(f.eid), p(w),
             p(xv), p(xi), p(out),
             f.n_blocks, br, ec, xv.shape[1], out.shape[1],
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
@@ -342,7 +342,7 @@ def launch_k1(fn, f, xv, xi, out) -> None:
     from repro_torch.kernels.drspmm import _arena_sched
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     _c, br, ec = f.nbr.shape
-    rc = fn(p(f.blk_ptr), p(_arena_sched(f)), p(f.nbr), p(f.w), p(xv),
+    rc = fn(p(_arena_sched(f)), p(f.nbr), p(f.w), p(xv),
             p(xi), p(out),
             f.n_blocks, br, ec, xv.shape[1], out.shape[1],
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
@@ -396,7 +396,7 @@ def kernel1(repeats: int, shapes) -> None:
     print(json.dumps({"kernel": "torch.sparse.mm", "blocks": "all",
                       **times(lambda: a @ xd)}), flush=True)
     for shape, fn in build_variants(
-            shapes, names=NARROW_NAMES, entry="drspmm_arena_fwd", n_ptr=7,
+            shapes, names=NARROW_NAMES, entry="drspmm_arena_fwd", n_ptr=6,
             n_int=5).items():
         d = _build.BUILD_ROOT / "probe" / (
             "drspmm_arena_fwd-" + "x".join(map(str, shape)))

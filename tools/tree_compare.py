@@ -1,0 +1,216 @@
+"""What a change to the port moves against its parent, on one NVIDIA card:
+the served Table-1 paths and the wide (k > 32) walks of kernels 1, 4, 7
+and 8.  The script imports the ``repro_torch`` package found first on
+``PYTHONPATH``, so one copy of it times either tree; compare two trees
+within one call, in the order parent, change, change, parent:
+
+    PYTHONPATH=<tree>/src python3 tools/tree_compare.py --label parent
+
+It prints one JSON object a line:
+
+* ``serve``: ``chip_smoke.py``'s served paths (hidden 64, 2 layers, k 16,
+  ``max_batch=2``, seeded weights): Table-1 (the 5 partitions of
+  ``generate_design(0, "small")`` + ``(1, "medium")`` at scale 1.0) under
+  ``topk`` and ``bisect``, and the 9 scale-0.02 partitions under
+  ``bisect``.  Each is served by a fresh engine twice (``cold``: every
+  signature new; ``warm``: the same requests again): graphs/s, p50 and
+  p95 ms of the pass's own requests;
+* ``collate``: host ms of collating the first two Table-1 partitions as
+  the serve engine does on the plan path (the tree's default arguments,
+  and ``with_edges=False`` where the tree has it), each the best of 3;
+* ``kernel``: kernels 1 and 4 over the exact-size super-arenas of that
+  batch's relation plan with a seeded k = 64 CBSR operand (dim 128), and
+  kernels 7 and 8 over the homogenized partition 0's edge-id arenas with
+  the ``gat`` layer's k = dim = 64 operand (iota columns): ms a call by
+  CUDA events (20 calls after 3 warm-ups) and by ``torch.profiler`` (the
+  kernel's own device time, 50 calls), with the output's SHA-256, so the
+  two trees' outputs can be held bit for bit.
+
+Every line carries the card's name and power limit as ``nvidia-smi``
+reports them.
+"""
+
+import argparse
+import hashlib
+import json
+import subprocess
+import time
+
+import torch
+
+SEED, HIDDEN, LAYERS, K, FEAT = 0, 64, 2, 16, 16
+WIDE_K, WIDE_DIM = 64, 128
+REPS, PROF_REPS = 20, 50
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def events_ms(fn) -> float:
+    for _ in range(3):
+        fn()
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(REPS):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / REPS
+
+
+def kernel_ms(fn, match: str):
+    """Device ms a call of the device activities whose name holds
+    ``match`` (the kernel), and of all of them (its output's fill and
+    gather included), under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROF_REPS):
+            fn()
+        torch.cuda.synchronize()
+    own = total = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            total += us
+            own += us if match in e.name else 0.0
+    return own / PROF_REPS / 1e3, total / PROF_REPS / 1e3
+
+
+def sha(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def serve(label, smi, model, cfg, graphs, name):
+    from repro_torch.serve.circuit_engine import CircuitServeEngine
+    from repro_torch.train.metrics import percentile
+    eng = CircuitServeEngine(model, cfg, max_batch=2, device="cuda")
+    out = {}
+    for phase in ("cold", "warm"):
+        rids = [eng.submit(g) for g in graphs]
+        t = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        lat = sorted(done[r].latency_ms for r in rids)
+        out[phase] = dict(graphs_per_s=len(rids) / dt,
+                          p50_ms=percentile(lat, 0.5),
+                          p95_ms=percentile(lat, 0.95))
+    print(json.dumps(dict(what="serve", tree=label, path=name, card=smi,
+                          compiles=getattr(eng, "compiles", None), **out)),
+          flush=True)
+
+
+def collate_ms(label, smi, graphs):
+    from repro_torch.graphs.collate import collate_graphs
+    variants = {"default": {}, "plan-only": {"with_edges": False}}
+    for what, kw in variants.items():
+        best = None
+        for _ in range(3):
+            t = time.perf_counter()
+            try:
+                collate_graphs(graphs, device="cuda", **kw)
+            except TypeError:                 # a tree without the option
+                best = None
+                break
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            best = ms if best is None else min(best, ms)
+        if best is not None:
+            print(json.dumps(dict(what="collate", tree=label, variant=what,
+                                  card=smi, ms=best)), flush=True)
+
+
+def wide_kernels(label, smi, table1):
+    from repro_torch.graphs.collate import collate_graphs
+    from repro_torch.kernels import drspmm as K1
+    from repro_torch.models.hgnn import homogenize, learnable_edge_packing
+    try:
+        batch = collate_graphs(table1[:2], quantize=False, device="cuda")
+    except TypeError:                         # a tree that only collates
+        batch = collate_graphs(table1[:2], device="cuda")   # exact sizes
+    plan = batch.plan
+    gen = torch.Generator().manual_seed(SEED)
+    n_src, n_out = plan.n_src_total, plan.n_out_total
+    xv = torch.rand((n_src, WIDE_K), generator=gen).cuda()
+    xi = torch.sort(torch.argsort(torch.rand((n_src, WIDE_DIM), generator=gen),
+                                  dim=1)[:, :WIDE_K], dim=1).values \
+        .to(torch.int32).cuda()
+    gy = torch.randn((n_out, WIDE_DIM), generator=gen).cuda()
+    homo = homogenize(table1[0])
+    f, ft, _d, _s, _w, nnz = learnable_edge_packing(homo[0], "cuda")
+    n = homo[0].n_src
+    hv = torch.randn((n, WIDE_K), generator=gen).cuda()
+    hi = torch.arange(WIDE_K, dtype=torch.int32).repeat(n, 1).cuda()
+    hg = torch.randn((homo[0].n_dst, WIDE_K), generator=gen).cuda()
+    we = torch.rand(nnz, generator=gen).cuda()
+    # kernels 1 and 7 share the forward walk (``arena_fwd_*``), 4 and 8
+    # the backward one (``arena_bwd_*``)
+    cases = (
+        ("drspmm_fwd_arena",
+         lambda: K1.drspmm_fwd_arena(plan.fwd, xv, xi, WIDE_DIM),
+         plan.fwd.nbr.shape),
+        ("drspmm_bwd_arena",
+         lambda: K1.drspmm_bwd_arena(plan.bwd, plan.bwd_src_rows, gy, xi),
+         plan.bwd.nbr.shape),
+        ("drspmm_fwd_learnable",
+         lambda: K1.drspmm_fwd_learnable(f, nnz, we, hv, hi, WIDE_K),
+         f.nbr.shape),
+        ("drspmm_bwd_learnable",
+         lambda: K1.drspmm_bwd_learnable(ft, nnz, we, hg, hi),
+         ft.nbr.shape))
+    for name, fn, shape in cases:
+        out = fn()
+        torch.cuda.synchronize()
+        own, total = kernel_ms(fn, "arena_")
+        print(json.dumps(dict(
+            what="kernel", tree=label, kernel=name, card=smi,
+            arena=list(shape), k=WIDE_K, events_ms=events_ms(fn),
+            device_ms=own, device_ms_all=total, sha256=sha(out))),
+            flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--label", default="tree")
+    label = ap.parse_args().label
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device visible")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.core.hetero_mp import HeteroMPConfig
+    from repro_torch.graphs.generator import generate_design
+    from repro_torch.kernels import _build
+    from repro_torch.models.hgnn import DRCircuitGNN
+    import repro_torch
+    smi = card()
+    t = time.perf_counter()
+    _build.build_all()
+    print(json.dumps(dict(what="build", tree=label,
+                          package=repro_torch.__file__,
+                          s=time.perf_counter() - t)), flush=True)
+    table1 = generate_design(0, "small", 1.0) + generate_design(1, "medium",
+                                                                1.0)
+    tiny = (generate_design(0, "small", 0.02)
+            + generate_design(1, "medium", 0.02)
+            + generate_design(2, "large", 0.02))
+    model = DRCircuitGNN(FEAT, FEAT, HIDDEN, LAYERS, device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    topk = HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K)
+    bisect = HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K,
+                            drelu_backend="bisect")
+    for name, cfg, graphs in (("table1-topk", topk, table1),
+                              ("table1-bisect", bisect, table1),
+                              ("scale0.02-bisect", bisect, tiny)):
+        serve(label, smi, model, cfg, graphs, name)
+    collate_ms(label, smi, table1[:2])
+    wide_kernels(label, smi, table1)
+
+
+if __name__ == "__main__":
+    main()
