@@ -983,27 +983,26 @@ def check_bwd_kernels(model, cfg, big, small):
 
 def record_engine(eng, keep_outputs=False):
     """Wrap ``eng``'s dispatch and capture to record, for every dispatched
-    batch, how it ran (``first``: the eager run before its signature's
-    capture, ``replay``, or ``eager``: its bucket was evicted while it was
-    prepared), its batch, its requests and (``keep_outputs``) a copy of
-    its output, and for every capture its signature and the kernel
-    launches recorded in it.  Returns ``(seen, captures)``."""
+    batch, how it ran (``first``: the eager run before its (signature,
+    slot)'s capture, ``replay``, or ``eager``: its bucket was evicted while
+    it was prepared), its batch, its requests, (``keep_outputs``) the
+    dispatch's record (its forward view on the card and, once its event
+    completes, the output's host copy), and for every capture its
+    signature and the kernel launches recorded in it.  Returns ``(seen,
+    captures)``."""
     from repro_torch.graphs.collate import graph_signature
     seen, captures = [], []
     dispatch, capture = eng._dispatch, eng._capture
 
     def rec_dispatch(prepared):
-        n = len(captures)
         entry = dispatch(prepared)
-        kind = ("first" if len(captures) > n else
-                "replay" if entry[3] is not None else "eager")
-        seen.append((entry[1], tuple(r.rid for r in entry[0]),
-                     entry[2].clone() if keep_outputs else None, kind))
+        seen.append((entry.batch, tuple(r.rid for r in entry.reqs),
+                     entry if keep_outputs else None, entry.kind))
         return entry
 
-    def rec_capture(graph):
-        cap, out = capture(graph)
-        captures.append((graph_signature(graph),
+    def rec_capture(view, slot):
+        cap, out = capture(view, slot)
+        captures.append((graph_signature(view),
                          {f.__name__: n for f, n in cap.launches.items()}))
         return cap, out
     eng._dispatch, eng._capture = rec_dispatch, rec_capture
@@ -1927,9 +1926,11 @@ def captured_serve_path(model, cfg, stream, cpu_model, wrappers):
         # every replay against the eager forward of its own batch
         n_equal, worst = 0, 0.0
         replays = [s for s in seen if s[3] == "replay"]
-        for batch, _rids, out, _kind in replays:
+        for _batch, _rids, entry, _kind in replays:
+            entry.done.synchronize()
+            out = entry.host
             with torch.inference_mode():
-                ref = model(batch.graph, cfg)
+                ref = model(entry.view, cfg).cpu()
             n_equal += bool(bit_equal(out, ref))
             worst = max(worst, float((out - ref).abs().max()))
         sigs = [s[0].signature for s in seen]
@@ -1996,6 +1997,292 @@ def hold_against_cpu(name, done, rids, graphs, cpu_model, cfg):
         f"CPU forward (share within {share}), max |diff| {worst}")
     if share < CELL_SHARE:
         problem(f"path {name}: only {share} of cells within {CELL_ATOL}")
+
+
+# the reference engine's stats() keys but ``jit_cache_size``, which only a
+# JAX jit cache has
+STATS_KEYS = {
+    "requests", "batches", "compiles", "graphs_per_s", "p50_ms", "p95_ms",
+    "p99_ms", "wall_s", "cell_padding_ratio", "deadline_flushes",
+    "failures", "retries", "bisects", "watchdog_timeouts",
+    "nonfinite_outputs", "rejected_inputs", "admission_blocked",
+    "admission_rejected", "admission_shed", "queued", "device_health",
+    "quarantines", "probes", "readmissions", "devices",
+    "dispatches_per_device", "live_buckets", "evictions", "live_compiles",
+    "params_version"}
+ONLINE_GAP_S = 0.1        # mean of the seeded exponential arrival gaps
+ONLINE_LIVE = 16          # max_live_buckets of the online phase
+
+
+def batch_of_one(eng, model, cfg, g, served, head):
+    """The eager forward of ``g`` alone (with its filler, as the engine
+    pads a lone request) on the card, under the relation tiers and plan
+    chunk widths of the batch ``served`` that served it, by ``model`` with
+    ``head`` (a ``(w, b)`` pair or None): ``g``'s rows, on the host."""
+    from repro_torch.graphs.collate import BucketLayout, collate_graphs
+    from repro_torch.serve.circuit_engine import _forward_view
+    plan = served.plan
+    layout = BucketLayout(
+        plan_tier={sg.etype: sg.tier for sg in plan.segments},
+        plan_chunk={"fwd": plan.fwd.chunk, "bwd": plan.bwd.chunk})
+    batch = collate_graphs([g] * eng.b if eng.pad_to_full else [g],
+                           node_bits=eng.node_bits,
+                           arena_bits=eng.arena_bits, layout=layout,
+                           n_real=1, with_edges=False, device="cuda")
+    with torch.inference_mode():
+        out = model(_forward_view(batch.graph), cfg, head=head)
+    return out[:g.n_cell].cpu()
+
+
+def serve_online_path(model, cfg, table1, stream, tiny, wrappers):
+    """serve-online: ``serve_forever`` on its own thread over two ring
+    slots on the one card (max_batch 2, max_wait_ms 50, watchdog_s 60,
+    max_queue 8 with ``admission="block"``, a ``TraceRecorder``), fed by a
+    producer thread, twice over: the Table-1 partitions, each with a twin
+    of its size (another seed, one bucket) under one head right behind it
+    (a full batch), then their jittered copies (``stream[5:]``) and the
+    scale-0.02 ``tiny`` stream, one request a seeded exponential gap (mean
+    ONLINE_GAP_S), the default head and two registered heads in turn, one
+    ``update_params`` to a second seed's weights halfway, and one malformed
+    graph submitted with a healthy partner of its bucket (one full batch).
+    One seeded ``FaultInjector`` fails one dispatch, poisons one output
+    with NaN, stalls one preparation and takes slot 1 down for 6 touches; a
+    trickle then runs until the slot is probed back.  Checks: only the malformed request
+    fails; every other prediction is bit-equal to the eager forward of its
+    graph alone under the version and head ``result()`` reports; the
+    ladder's counters; captures = distinct (signature, slot) pairs (heads
+    and the swap add none); no bucket state past ``max_live_buckets``; the
+    dumped trace; ``stats()``'s keys.  Returns the path's launches."""
+    import dataclasses
+    import importlib.util
+    import threading
+    from repro_torch.fault import FaultInjector, FaultRule
+    from repro_torch.models.hgnn import DRCircuitGNN
+    from repro_torch.obs import TraceRecorder
+    from repro_torch.serve.circuit_engine import CircuitServeEngine
+    name = "serve-online"
+    model_b = DRCircuitGNN(FEAT, FEAT, HIDDEN, LAYERS, device="cuda",
+                           generator=torch.Generator().manual_seed(SEED + 1))
+    gen = torch.Generator().manual_seed(SEED + 2)
+    heads = {h: (torch.rand((HIDDEN, 1), generator=gen) - 0.5,
+                 torch.rand((1,), generator=gen) - 0.5)
+             for h in ("task-a", "task-b")}
+    # slot 1's loss outlasts the 3 failures that quarantine it, so the
+    # batches already routed to it fail too and a probe re-admits it
+    chaos = FaultInjector([
+        FaultRule("dispatch", at=(3,)),
+        FaultRule("nan_output", at=(5,)),
+        FaultRule("straggler", at=(2,), delay_s=0.2),
+        FaultRule("device_loss", at=(0,), device=1, down_for=6)],
+        seed=SEED + 3)
+    rec = TraceRecorder()
+    eng = CircuitServeEngine(model, cfg, max_batch=2, max_wait_ms=50.0,
+                             devices=["cuda", "cuda"], watchdog_s=60.0,
+                             max_queue=8, admission="block",
+                             max_live_buckets=ONLINE_LIVE, max_retries=3,
+                             quarantine_after=3, probe_interval_s=0.5,
+                             chaos=chaos, recorder=rec, device="cuda")
+    for h, (w, b) in heads.items():
+        eng.register_head(h, w, b)
+    seen = []                       # (entry, signature) of every dispatch
+    dispatch = eng._dispatch
+
+    def rec_dispatch(prepared):
+        entry = dispatch(prepared)
+        seen.append((entry, (prepared.batch.signature, prepared.slot)))
+        return entry
+    eng._dispatch = rec_dispatch
+    # each Table-1 partition and its twin (its size, another seed: one
+    # bucket) under one head, the twin at once behind it (a full batch);
+    # then the jittered copies and the scale-0.02 stream, a head each in
+    # turn; twice, the malformed graph and its partner after the first
+    # pass's jittered copies, when the other faults have fired
+    import numpy as np
+    from repro_torch.graphs.generator import (generate_partition,
+                                              pack_graph_parallel)
+    n = len(table1)
+    twins = []
+    for j, g in enumerate(table1):
+        coo, xc, xn, y = generate_partition(
+            np.random.default_rng(SEED + 50 + j), g.n_cell, g.n_net, FEAT,
+            FEAT)
+        twins.append(pack_graph_parallel(coo, g.n_cell, g.n_net, xc, xn, y))
+    order = [None, "task-a", "task-b"]
+    poison = dataclasses.replace(table1[0], x_cell=table1[0].x_cell[:-1])
+    plan, burst = [], set()
+    for rep in range(2):
+        for j in range(n):
+            h = order[(rep * n + j) % 3]
+            plan += [(table1[j], h), (twins[j], h)]
+            burst.add(len(plan) - 1)
+        plan += [(g, order[(i + rep) % 3])
+                 for i, g in enumerate(stream[n:])]
+        if rep == 0:
+            plan += [(poison, "task-a"), (table1[0], "task-a")]
+            burst.add(len(plan) - 1)
+        plan += [(g, order[(i + rep) % 3]) for i, g in enumerate(tiny)]
+    half = len(plan) // 2
+    gaps = np.random.default_rng(SEED + 4).exponential(ONLINE_GAP_S,
+                                                       len(plan))
+    submitted, swap = [], {}
+
+    def produce():
+        for i, ((g, h), gap) in enumerate(zip(plan, gaps)):
+            if i == half:
+                swap["version"] = eng.update_params(model_b)
+            if i not in burst:
+                time.sleep(float(gap))
+            submitted.append((eng.submit(g, timeout=600.0, head=h), g, h,
+                              g is poison))
+
+    zero_counts(wrappers)
+    server = threading.Thread(target=eng.serve_forever)
+    t0 = time.perf_counter()
+    server.start()
+    producer = threading.Thread(target=produce)
+    producer.start()
+    producer.join()
+    failures = {}
+    for rid, _g, _h, bad in submitted:
+        try:
+            eng.result(rid, timeout=600.0)
+        except RuntimeError as e:
+            failures[rid] = (bad, e.__cause__)
+    stream_s = time.perf_counter() - t0
+    trickle = tiny[0]
+    deadline = time.perf_counter() + 120.0
+    while eng.ring.quarantined and time.perf_counter() < deadline:
+        rid = eng.submit(trickle)
+        submitted.append((rid, trickle, None, False))
+        try:
+            eng.result(rid, timeout=600.0)
+        except RuntimeError as e:
+            failures[rid] = (False, e.__cause__)
+        time.sleep(0.05)
+    eng.stop()
+    server.join(timeout=600.0)
+    torch.cuda.synchronize()
+    launches = lm_counts(wrappers)
+    if server.is_alive():
+        problem(f"path {name}: serve_forever did not return after stop()")
+    st = eng.stats()
+    kinds = {k: sum(1 for e, _ in seen if e.kind == k)
+             for k in ("first", "replay", "eager")}
+    log(f"path {name}: {len(submitted)} requests ({len(plan)} in the "
+        f"stream, gaps mean {ONLINE_GAP_S} s, then a trickle) in "
+        f"{stream_s:.3f} s to the stream's last result [{CARD}]; "
+        f"graphs/s {st['graphs_per_s']}, p50 {st['p50_ms']} ms, p95 "
+        f"{st['p95_ms']} ms, p99 {st['p99_ms']} ms; captures "
+        f"{kinds['first']}, replays {kinds['replay']}, eager batches "
+        f"{kinds['eager']}; kernel 1 launches "
+        f"{launches['drspmm_fwd_arena']}, kernel 3 launches "
+        f"{launches['drelu_bisect']}; stats {json.dumps(st)}; chaos "
+        f"{chaos.counts()}; launches={launches}")
+    # only the malformed request fails, with its collation error
+    bad = [rid for rid, (is_bad, _e) in failures.items() if not is_bad]
+    if bad or len(failures) != 1:
+        problem(f"path {name}: failed requests {failures} (only the "
+                f"malformed one may fail)")
+    elif not isinstance(next(iter(failures.values()))[1], ValueError):
+        problem(f"path {name}: the malformed request failed with "
+                f"{failures}, not its collation error")
+    for key, want in (("failures", 1),):
+        if st[key] != want:
+            problem(f"path {name}: {key} {st[key]}, expected {want}")
+    for key in ("retries", "bisects", "quarantines", "probes",
+                "readmissions", "nonfinite_outputs", "deadline_flushes"):
+        if st[key] < 1:
+            problem(f"path {name}: {key} {st[key]}, expected >= 1")
+    counts = chaos.counts()
+    for point in ("dispatch", "nan_output", "straggler", "device_loss"):
+        if not counts.get(point):
+            problem(f"path {name}: fault {point} never fired ({counts})")
+    if set(st) != STATS_KEYS:
+        problem(f"path {name}: stats() keys differ from the reference's: "
+                f"{sorted(set(st) ^ STATS_KEYS)}")
+    if st["params_version"] != 1 or swap.get("version") != 1:
+        problem(f"path {name}: params_version {st['params_version']}")
+    # captures: one a (signature, slot); heads and the swap add none
+    pairs = {sig for _e, sig in seen}
+    captured = [sig for e, sig in seen if e.kind == "first"]
+    if eng.compiles != len(captured) or len(captured) != len(pairs) \
+            or len(set(captured)) != len(captured):
+        problem(f"path {name}: {eng.compiles} compiles, {len(captured)} "
+                f"captures for {len(pairs)} (signature, slot) pairs")
+    first_of = {}
+    for e, sig in seen:
+        first_of.setdefault(sig, e)
+    shared = [(e, first_of[sig]) for e, sig in seen if e.kind == "replay"]
+    other_head = sum(1 for e, f in shared if e.reqs[0].head != f.reqs[0].head)
+    other_version = sum(1 for e, f in shared if e.version != f.version)
+    log(f"path {name}: {len(pairs)} (signature, slot) pairs, "
+        f"{other_head} replays under another head than their capture's, "
+        f"{other_version} under other weights; {len(eng._buckets)} bucket "
+        f"states, {eng.live_buckets} live (max {ONLINE_LIVE})")
+    if not other_head:
+        problem(f"path {name}: no replay served another head than its "
+                f"capture's batch")
+    if len(eng._buckets) > ONLINE_LIVE or eng.live_buckets > ONLINE_LIVE:
+        problem(f"path {name}: {len(eng._buckets)} bucket states for "
+                f"max_live_buckets {ONLINE_LIVE}")
+    # every prediction against the eager forward of its graph alone
+    served = {}
+    for e, _sig in seen:
+        for r in e.reqs:
+            served[r.rid] = e.batch
+    models = {0: model, 1: model_b}
+    n_eq = n_cmp = 0
+    worst = 0.0
+    for rid, g, h, is_bad in submitted:
+        if is_bad:
+            continue
+        r = eng.finished.get(rid)
+        if r is None or r.error is not None or r.pred is None:
+            continue
+        m = models[r.params_version]
+        head = None if r.head is None else tuple(
+            t.cuda() for t in heads[r.head])
+        ref = batch_of_one(eng, m, cfg, g, served[rid], head).numpy()
+        n_cmp += 1
+        same = r.pred.shape == ref.shape and np.array_equal(
+            r.pred.view(np.int32), ref.view(np.int32))
+        n_eq += same
+        if r.pred.shape == ref.shape:
+            worst = max(worst, float(np.abs(r.pred - ref).max()))
+    log(f"path {name}: {n_eq} of {n_cmp} predictions bit-equal to their "
+        f"graph's eager forward alone (max |diff| {worst})")
+    if n_eq != n_cmp or n_cmp < len(plan) - 1:
+        problem(f"path {name}: {n_cmp - n_eq} of {n_cmp} predictions differ "
+                f"from their graph's eager forward (max |diff| {worst})")
+    # the trace: valid JSON with the expected tracks
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "serve_online_trace.json")
+    eng.dump_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    spec = importlib.util.spec_from_file_location(
+        "check_trace", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools", "check_trace.py"))
+    ct = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ct)
+    bad_trace = ct.check_trace(doc, expect_device_tracks=2, expect_events=(
+        "inject:dispatch", "retry", "bisect", "batch", "collate",
+        "device_put", "deadline_flush", "submit"))
+    tracks = {e["args"]["name"] for e in doc["traceEvents"]
+              if e.get("ph") == "M" and e["name"] == "thread_name"}
+    for want in ("worker/", "device/", "intake", "healing", "chaos"):
+        if not any(t == want or t.startswith(want) for t in tracks):
+            bad_trace.append(f"no {want} track")
+    log(f"path {name}: trace {len(doc['traceEvents'])} events, tracks "
+        f"{sorted(tracks)}, problems {bad_trace}")
+    if bad_trace:
+        problem(f"path {name}: trace: {bad_trace}")
+    check_launches(name, launches, ["drspmm_fwd_arena", "drelu_bisect",
+                                    "drspmm_dense_tier_fwd"],
+                   ["drspmm_bwd_arena", "drspmm_fwd_bucket"])
+    return launches
 
 
 def learnable_collated_path(graphs, wrappers):
@@ -2281,6 +2568,14 @@ def main() -> None:
     for k, v in launches.items():
         total[k] += v
     log(f"phase serve-table1-captured: {time.perf_counter() - t:.1f} s")
+
+    # online serving: serve_forever, the ladder, heads and a hot swap
+    t = time.perf_counter()
+    launches = serve_online_path(model, bisect, table1, stream, tiny,
+                                 wrappers)
+    for k, v in launches.items():
+        total[k] += v
+    log(f"phase serve-online: {time.perf_counter() - t:.1f} s")
 
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
     train = dict(hidden=HIDDEN, n_layers=LAYERS, k_cell=K, k_net=K,

@@ -32,8 +32,8 @@
 //    k <= 16, four at k <= 8): every warp-wide load and add serves RPW
 //    slots at once, and the rows of a block share one chunk run;
 //  * reads a row's chunk run as one flat run of slots, KP at a time (lane
-//    t: slot s0 + t), the neighbour and weight (or edge id) two windows
-//    ahead and the weight gather one window ahead (run_slot in
+//    t: the part's slot v0 + t), the neighbour and weight (or edge id) two
+//    windows ahead and the weight gather one window ahead (run_slot in
 //    arena_weights.cuh), so no CBSR load waits on an index load;
 //  * issues a batch of kNarrowLoads slots' CBSR loads a row, then adds the
 //    batch before it while they are in flight;
@@ -45,11 +45,16 @@
 //    tag table a slot, written and read back once a batch, and that batch
 //    adds its pairs one at a time; zero-valued pairs and columns outside
 //    [0, dim) add nothing;
-//  * splits a run longer than kNarrowSplit slots over up to kNarrowParts
-//    warps a row, each adding one contiguous part of the run; the parts'
-//    rows are added in the order p = 0, 1, ... after the block's one
-//    barrier, so a long run's chain is cut and the output stays
-//    deterministic;
+//  * splits a run over kNarrowParts warps a row, which take its slots in
+//    turns of kNarrowSplit (part p the turns p, p + kNarrowParts, ...: one
+//    chunk of 8 slots a turn at Ec 8, so the parts' shares differ by one
+//    turn at most); the parts' rows are added in the order p = 0, 1, ...
+//    after the block's one barrier, so a long run's chain is cut and the
+//    output stays deterministic.  Which part adds a slot depends on the
+//    slot's position alone, never on the run's length: a block's run is
+//    as long as its longest row, and in a collated batch that row may be
+//    another member's, so a member's rows come out bit for bit the same
+//    whatever graphs share its batch;
 //  * skips a batch of padding slots warp-uniformly and issues no load for
 //    a padding slot.
 // tools/arena_fwd_probe.py --kernel 1 times the walk at other constants.
@@ -60,10 +65,12 @@
 // 270 slots of 8k bytes each, and one warp's gathers are served at a
 // roughly fixed rate however many of them it has in flight, so a row's time
 // is its slots over that rate.  The wide walk therefore
-//  * gives each row kWideParts warps, each adding a contiguous part of the
-//    row's slots; the parts' sums meet in shared memory and are added in a
-//    fixed order (deterministic, no atomics, one block owns its row-block);
-//  * reads a part's slots 32 at a time (lane l: slot s0 + l), the
+//  * gives each row kWideParts warps, which take the row's slots in turns
+//    of kWideSplit (by position, so a member's rows do not depend on its
+//    batch's other members); the parts' sums meet in shared memory and are
+//    added in a fixed order (deterministic, no atomics, one block owns its
+//    row-block);
+//  * reads a part's slots 32 at a time (lane l: its slot v0 + l), the
 //    neighbour and edge id two windows ahead and the weight gather at that
 //    id one window ahead, so neither is on the row's chain;
 //  * issues the CBSR loads of S = kWidePairs / NG slots before it adds any
@@ -91,8 +98,21 @@
 constexpr int kFwdMaxRows = 8;    // rows per block
 constexpr int kFwdMaxGroups = 8;  // groups of 32 pairs per CBSR row (k <= 256)
 
-constexpr int kNarrowParts = 2;      // most warps that share a row's run
-constexpr int kNarrowSplit = 32;     // slots of a run a part takes
+constexpr int kNarrowParts = 2;      // warps that share a row's run
+constexpr int kNarrowSplit = 8;      // slots of a run a part takes a turn
+
+// P parts that take a run's slots in turns of G: the run slot of part p's
+// v-th slot (turn j of part p holds slots (j*P + p)*G .. (j*P + p)*G + G-1)
+// and how many of a run of n slots part p takes.  part_slot is increasing
+// in v, and part_slot(v, p) >= n for every v >= part_slots(n, p).
+template <int P, int G>
+__device__ __forceinline__ int part_slot(int v, int p) {
+  return (v / G) * (P * G) + p * G + v % G;
+}
+template <int P, int G>
+__device__ __forceinline__ int part_slots(int n, int p) {
+  return (n / (P * G)) * G + min(max(n % (P * G) - p * G, 0), G);
+}
 constexpr int kNarrowLoads = 4;      // CBSR loads a lane issues at once
 
 // A pair that adds something: a non-zero value at a column of the row.
@@ -180,23 +200,22 @@ __global__ void __launch_bounds__(32 * kFwdMaxRows * kNarrowParts)
   const int r = (threadIdx.y % wpp) * RPW + lane / KP;  // and its row
   const int c0 = blk.y;
   const int n = (blk.z - c0) * ec;                 // a row's slots
-  // one part per kNarrowSplit slots, at most kNarrowParts (block-uniform)
-  const int parts =
-      min(kNarrowParts, max(1, (n + kNarrowSplit - 1) / kNarrowSplit));
-  const int lo = p < parts ? n * p / parts : n;    // this part: [lo, hi)
-  const int hi = p < parts ? n * (p + 1) / parts : n;
-  const int lim = r < br ? hi : 0;  // the last warp may hold a row too many
+  // this part's share of them, its v-th at run slot at(v)
+  const int m = part_slots<kNarrowParts, kNarrowSplit>(n, p);
+  const auto at = [p](int v) {
+    return part_slot<kNarrowParts, kNarrowSplit>(v, p);
+  };
+  const int lim = r < br ? n : 0;   // the last warp may hold a row too many
   const int sh = __ffs(ec) - 1;     // ec is 4, 8 or 16
   float* row = row_tab[p * kFwdMaxRows + r];
   unsigned char* tag = tag_tab[p * kFwdMaxRows + r];
   for (int e = t; e < 32 * DPL; e += KP) row[e] = 0.f;
-  // lane t of a row holds slot s0 + t of the current window of KP slots
-  // (src_cur, w_cur) and of the next one (src_nxt, its weight's first
-  // stage raw_nxt)
+  // lane t of a row holds the part's slot v0 + t of the current window of
+  // KP slots (src_cur, w_cur) and of the next one (src_nxt, its weight's
+  // first stage raw_nxt)
   typename WS::Raw raw_cur, raw_nxt;
-  int src_cur = run_slot(nbr, wsrc, lo + t, lim, c0, br, r, sh, raw_cur);
-  int src_nxt =
-      run_slot(nbr, wsrc, lo + KP + t, lim, c0, br, r, sh, raw_nxt);
+  int src_cur = run_slot(nbr, wsrc, at(t), lim, c0, br, r, sh, raw_cur);
+  int src_nxt = run_slot(nbr, wsrc, at(KP + t), lim, c0, br, r, sh, raw_nxt);
   float w_cur = WS::second(wsrc, raw_cur);
   // the batch before the one whose loads are in flight, added meanwhile
   float pv[L];
@@ -207,14 +226,14 @@ __global__ void __launch_bounds__(32 * kFwdMaxRows * kNarrowParts)
     pc[j] = 0;
   }
   bool pending = false;
-  for (int s0 = lo; s0 < hi; s0 += KP) {
+  for (int v0 = 0; v0 < m; v0 += KP) {
     // in flight while this window is added: the next window's weights and
     // the slots of the window after it
     const float w_nxt = WS::second(wsrc, raw_nxt);
     typename WS::Raw raw_nn;
     const int src_nn =
-        run_slot(nbr, wsrc, s0 + 2 * KP + t, lim, c0, br, r, sh, raw_nn);
-    const int len = min(KP, hi - s0);
+        run_slot(nbr, wsrc, at(v0 + 2 * KP + t), lim, c0, br, r, sh, raw_nn);
+    const int len = min(KP, m - v0);
 #pragma unroll 1
     for (int i0 = 0; i0 < len; i0 += L) {
       if (!__any_sync(kFullMask, w_cur != 0.f &&
@@ -247,11 +266,10 @@ __global__ void __launch_bounds__(32 * kFwdMaxRows * kNarrowParts)
     raw_nxt = raw_nn;
   }
   if (pending) add_batch<DPL, L>(row, tag, pv, pc, dim, lane);
-  if (parts > 1) __syncthreads();  // block-uniform
-  else __syncwarp();
+  __syncthreads();
   if (p > 0 || r >= br) return;
   // part 0 adds the other parts' rows in order and writes the row
-  for (int o = 1; o < parts; ++o)
+  for (int o = 1; o < kNarrowParts; ++o)
     for (int e = t; e < 32 * DPL; e += KP)
       row[e] += row_tab[o * kFwdMaxRows + r][e];
   float* y = out + ((long long)blk.x * br + r) * dim;
@@ -279,6 +297,7 @@ __device__ __forceinline__ void add_pair_group(float (&acc)[DPL], int* owner,
 }
 
 constexpr int kWideParts = 2;   // warps that share a row's chunk run
+constexpr int kWideSplit = 8;   // slots of a run a part takes a turn
 constexpr int kWidePairs = 8;   // pairs a lane has in flight
 
 // The walk for 32 < k <= 32 * NG (design in the note at the top).  Warp
@@ -311,23 +330,26 @@ __global__ void __launch_bounds__(32 * kFwdMaxRows * kWideParts)
 
   const int c0 = blk.y;
   const int n = (blk.z - c0) * ec;           // the row's slots
-  const int lo = n * p / kWideParts;         // this part: slots [lo, hi)
-  const int hi = n * (p + 1) / kWideParts;
+  // part p takes the row's slots in turns of kWideSplit (by position, as
+  // the narrow walk); its v-th slot is run slot at(v)
+  const int m = part_slots<kWideParts, kWideSplit>(n, p);
+  const auto at = [p](int v) {
+    return part_slot<kWideParts, kWideSplit>(v, p);
+  };
   const int sh = __ffs(ec) - 1;              // ec is 4, 8 or 16
-  // lane l holds slot s0 + l of the current window (src_cur, w_cur) and of
-  // the next one (src_nxt, its weight's first stage raw_nxt)
+  // lane l holds the part's slot v0 + l of the current window (src_cur,
+  // w_cur) and of the next one (src_nxt, its weight's first stage raw_nxt)
   typename WS::Raw raw_cur, raw_nxt;
-  int src_cur = run_slot(nbr, wsrc, lo + lane, hi, c0, br, r, sh, raw_cur);
-  int src_nxt =
-      run_slot(nbr, wsrc, lo + 32 + lane, hi, c0, br, r, sh, raw_nxt);
+  int src_cur = run_slot(nbr, wsrc, at(lane), n, c0, br, r, sh, raw_cur);
+  int src_nxt = run_slot(nbr, wsrc, at(32 + lane), n, c0, br, r, sh, raw_nxt);
   float w_cur = WS::second(wsrc, raw_cur);
-  for (int s0 = lo; s0 < hi; s0 += 32) {
+  for (int v0 = 0; v0 < m; v0 += 32) {
     // in flight while this window is added: the next window's weights and
     // the slots of the window after it
     const float w_nxt = WS::second(wsrc, raw_nxt);
     typename WS::Raw raw_nn;
     const int src_nn =
-        run_slot(nbr, wsrc, s0 + 64 + lane, hi, c0, br, r, sh, raw_nn);
+        run_slot(nbr, wsrc, at(v0 + 64 + lane), n, c0, br, r, sh, raw_nn);
 #pragma unroll 1
     for (int i0 = 0; i0 < 32; i0 += S) {
       if (!__any_sync(kFullMask, w_cur != 0.f &&

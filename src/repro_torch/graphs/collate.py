@@ -42,7 +42,9 @@ from repro_torch.graphs.ell import (DEFAULT_BOUNDS, DENSE_TIER_AREA,
                                     _round_up, _to_tensor,
                                     build_relation_plan, ell_to_coo,
                                     fuse_bucketed, pack_ell, pack_ell_pair,
-                                    pack_fused_eid_pair, pad_fused_arena)
+                                    pack_fused_eid_pair, pad_fused_arena,
+                                    arena_stats)
+from repro_torch.obs.metrics import DEFAULT_REGISTRY as _METRICS
 
 # Bucket-grid resolutions (mantissa bits of the geometric grid): node slabs
 # pay padding in features and gathers, so they get the finer grid; arena
@@ -98,16 +100,24 @@ class LayoutTable:
     least recently used one is evicted and ``on_evict(key, layout)`` fires,
     so that the owner can drop what it derived for the bucket (the serve
     engine's captured graphs).  A bucket that returns starts from a fresh
-    layout.  ``max_live=None`` never evicts.  Callers serialise access."""
+    layout.  ``max_live=None`` never evicts.  Callers serialise access.
+
+    ``metrics`` (a :class:`~repro_torch.obs.metrics.MetricsRegistry`)
+    counts ``layout.creates`` and ``layout.evictions``; ``recorder`` marks
+    each create and eviction as an instant on the ``layout`` trace track.
+    Neither is touched when unset."""
 
     def __init__(self, max_live: Optional[int] = None,
                  on_evict: Optional[Callable[[tuple, BucketLayout],
-                                             None]] = None):
+                                             None]] = None,
+                 metrics=None, recorder=None):
         if max_live is not None and max_live < 1:
             raise ValueError(f"max_live must be >= 1, got {max_live}")
         self.max_live = max_live
         self.on_evict = on_evict
         self.evictions = 0
+        self.metrics = metrics
+        self.recorder = recorder
         self._table: "OrderedDict[tuple, BucketLayout]" = OrderedDict()
 
     def get(self, key: tuple) -> BucketLayout:
@@ -117,10 +127,20 @@ class LayoutTable:
         layout = self._table.get(key)
         if layout is None:
             layout = self._table[key] = BucketLayout()
+            if self.metrics is not None:
+                self.metrics.inc("layout.creates")
+            if self.recorder is not None and self.recorder.enabled:
+                self.recorder.instant("layout", "bucket_create",
+                                      bucket=str(key))
         self._table.move_to_end(key)
         while self.max_live is not None and len(self._table) > self.max_live:
             k, v = self._table.popitem(last=False)
             self.evictions += 1
+            if self.metrics is not None:
+                self.metrics.inc("layout.evictions")
+            if self.recorder is not None and self.recorder.enabled:
+                self.recorder.instant("layout", "bucket_evict",
+                                      bucket=str(k))
             if self.on_evict is not None:
                 self.on_evict(k, v)
         return layout
@@ -397,6 +417,14 @@ def collate_graphs(graphs: Sequence[CircuitGraph], *,
             a = fuse_bucketed(bucketed[dname], chunk=ck)
             if layout is not None:
                 layout.chunk.setdefault((et, dname), a.chunk)
+            # pack-time arena gauges, from the arena's static fields and
+            # the bucket shapes (no table scan), one series an edge-type
+            # direction
+            st = arena_stats(a, bucketed[dname])
+            for gname in ("fill_ratio", "padded_slots", "slots", "chunk",
+                          "slot_saving"):
+                _METRICS.set(f"arena.{gname}", st[gname], etype=et,
+                             dir=dname)
             if quantize:
                 a = _quantize_arena(a, arena_bits, bounds, layout,
                                     (et, dname))
@@ -496,6 +524,20 @@ def _build_batch_plan(coo_of: Dict[str, tuple],
     if layout is not None:
         layout.plan_chunk.setdefault("fwd", plan.fwd.chunk)
         layout.plan_chunk.setdefault("bwd", plan.bwd.chunk)
+    # the super-arenas' gauges: real slots are the arena-tier relations'
+    # edge counts (a padded arena's ``nnz`` is -1, and a scan of the arena
+    # a batch would not be cheap); dense-tier relations take no slot
+    arena_ets = {s.etype for s in plan.arena_segments}
+    real = sum(int(r[3].shape[0]) for r in relations if r[0] in arena_ets)
+    for dname, arena in (("fwd", plan.fwd), ("bwd", plan.bwd)):
+        c, br, ec = (int(n) for n in arena.nbr.shape)
+        slots = c * br * ec
+        _METRICS.set("arena.slots", slots, etype="__plan__", dir=dname)
+        _METRICS.set("arena.padded_slots", slots - real, etype="__plan__",
+                     dir=dname)
+        _METRICS.set("arena.fill_ratio", real / slots if slots else 0.0,
+                     etype="__plan__", dir=dname)
+        _METRICS.set("arena.chunk", ec, etype="__plan__", dir=dname)
     return plan
 
 

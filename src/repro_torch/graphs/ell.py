@@ -28,6 +28,8 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.obs.metrics import DEFAULT_REGISTRY as _METRICS
+
 # Row-block granularity of the degree buckets.
 ROW_BLOCK = 8
 # Default degree-bucket upper bounds (inclusive); last bucket is open-ended.
@@ -801,6 +803,14 @@ def build_relation_plan(relations: Sequence[tuple], n_of: Dict[str, int], *,
         if tiers is not None and et in tiers:
             t = tiers[et]
         tier_of.append(t)
+        # the tier each relation landed in, the nnz that decided it and the
+        # crossover in force, as pack-time gauges
+        for d in ("fwd", "bwd"):
+            _METRICS.set("arena.tier", 1.0 if t == "dense" else 0.0,
+                         etype=et, dir=d)
+            _METRICS.set("arena.tier_nnz", float(nnz_i), etype=et, dir=d)
+            _METRICS.set("arena.tier_threshold", float(thr), etype=et,
+                         dir=d)
     arena_idx = [i for i, t in enumerate(tier_of) if t == "arena"]
     dense_idx = [i for i, t in enumerate(tier_of) if t == "dense"]
 

@@ -38,6 +38,16 @@ per source node type.  A CUDA operand launches the kernels, a CPU operand
 runs their plain versions (``kernels/drspmm.py``).  ``dense=True`` runs the
 fully dense oracle instead, for tests; its backward is autograd through the
 dense product.
+
+Every op call counts one ``ops.dispatch{family, kind}`` in
+:data:`~repro_torch.obs.metrics.DEFAULT_REGISTRY`: ``family`` is the route,
+the operands' device type and the executor family (``cuda_fused``,
+``cpu_bucket``, ...), ``kind`` the executor (``multi_fwd``,
+``multi_dense_fwd``, ``multi_bwd``, ``multi_dense_bwd``, ``fwd``,
+``dense_fwd``, ``bwd``, ``dense_bwd``, ``spmm``, ``learnable_fwd``,
+``learnable_bwd``, ``learnable_dw``).  The reference counts while JAX
+traces; the port counts each Python-level call, so eager runs and CUDA-graph
+captures count and a replay of a captured graph adds nothing.
 """
 
 from __future__ import annotations
@@ -55,8 +65,15 @@ from repro_torch.graphs.ell import (DENSE_TIER_AREA, DENSE_TIER_NNZ,
                                     RelationPlan, fuse_bucketed)
 from repro_torch.kernels import drspmm as _k
 from repro_torch.kernels import learnable as _learn
+from repro_torch.obs.metrics import DEFAULT_REGISTRY as _METRICS
 
 BACKENDS = ("fused", "bucket")
+
+
+def _record_dispatch(t: torch.Tensor, route: str, kind: str) -> None:
+    """Count one op call on ``t``'s device under ``route``."""
+    _METRICS.inc("ops.dispatch", family=f"{t.device.type}_{route}",
+                 kind=kind)
 
 
 def check_backend(backend: str) -> None:
@@ -95,9 +112,11 @@ def _hybrid_fwd(plan: RelationPlan, xv, xi, dim: int) -> torch.Tensor:
     reassembled into the full relation-concat output."""
     ya = yd = None
     if plan.has_arena:
+        _record_dispatch(xv, "fused", "multi_fwd")
         ya = _k.drspmm_fwd_arena(plan.fwd, xv, xi, dim)
         ya = ya.index_select(0, plan.fwd.gather)
     if plan.has_dense:
+        _record_dispatch(xv, "fused", "multi_dense_fwd")
         yd = _k.drspmm_dense_tier_fwd(plan.dense_fwd, xv, xi, dim)
     if yd is None:
         return ya
@@ -117,12 +136,14 @@ def _hybrid_bwd(plan: RelationPlan, gy_cat, xi):
     re-stacked in ``dense_fwd`` row order."""
     dx_cat = dv_dense = None
     if plan.has_arena:
+        _record_dispatch(gy_cat, "fused", "multi_bwd")
         dv = _k.drspmm_bwd_arena(plan.bwd, plan.bwd_src_rows, gy_cat, xi)
         dx_cat = dv.index_select(0, plan.bwd.gather)
     if plan.has_dense:
         gy_dense = gy_cat if not plan.has_arena else torch.cat(
             [gy_cat[s.out_off:s.out_off + s.n_dst]
              for s in plan.dense_segments])
+        _record_dispatch(gy_cat, "fused", "multi_dense_bwd")
         dv_dense = _k.drspmm_dense_tier_bwd(plan.dense_bwd, gy_dense, xi)
     return dx_cat, dv_dense
 
@@ -340,6 +361,8 @@ class _DRSpMM(torch.autograd.Function):
         xi = x_idx.to(torch.int32).contiguous()
         ctx.kind, ctx.a_t = kind, a_t
         ctx.save_for_backward(xi)
+        _record_dispatch(xv, "bucket" if kind == "bucket" else "fused",
+                         "dense_fwd" if kind == "dense" else "fwd")
         if kind == "arena":
             return _k.drspmm_fwd_arena(a, xv, xi, dim).index_select(
                 0, a.gather)
@@ -352,6 +375,8 @@ class _DRSpMM(torch.autograd.Function):
         (xi,) = ctx.saved_tensors
         gy = gy.float().contiguous()
         a_t = ctx.a_t
+        _record_dispatch(gy, "bucket" if ctx.kind == "bucket" else "fused",
+                         "dense_bwd" if ctx.kind == "dense" else "bwd")
         if ctx.kind == "arena":
             gv = _k.drspmm_bwd_arena(a_t, a_t.rows, gy, xi).index_select(
                 0, a_t.gather)
@@ -412,6 +437,7 @@ def _bucket_spmm(bk: BucketedELL, x: torch.Tensor) -> torch.Tensor:
     return y
 
 def _spmm_exec(kind: str, a, x: torch.Tensor) -> torch.Tensor:
+    _record_dispatch(x, "bucket" if kind == "bucket" else "fused", "spmm")
     if kind == "arena":
         return _k.spmm_arena(a, x).index_select(0, a.gather)
     return _bucket_spmm(a, x)
@@ -469,6 +495,7 @@ class _DRSpMMLearnable(torch.autograd.Function):
         x_vals = x_vals.float().contiguous()
         ctx.f, ctx.ft, ctx.nnz = f, ft, nnz
         ctx.save_for_backward(w_canon, x_vals, x_idx)
+        _record_dispatch(x_vals, "fused", "learnable_fwd")
         y = _k.drspmm_fwd_learnable(f, nnz, w_canon, x_vals, x_idx, dim)
         return y.index_select(0, f.gather)
 
@@ -478,8 +505,10 @@ class _DRSpMMLearnable(torch.autograd.Function):
         gy = gy.float().contiguous()
         gw = gx = None
         if ctx.needs_input_grad[4]:
+            _record_dispatch(gy, "fused", "learnable_dw")
             gw = _k.drspmm_dw_learnable(ctx.f, ctx.nnz, gy, x_vals, x_idx)
         if ctx.needs_input_grad[5]:
+            _record_dispatch(gy, "fused", "learnable_bwd")
             gx = _k.drspmm_bwd_learnable(ctx.ft, ctx.nnz, w_canon, gy,
                                          x_idx).index_select(0, ctx.ft.gather)
         return None, None, None, None, gw, gx, None
@@ -511,6 +540,7 @@ class _DRSpMMLearnableBucket(torch.autograd.Function):
         ctx.save_for_backward(wp, x_vals, x_idx)
         y = torch.zeros((fs.n_dst, dim), dtype=torch.float32,
                         device=x_vals.device)
+        _record_dispatch(x_vals, "bucket", "learnable_fwd")
         for b in fs.buckets:
             y.index_add_(0, b.rows, _k.drspmm_fwd_bucket(
                 _slab_weights(wp, b), x_vals, x_idx, dim))
@@ -522,8 +552,10 @@ class _DRSpMMLearnableBucket(torch.autograd.Function):
         gy = gy.float().contiguous()
         gw = gx = None
         if ctx.needs_input_grad[4]:
+            _record_dispatch(gy, "bucket", "learnable_dw")
             gw = _learn._bwd_w(ctx.fs, gy, x_vals, x_idx, ctx.nnz)
         if ctx.needs_input_grad[5]:
+            _record_dispatch(gy, "bucket", "learnable_bwd")
             gx = torch.zeros(x_idx.shape, dtype=torch.float32,
                              device=gy.device)
             for b in ctx.ts.buckets:

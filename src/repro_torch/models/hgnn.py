@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import math
 import weakref
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,9 +96,14 @@ class DRCircuitGNN(nn.Module):
         return self.in_cell.device
 
     def forward(self, graph: CircuitGraph, cfg: HeteroMPConfig,
-                spec: Optional[BackboneSpec] = None) -> torch.Tensor:
+                spec: Optional[BackboneSpec] = None,
+                head: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
         """Per-cell congestion prediction (n_cell,).  ``graph`` must live
-        on the model's device; ``spec`` selects the backbone wiring."""
+        on the model's device; ``spec`` selects the backbone wiring;
+        ``head``, a ``(w, b)`` pair of ``head_w`` / ``head_b``'s shapes,
+        replaces the model's own head (the serve engine's per-request task
+        heads over one backbone)."""
         dev = self.device
         if graph.x_cell.device != dev:
             raise ValueError(f"graph on {graph.x_cell.device}, model on "
@@ -122,7 +127,8 @@ class DRCircuitGNN(nn.Module):
             return act(*hetero_conv(layer, over, *state, cfg))
 
         h_cell, _ = apply_stack(self.layers, h, body, spec, over)
-        return torch.sigmoid(h_cell @ self.head_w + self.head_b)[:, 0]
+        hw, hb = (self.head_w, self.head_b) if head is None else head
+        return torch.sigmoid(h_cell @ hw + hb)[:, 0]
 
     @classmethod
     def from_jax_params(cls, p, *, device="cuda") -> "DRCircuitGNN":

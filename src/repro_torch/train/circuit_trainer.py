@@ -19,8 +19,17 @@ the paper's dense-SpMM baseline) no plan is built: each layer runs one
 single-relation op per relation, over a batch's fused arenas or a single
 graph's packings, whose device tables are memoised on the card.
 ``auto_k`` runs the K profiler (:meth:`CircuitTrainer.profile_k`) before
-:meth:`CircuitTrainer.fit` trains.  The reference's observability, chaos,
-data-parallel and sharded-plan hooks are not ported: setting them raises.
+:meth:`CircuitTrainer.fit` trains.
+
+Robustness and observability: ``chaos`` (a
+:class:`~repro_torch.fault.inject.FaultInjector`) can stall a step at its
+``straggler`` point; every step's wall-clock feeds ``monitor`` (a
+:class:`~repro_torch.fault.monitor.StepMonitor`) and the trainer's
+``registry`` (``train.steps``, ``train.nonfinite_grad_steps``, the
+``train.step_ms`` histogram, and the ``train.peak_memory_bytes`` /
+``train.recompute_ms`` gauges); ``recorder`` marks skipped steps.  The
+data-parallel (``devices=``) and sharded-plan (``n_shards > 1``) hooks are
+not ported: setting them raises.
 """
 
 from __future__ import annotations
@@ -36,6 +45,8 @@ from repro_torch import resolve_device
 from repro_torch.core.drelu import profile_optimal_k
 from repro_torch.core.hetero_mp import (DRELU_BACKENDS, HeteroMPConfig,
                                         plan_applicable)
+from repro_torch.fault.inject import FaultInjector
+from repro_torch.fault.monitor import StepMonitor
 from repro_torch.graphs.circuit import (EDGE_SCHEMA, CircuitGraph,
                                         relation_plan_of)
 from repro_torch.graphs.collate import collate_graphs
@@ -43,6 +54,8 @@ from repro_torch.graphs.ell import ell_to_coo
 from repro_torch.kernels import ops
 from repro_torch.models.backbone import BackboneSpec
 from repro_torch.models.hgnn import DRCircuitGNN, batched_loss_fn, loss_fn
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import NULL_RECORDER, Recorder
 from repro_torch.optim.adamw import adamw_init, adamw_update
 from repro_torch.optim.schedules import constant
 from repro_torch.train import metrics as M
@@ -91,10 +104,10 @@ class CircuitTrainer:
     def __init__(self, cfg: CircuitTrainConfig, f_cell: int, f_net: int, *,
                  model: Optional[DRCircuitGNN] = None,
                  generator: Optional[torch.Generator] = None,
-                 device="cuda", chaos=None, monitor=None, registry=None):
-        if chaos is not None or monitor is not None or registry is not None:
-            raise NotImplementedError(
-                "chaos, monitor and registry are not ported yet")
+                 device="cuda", chaos: Optional[FaultInjector] = None,
+                 monitor: Optional[StepMonitor] = None,
+                 registry: Optional[MetricsRegistry] = None,
+                 recorder: Optional[Recorder] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         if model is None:
@@ -124,20 +137,81 @@ class CircuitTrainer:
         self.params = list(model.parameters())
         self.opt_state = adamw_init(self.params)
         self.lr = constant(cfg.lr)
-        self.nonfinite_grad_steps = 0
-        self.step_ms: List[float] = []   # host time of each step, synced
         self.step_loss: List[float] = []  # loss of each step (nan: skipped)
+        self.chaos = chaos
+        self.monitor = monitor if monitor is not None \
+            else StepMonitor(n_hosts=1)
+        self.metrics = registry if registry is not None else MetricsRegistry()
+        self._rec = recorder if recorder is not None else NULL_RECORDER
+        if self.chaos is not None and self._rec.enabled:
+            self.chaos.recorder = self._rec
+        self._c_steps = self.metrics.counter("train.steps")
+        self._c_nonfinite = self.metrics.counter("train.nonfinite_grad_steps")
+        self._h_step_ms = self.metrics.histogram("train.step_ms")
+        self._g_peak = self.metrics.gauge("train.peak_memory_bytes")
+        self._g_recompute = self.metrics.gauge("train.recompute_ms")
+        # id(step input) -> (the input, pinned; its forward ms)
+        self._fwd_time_cache: Dict[int, tuple] = {}
+        self._global_step = 0
         # id(graph) / member-id tuple -> (pinned members, device graph);
         # the entry pins its graphs so their ids cannot be reused
         self._plan_cache: Dict[int, tuple] = {}
         self._batch_cache: Dict[tuple, tuple] = {}
 
+    @property
+    def nonfinite_grad_steps(self) -> int:
+        """Skipped steps (a view of the registry's counter)."""
+        return int(self._c_nonfinite.value)
+
     def stats(self) -> Dict[str, float]:
-        s = sorted(self.step_ms)
-        return {"steps": len(s),
+        """The registry's step counters and step-time percentiles."""
+        p50, p95, p99 = self._h_step_ms.percentiles((0.50, 0.95, 0.99))
+        return {"steps": int(self._c_steps.value),
                 "nonfinite_grad_steps": self.nonfinite_grad_steps,
-                "step_p50_ms": M.percentile(s, 0.50),
-                "step_p95_ms": M.percentile(s, 0.95)}
+                "step_p50_ms": p50, "step_p95_ms": p95, "step_p99_ms": p99,
+                "peak_memory_bytes": int(self._g_peak.value),
+                "recompute_ms": float(self._g_recompute.value)}
+
+    def _peak_memory_bytes(self) -> int:
+        """Peak device memory: ``torch.cuda.max_memory_allocated`` on a
+        card; on the CPU the bytes of the trainer's own parameters and
+        AdamW moments (a live-buffer estimate, as the reference's CPU
+        fallback)."""
+        if self.device.type == "cuda":
+            return int(torch.cuda.max_memory_allocated(self.device))
+        return int(sum(t.numel() * t.element_size() for t in
+                       self.params + self.opt_state.m + self.opt_state.v))
+
+    def _recompute_ms(self, loss_of, key) -> float:
+        """Under ``remat``, the extra work a step's backward pays: one
+        forward of the step's loss, timed once per step input (``key``,
+        pinned in the cache) with the device synchronised; 0.0 without
+        remat."""
+        if not self.cfg.remat:
+            return 0.0
+        hit = self._fwd_time_cache.get(id(key))
+        if hit is not None and hit[0] is key:
+            return hit[1]
+        sync = (lambda: torch.cuda.synchronize(self.device)) \
+            if self.device.type == "cuda" else (lambda: None)
+        with torch.no_grad():
+            sync()
+            t0 = time.perf_counter()
+            loss_of()
+            sync()
+        est = (time.perf_counter() - t0) * 1e3
+        self._fwd_time_cache[id(key)] = (key, est)
+        return est
+
+    def _tick(self, duration_s: float, recompute_ms: float = 0.0) -> None:
+        """One step's wall-clock to the monitor (host 0) and the registry,
+        and the memory / recompute gauges."""
+        self.monitor.record(self._global_step, 0, duration_s)
+        self._global_step += 1
+        self._c_steps.inc()
+        self._h_step_ms.observe(duration_s * 1e3)
+        self._g_peak.set(self._peak_memory_bytes())
+        self._g_recompute.set(recompute_ms)
 
     def _planned(self, g: CircuitGraph) -> CircuitGraph:
         """``g`` on the device with its relation plan attached (cached).
@@ -167,8 +241,11 @@ class CircuitTrainer:
         self._batch_cache[key] = (tuple(graphs), entry)
         return entry
 
-    def _step(self, loss_of) -> tuple:
-        """One optimizer step on the loss ``loss_of()`` -> (loss, ok)."""
+    def _step(self, loss_of, key) -> tuple:
+        """One optimizer step on the loss ``loss_of()`` -> (loss, ok);
+        ``key`` is the step's input (the recompute estimate's cache key)."""
+        if self.chaos is not None:
+            self.chaos.stall("straggler")
         t0 = time.perf_counter()
         for p in self.params:
             p.grad = None
@@ -181,10 +258,14 @@ class CircuitTrainer:
             adamw_update(self.params, grads, self.opt_state,
                          self.lr(self.opt_state.step),
                          weight_decay=self.cfg.weight_decay)
-        else:
-            self.nonfinite_grad_steps += 1
         loss = float(loss.detach())          # device barrier ends the step
-        self.step_ms.append((time.perf_counter() - t0) * 1e3)
+        self._tick(time.perf_counter() - t0,
+                   self._recompute_ms(loss_of, key))
+        if not ok:
+            self._c_nonfinite.inc()
+            if self._rec.enabled:
+                self._rec.instant("train", "nonfinite_grads_skip",
+                                  step=self._global_step)
         self.step_loss.append(loss if ok else float("nan"))
         return loss, ok
 
@@ -203,7 +284,8 @@ class CircuitTrainer:
             for g in graphs:
                 pg = self._planned(g)
                 loss, ok = self._step(
-                    lambda: loss_fn(self.model, pg, self.mp_cfg, self.spec))
+                    lambda: loss_fn(self.model, pg, self.mp_cfg, self.spec),
+                    pg)
                 if ok:
                     losses.append(loss)
                     weights.append(1)
@@ -211,7 +293,8 @@ class CircuitTrainer:
             for i in range(0, len(graphs), b):
                 graph, cell_w, n_real = self._collate(graphs[i:i + b])
                 loss, ok = self._step(lambda: batched_loss_fn(
-                    self.model, graph, cell_w, self.mp_cfg, self.spec))
+                    self.model, graph, cell_w, self.mp_cfg, self.spec),
+                    graph)
                 if ok:
                     losses.append(loss)
                     weights.append(n_real)
@@ -241,6 +324,7 @@ class CircuitTrainer:
         self._with_plan = plan_applicable(self.mp_cfg, self.cfg.hidden)
         self._plan_cache.clear()
         self._batch_cache.clear()
+        self._fwd_time_cache.clear()
         return ks
 
     def fit(self, train_graphs: List[CircuitGraph],

@@ -1358,7 +1358,8 @@ def test_lm_bf16_prefill_on_card(cuda):
 
 def _recording_engine(cfg, device, **kw):
     """An engine over a fresh model that records every dispatched batch
-    with a copy of its output and whether it was a replay, and counts its
+    with its dispatch record (its output's host copy once the record's
+    event completes) and whether it was a replay, and counts its
     captures."""
     model = DRCircuitGNN(16, 16, HIDDEN, LAYERS, device=device)
     eng = CircuitServeEngine(model, cfg, max_batch=2, device=device, **kw)
@@ -1366,17 +1367,21 @@ def _recording_engine(cfg, device, **kw):
     dispatch, capture = eng._dispatch, eng._capture
 
     def rec_dispatch(prepared):
-        n = len(captures)
         entry = dispatch(prepared)
-        replay = entry[3] is not None and len(captures) == n
-        seen.append((entry[1], entry[2].clone(), replay))
+        seen.append((entry.batch, entry, entry.kind == "replay"))
         return entry
 
-    def rec_capture(graph):
-        captures.append(tcollate.graph_signature(graph))
-        return capture(graph)
+    def rec_capture(view, slot):
+        captures.append(tcollate.graph_signature(view))
+        return capture(view, slot)
     eng._dispatch, eng._capture = rec_dispatch, rec_capture
     return eng, seen, captures
+
+
+def _out(entry):
+    """A dispatched batch's output, read back from its host copy."""
+    entry.done.synchronize()
+    return entry.host
 
 
 def _partition(n_cell, n_net, seed):
@@ -1386,10 +1391,10 @@ def _partition(n_cell, n_net, seed):
 
 
 def _assert_replays_are_eager(eng, seen):
-    for batch, out, _replay in seen:
+    for _batch, entry, _replay in seen:
         with torch.inference_mode():
-            ref = eng.model(batch.graph, eng.cfg)
-        assert torch.equal(out, ref)
+            ref = eng.model(entry.view, eng.cfg).cpu()
+        assert torch.equal(_out(entry), ref)
 
 
 @pytest.mark.parametrize("drelu_backend", ["topk", "bisect"])
@@ -1437,8 +1442,8 @@ def test_same_signature_batches_match_their_own_eager(cuda):
     assert len(seen) == 3 and len(captures) == eng.compiles == 1
     assert [r for _, _, r in seen] == [False, True, True]
     assert seen[0][0].signature == seen[1][0].signature
-    assert not torch.equal(seen[0][1], seen[1][1])
-    assert torch.equal(seen[0][1], seen[2][1])
+    assert not torch.equal(_out(seen[0][1]), _out(seen[1][1]))
+    assert torch.equal(_out(seen[0][1]), _out(seen[2][1]))
     _assert_replays_are_eager(eng, seen)
 
 
@@ -1541,3 +1546,263 @@ def test_learnable_kernels_on_collated_arenas(cuda, k):
              lambda: tk.drspmm_dw_learnable_plain(es.adj, nnz, gy, xv, xi))):
         out, ref = kern(), plain()
         assert_close(out.cpu().numpy(), ref.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# online serving
+# ---------------------------------------------------------------------------
+
+def _bits_equal(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and np.array_equal(a.view(np.int32),
+                                                 b.view(np.int32))
+
+
+def _pinned_layout(plan):
+    """A bucket layout that pins ``plan``'s relation tiers and chunk
+    widths."""
+    return tcollate.BucketLayout(
+        plan_tier={s.etype: s.tier for s in plan.segments},
+        plan_chunk={"fwd": plan.fwd.chunk, "bwd": plan.bwd.chunk})
+
+
+def _alone(eng, model, g, served, head=None):
+    """The eager forward of ``g`` alone (with the engine's filler) on the
+    card, under the tiers and chunk widths of the batch ``served`` that
+    served it: ``g``'s rows on the host."""
+    batch = tcollate.collate_graphs(
+        [g] * eng.b if eng.pad_to_full else [g], node_bits=eng.node_bits,
+        arena_bits=eng.arena_bits, layout=_pinned_layout(served.plan),
+        n_real=1, with_edges=False, device=eng.device)
+    with torch.inference_mode():
+        out = model(batch.graph, eng.cfg, head=head)
+    return out[:g.n_cell].cpu().numpy()
+
+
+def _record_batches(eng):
+    """request id -> the collated batch of its last dispatch."""
+    served = {}
+    dispatch = eng._dispatch
+
+    def rec(prepared):
+        entry = dispatch(prepared)
+        for r in entry.reqs:
+            served[r.rid] = entry.batch
+        return entry
+    eng._dispatch = rec
+    return served
+
+
+def _serve_thread(eng):
+    import threading
+    box = {}
+
+    def run():
+        try:
+            eng.serve_forever()
+        except BaseException as e:           # re-raised by the test
+            box["exc"] = e
+    t = threading.Thread(target=run)
+    t.start()
+    return t, box
+
+
+def _member_rows(pair, i, k, device):
+    """Kernel 1 over the batch ``pair`` (one pinned layout, all relations
+    on the arena tier) with a seeded CBSR operand whose rows of member
+    ``i`` depend only on that member: member ``i``'s output rows of every
+    relation, on the host."""
+    layout = tcollate.BucketLayout(
+        plan_tier={et: "arena" for et in EDGE_TYPES},
+        plan_chunk={"fwd": 8, "bwd": 8})
+    batch = tcollate.collate_graphs(pair, layout=layout, device=device)
+    plan, m = batch.plan, batch.members[i]
+    x = np.random.default_rng(5).normal(
+        size=(plan.n_src_total, HIDDEN)).astype(np.float32)
+    rg = np.random.default_rng(6)
+    for t, off in zip(plan.src_types, plan.src_off):
+        o, n = (m.cell_off, m.n_cell) if t == "cell" else (m.net_off, m.n_net)
+        x[off + o:off + o + n] = rg.normal(size=(n, HIDDEN))
+    xi = np.sort(np.argsort(-x, axis=1, kind="stable")[:, :k],
+                 axis=1).astype(np.int32)
+    xv = np.take_along_axis(x, xi, axis=1)
+    y = tk.drspmm_fwd_arena(plan.fwd, torch.from_numpy(xv).to(device),
+                            torch.from_numpy(xi).to(device), HIDDEN)
+    y = y[plan.fwd.gather.long()].cpu().numpy()
+    rows = []
+    for sg in plan.arena_segments:
+        o, n = (m.cell_off, m.n_cell) if sg.dst_type == "cell" \
+            else (m.net_off, m.n_net)
+        rows.append(y[sg.arena_out_off + o:sg.arena_out_off + o + n])
+    return np.concatenate(rows)
+
+
+@pytest.mark.parametrize("k", [16, 40])
+def test_arena_fwd_rows_ignore_companions(cuda, k):
+    """Kernel 1 over a batch [h, g] and over [g, g] under one pinned
+    layout: g's rows sit in other row-blocks, beside other rows, and their
+    blocks' chunk runs have other lengths, yet they come out bit for bit
+    the same (the walks split a run among warps by slot position, never
+    by the run's length), as the healing ladder's bisection needs.  k 40
+    runs the wide walk."""
+    gs = generate_design(0, "small", SCALE) + generate_design(1, "medium",
+                                                              SCALE)
+
+    def max_deg(g):
+        d, _s, _w = ell_to_coo(g.edges["near"].adj)
+        return int(np.bincount(d).max())
+    gs = sorted(gs, key=max_deg)
+    g, h = gs[0], gs[-1]
+    assert max_deg(h) > max_deg(g)
+    alone = _member_rows([g, g], 0, k, cuda)
+    assert _bits_equal(_member_rows([h, g], 1, k, cuda), alone)
+    assert _bits_equal(_member_rows([g, h], 0, k, cuda), alone)
+
+
+def test_online_concurrent_producers_bit_equal(cuda):
+    """Two producer threads submit while ``serve_forever`` serves over two
+    slots on the card: every prediction is bit for bit the eager forward
+    of its graph alone."""
+    import threading
+    cfg = HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K)
+    model = DRCircuitGNN(16, 16, HIDDEN, LAYERS, device=cuda)
+    eng = CircuitServeEngine(model, cfg, max_batch=2, max_wait_ms=20.0,
+                             devices=[cuda, cuda], device=cuda)
+    served = _record_batches(eng)
+    graphs = generate_design(0, "small", SCALE) + generate_design(
+        1, "medium", SCALE)
+    t, box = _serve_thread(eng)
+    out = {}
+
+    def produce(gs):
+        for g in gs:
+            out[eng.submit(g)] = g
+    try:
+        ps = [threading.Thread(target=produce, args=(graphs[i::2] * 2,))
+              for i in range(2)]
+        for p in ps:
+            p.start()
+        for p in ps:
+            p.join()
+        preds = {rid: eng.result(rid, timeout=600.0).pred for rid in out}
+    finally:
+        eng.stop()
+        t.join(timeout=600.0)
+    assert "exc" not in box
+    assert len(preds) == 2 * len(graphs)
+    for rid, g in out.items():
+        assert _bits_equal(preds[rid], _alone(eng, model, g, served[rid]))
+    st = eng.stats()
+    assert st["failures"] == 0 and all(st["dispatches_per_device"])
+
+
+def test_online_heads_and_swap_add_no_capture(cuda):
+    """One graph under the default head, two registered heads and, after
+    a hot swap, again: one capture (one signature, one slot); every
+    result carries the version and head it was served with and is bit for
+    bit the eager forward under those weights.  Then a swap while requests
+    are in flight: each result's version tells its weights."""
+    cfg = HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K)
+    model = DRCircuitGNN(16, 16, HIDDEN, LAYERS, device=cuda)
+    model_b = DRCircuitGNN(16, 16, HIDDEN, LAYERS, device=cuda,
+                           generator=torch.Generator().manual_seed(1))
+    eng = CircuitServeEngine(model, cfg, max_batch=2, device=cuda)
+    served = _record_batches(eng)
+    gen = torch.Generator().manual_seed(2)
+    heads = {h: (torch.rand((HIDDEN, 1), generator=gen),
+                 torch.rand((1,), generator=gen)) for h in ("a", "b")}
+    for h, (w, b) in heads.items():
+        eng.register_head(h, w, b)
+    g = generate_design(1, "medium", SCALE)[0]
+    rids = []
+    for head in (None, "a", "b"):
+        rids.append((eng.submit(g, head=head), head))
+        eng.run()
+    assert eng.update_params(model_b) == 1
+    for head in ("a", None):
+        rids.append((eng.submit(g, head=head), head))
+        eng.run()
+    assert eng.compiles == 1
+    models = {0: model, 1: model_b}
+    for i, (rid, head) in enumerate(rids):
+        r = eng.result(rid)
+        assert r.params_version == (0 if i < 3 else 1) and r.head == head
+        hp = None if head is None else tuple(x.to(cuda) for x in heads[head])
+        assert _bits_equal(r.pred, _alone(eng, models[r.params_version], g,
+                                          served[rid], hp))
+    # a swap while requests are in flight
+    t, box = _serve_thread(eng)
+    try:
+        stream = generate_design(0, "small", SCALE)
+        mine = [eng.submit(x) for x in stream]
+        assert eng.update_params(model) == 2
+        mine += [eng.submit(x) for x in stream]
+        res = [eng.result(rid, timeout=600.0) for rid in mine]
+    finally:
+        eng.stop()
+        t.join(timeout=600.0)
+    assert "exc" not in box
+    assert {r.params_version for r in res} <= {1, 2}
+    assert all(r.params_version == 2 for r in res[len(stream):])
+    for r in res:
+        m = model if r.params_version == 2 else model_b
+        assert _bits_equal(r.pred, _alone(eng, m, r.graph, served[r.rid]))
+
+
+def test_online_bisect_healthy_members_bit_equal(cuda):
+    """A full batch of four with one malformed member: the ladder bisects
+    it, only the malformed request fails, and the healthy members come
+    back bit for bit as a fault-free engine serves them."""
+    cfg = HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K)
+    model = DRCircuitGNN(16, 16, HIDDEN, LAYERS, device=cuda)
+    graphs = [_partition(154, 82, 30 + i) for i in range(3)]
+    poison = dataclasses.replace(graphs[0], x_cell=graphs[0].x_cell[:-1])
+    clean = CircuitServeEngine(model, cfg, max_batch=4, device=cuda)
+    ref = [clean.submit(x) for x in graphs]
+    clean.run()
+    eng = CircuitServeEngine(model, cfg, max_batch=4, max_retries=1,
+                             retry_backoff_s=0.005, device=cuda)
+    t, box = _serve_thread(eng)
+    try:
+        rids = [eng.submit(x) for x in (graphs[0], graphs[1], poison,
+                                        graphs[2])]
+        healthy = [rids[0], rids[1], rids[3]]
+        for rid, rr in zip(healthy, ref):
+            assert _bits_equal(eng.result(rid, timeout=600.0).pred,
+                               clean.result(rr).pred)
+        with pytest.raises(RuntimeError) as ei:
+            eng.result(rids[2], timeout=600.0)
+        assert isinstance(ei.value.__cause__, ValueError)
+    finally:
+        eng.stop()
+        t.join(timeout=600.0)
+    assert "exc" not in box
+    st = eng.stats()
+    assert st["bisects"] >= 1 and st["failures"] == 1
+
+
+def test_online_kernel_error_raises(cuda, monkeypatch):
+    """A kernel launch that returns a CUDA error is not healed: it fails
+    the pending requests and raises out of ``serve_forever``, with no
+    retry."""
+    class _Refused:
+        def drspmm_arena_fwd(self, *args):
+            return 9                      # cudaErrorInvalidConfiguration
+
+        def error_string(self, rc):
+            return b"invalid configuration argument"
+    monkeypatch.setattr(tk, "_arena_lib", lambda: _Refused())
+    cfg = HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K)
+    model = DRCircuitGNN(16, 16, HIDDEN, LAYERS, device=cuda)
+    eng = CircuitServeEngine(model, cfg, max_batch=2, max_wait_ms=5.0,
+                             device=cuda)
+    t, box = _serve_thread(eng)
+    rid = eng.submit(generate_design(1, "medium", SCALE)[0])
+    t.join(timeout=600.0)
+    assert not t.is_alive()
+    assert "CUDA error 9" in str(box.get("exc"))
+    with pytest.raises(RuntimeError) as ei:
+        eng.result(rid, timeout=1.0)
+    assert "CUDA error 9" in str(ei.value.__cause__)
+    st = eng.stats()
+    assert st["retries"] == 0 and st["failures"] == 1

@@ -250,11 +250,16 @@ def test_trainer_refuses_unported_fields(kw):
 
 
 def test_trainer_refuses_unported_hooks(designs):
-    with pytest.raises(NotImplementedError, match="chaos"):
-        CircuitTrainer(CircuitTrainConfig(hidden=HIDDEN), 16, 16,
-                       device="cpu", chaos=object())
+    """The chaos, monitor and registry hooks are ported (tests/
+    test_torch_fault.py, test_torch_obs.py); data-parallel steps are
+    not."""
+    from repro_torch.fault import FaultInjector, StepMonitor
+    from repro_torch.obs import MetricsRegistry
+    reg = MetricsRegistry()
     tt = CircuitTrainer(CircuitTrainConfig(hidden=HIDDEN), 16, 16,
-                        device="cpu")
+                        device="cpu", chaos=FaultInjector([]),
+                        monitor=StepMonitor(), registry=reg)
+    assert tt.metrics is reg
     with pytest.raises(NotImplementedError, match="devices"):
         tt.train_epoch(designs[1][:2], batch_size=2, devices=True)
 

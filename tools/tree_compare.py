@@ -15,6 +15,10 @@ It prints one JSON object a line:
   ``bisect``.  Each is served by a fresh engine twice (``cold``: every
   signature new; ``warm``: the same requests again): graphs/s, p50 and
   p95 ms of the pass's own requests;
+* ``serve`` of ``table1-captured``: the Table-1 partitions and a jittered
+  copy of each (node counts x U(0.9, 1.1), seeded), ``topk``, the
+  ``serve-table1-captured`` stream of ``chip_smoke.py``: ``cold`` captures
+  each signature, ``warm`` replays them;
 * ``collate``: host ms of collating the first two Table-1 partitions as
   the serve engine does on the plan path (the tree's default arguments,
   and ``with_edges=False`` where the tree has it), each the best of 3;
@@ -24,7 +28,9 @@ It prints one JSON object a line:
   the ``gat`` layer's k = dim = 64 operand (iota columns): ms a call by
   CUDA events (20 calls after 3 warm-ups) and by ``torch.profiler`` (the
   kernel's own device time, 50 calls), with the output's SHA-256, so the
-  two trees' outputs can be held bit for bit.
+  two trees' outputs can be held bit for bit; and kernel 1's narrow walk
+  on the main path's shape: the quantized super-arena of that batch as
+  the engine serves it, a seeded k = 16 operand, dim 64.
 
 Every line carries the card's name and power limit as ``nvidia-smi``
 reports them.
@@ -105,6 +111,50 @@ def serve(label, smi, model, cfg, graphs, name):
     print(json.dumps(dict(what="serve", tree=label, path=name, card=smi,
                           compiles=getattr(eng, "compiles", None), **out)),
           flush=True)
+
+
+def jittered(graphs, seed):
+    """A partition of each graph's size class with its node counts scaled
+    by U(0.9, 1.1), made from ``seed``."""
+    import numpy as np
+    from repro_torch.graphs.generator import (generate_partition,
+                                              pack_graph_parallel)
+    rng = np.random.default_rng(seed)
+    out = []
+    for g in graphs:
+        n_cell = int(g.n_cell * rng.uniform(0.9, 1.1))
+        n_net = int(g.n_net * rng.uniform(0.9, 1.1))
+        coo, xc, xn, y = generate_partition(rng, n_cell, n_net, FEAT, FEAT)
+        out.append(pack_graph_parallel(coo, n_cell, n_net, xc, xn, y))
+    return out
+
+
+def narrow_kernel(label, smi, table1):
+    """Kernel 1 (k = 16, dim 64) on the quantized plan of the first two
+    Table-1 partitions, as the serve engine collates them."""
+    from repro_torch.graphs.collate import collate_graphs
+    from repro_torch.kernels import drspmm as K1
+    try:
+        batch = collate_graphs(table1[:2], with_edges=False, device="cuda")
+    except TypeError:                         # a tree without the option
+        batch = collate_graphs(table1[:2], device="cuda")
+    plan = batch.plan
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn((plan.n_src_total, HIDDEN), generator=gen)
+    xi = torch.sort(torch.topk(x, K, dim=1).indices, dim=1).values.to(
+        torch.int32)
+    xv = torch.gather(x, 1, xi.long()).contiguous().cuda()
+    xi = xi.contiguous().cuda()
+
+    def fn():
+        return K1.drspmm_fwd_arena(plan.fwd, xv, xi, HIDDEN)
+    out = fn()
+    torch.cuda.synchronize()
+    own, total = kernel_ms(fn, "arena_")
+    print(json.dumps(dict(
+        what="kernel", tree=label, kernel="drspmm_fwd_arena-k16", card=smi,
+        arena=list(plan.fwd.nbr.shape), k=K, events_ms=events_ms(fn),
+        device_ms=own, device_ms_all=total, sha256=sha(out))), flush=True)
 
 
 def collate_ms(label, smi, graphs):
@@ -208,7 +258,10 @@ def main() -> None:
                               ("table1-bisect", bisect, table1),
                               ("scale0.02-bisect", bisect, tiny)):
         serve(label, smi, model, cfg, graphs, name)
+    serve(label, smi, model, topk, table1 + jittered(table1, SEED + 9),
+          "table1-captured")
     collate_ms(label, smi, table1[:2])
+    narrow_kernel(label, smi, table1)
     wide_kernels(label, smi, table1)
 
 
