@@ -1168,7 +1168,7 @@ def drelu_masks(model, graph, cfg):
 
 
 def lockstep_path(name, cfg, graphs, state, wrappers, expect, forbid,
-                  count_of):
+                  count_of, twin=None):
     """Train single graphs (or collated batches of ``cfg.batch_size``) on
     the card for ``cfg.epochs`` epochs, each step in lockstep with a CPU
     trainer that takes it from the card's weights and optimizer state, on
@@ -1177,8 +1177,10 @@ def lockstep_path(name, cfg, graphs, state, wrappers, expect, forbid,
     step whose masks differ (a near-tied pick that GPU-vs-CPU rounding
     flips) is held to LOSS_RTOL instead and reported.  ``count_of(g)``
     gives each kernel's launches for a step on the card's step graph
-    ``g``; the run's counts must equal their sum.  Returns the card's
-    launch counts."""
+    ``g``; the run's counts must equal their sum.  ``twin``, a
+    ``(config, rtol)`` pair, adds a second card trainer of that config
+    that takes each step from the same state, its loss held to ``rtol``
+    relative.  Returns the card's launch counts."""
     from repro_torch.models.hgnn import (DRCircuitGNN, batched_loss_fn,
                                          loss_fn)
     from repro_torch.optim.adamw import adamw_update
@@ -1191,6 +1193,11 @@ def lockstep_path(name, cfg, graphs, state, wrappers, expect, forbid,
     gpu, cpu = trainers
     bs = cfg.batch_size
     chunks = [graphs[i:i + bs] for i in range(0, len(graphs), bs)]
+    if twin is not None:
+        m = DRCircuitGNN(FEAT, FEAT, HIDDEN, LAYERS, device="cuda")
+        m.load_state_dict(state)
+        other = CircuitTrainer(twin[0], FEAT, FEAT, model=m, device="cuda")
+        twin_diffs = []
 
     def step_graph(tr, chunk):
         return tr._planned(chunk[0]) if bs == 1 else tr._collate(chunk)[0]
@@ -1227,14 +1234,16 @@ def lockstep_path(name, cfg, graphs, state, wrappers, expect, forbid,
         for chunk in chunks:
             for k, v in count_of(step_graph(gpu, chunk)).items():
                 expected[k] = expected.get(k, 0) + v
-            # the CPU trainer takes this step from the card's state
-            with torch.no_grad():
-                for p, q in zip(cpu.params, gpu.params):
-                    p.copy_(q)
-                for a, b in zip(cpu.opt_state.m + cpu.opt_state.v,
-                                gpu.opt_state.m + gpu.opt_state.v):
-                    a.copy_(b)
-            cpu.opt_state.step = gpu.opt_state.step
+            # the CPU trainer (and the twin) take this step from the
+            # card's state
+            for tr in (cpu,) if twin is None else (cpu, other):
+                with torch.no_grad():
+                    for p, q in zip(tr.params, gpu.params):
+                        p.copy_(q)
+                    for a, b in zip(tr.opt_state.m + tr.opt_state.v,
+                                    gpu.opt_state.m + gpu.opt_state.v):
+                        a.copy_(b)
+                tr.opt_state.step = gpu.opt_state.step
             pre_state = {k: v.detach().clone()
                          for k, v in cpu.model.state_dict().items()}
             before = {k: w.launches for k, w in wrappers.items()}
@@ -1242,6 +1251,12 @@ def lockstep_path(name, cfg, graphs, state, wrappers, expect, forbid,
             for k, w in wrappers.items():      # the step's own launches
                 launches[k] += w.launches - before[k]
             lc = cpu.train_epoch(chunk)
+            if twin is not None:
+                lt = other.train_epoch(chunk)
+                twin_diffs.append(abs(lg - lt) / abs(lt))
+                if not twin_diffs[-1] <= twin[1]:
+                    problem(f"path {name}: step {len(diffs)} loss {lg}, "
+                            f"{lt} on the card's twin trainer")
             d = abs(lg - lc) / abs(lc)
             diffs.append(d)
             if not d <= LOCKSTEP_RTOL:
@@ -1268,6 +1283,10 @@ def lockstep_path(name, cfg, graphs, state, wrappers, expect, forbid,
     log(f"path {name}: relative loss difference to the CPU per step "
         f"{diffs}; steps beyond {LOCKSTEP_RTOL} (step, D-ReLU mask rows "
         f"that differ, difference): {flips}")
+    if twin is not None:
+        log(f"path {name}: relative loss difference to the card's twin "
+            f"trainer (n_shards={twin[0].n_shards}) per step {twin_diffs}, "
+            f"limit {twin[1]}")
     check_launches(name, launches, expect, forbid)
     for k, v in expected.items():
         if launches[k] != v:
@@ -2407,6 +2426,249 @@ def auto_k_path(graphs, state, wrappers):
     return launches
 
 
+SHARD_RTOL = 2e-5          # sharded step loss vs the card's unsharded one
+DP_RTOL = 1e-5             # data-parallel step vs the batched step
+LARGE_TIMES = 8            # sharded-forward-large: x the large design's
+LARGE_SHARDS = 4           # Table-1 node counts, over this many shards
+
+
+def shard_log(name, graphs, n):
+    """Each shard's device, H, halo and owned rows, and table bytes beside
+    the unsharded plan's, for every graph's ``n``-way sharded plan."""
+    from repro_torch.graphs.circuit import sharded_plan_of
+    from repro_torch.sharding.specs import shard_devices
+    devs = [str(d) for d in shard_devices(n, "cuda")]
+    for i, g in enumerate(graphs):
+        st = sharded_plan_of(g, n).halo_stats()
+        sh = st["shards"]
+        log(f"path {name}: partition {i}: shards on {devs}, H "
+            f"{st['halo_pad']}, halo rows {[s['halo_rows'] for s in sh]}, "
+            f"owned rows {[s['owned_rows'] for s in sh]}, shard bytes "
+            f"{[s['arena_bytes'] for s in sh]} against full_arena_bytes "
+            f"{st['full_arena_bytes']}")
+
+
+def queued_ms(fn, reps=REPS):
+    """Device ms of one ``fn()`` launch: ``reps`` launches, each between
+    two CUDA events, queued behind a ``torch.cuda._sleep`` so that the
+    host has issued all of them before the first runs (back-to-back
+    events, ``cuda_ms``, read the host's launch rate on short kernels)."""
+    fn()
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    for a, b in evs:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in evs) / reps
+
+
+def dp_path(graphs, state, wrappers):
+    """train-table1-dp: ``train_epoch(batch_size=4, devices=[cuda:0,
+    cuda:0])`` for two epochs (a two-slot data-parallel step, then the
+    fifth partition's batch of one) against a card trainer's batched
+    epochs from the same weights: every step's loss and the final
+    parameters within DP_RTOL; then the data-parallel step and the
+    batched step on the first four partitions, timed in turns."""
+    from repro_torch.models.hgnn import DRCircuitGNN
+    from repro_torch.train.circuit_trainer import (CircuitTrainConfig,
+                                                   CircuitTrainer)
+    cfg = CircuitTrainConfig(hidden=HIDDEN, n_layers=LAYERS, k_cell=K,
+                             k_net=K)
+    slots = [torch.device("cuda", 0)] * 2
+    trainers = []
+    for _ in range(2):
+        m = DRCircuitGNN(FEAT, FEAT, HIDDEN, LAYERS, device="cuda")
+        m.load_state_dict(state)
+        trainers.append(CircuitTrainer(cfg, FEAT, FEAT, model=m,
+                                       device="cuda"))
+    dp, one = trainers
+    zero_counts(wrappers)
+    for _ in range(2):
+        dp.train_epoch(graphs, batch_size=4, devices=slots)
+    torch.cuda.synchronize()
+    launches = lm_counts(wrappers)
+    for _ in range(2):
+        one.train_epoch(graphs, batch_size=4)
+    diffs = [abs(a - b) / abs(b) for a, b in zip(dp.step_loss,
+                                                   one.step_loss)]
+    if len(diffs) != 4 or not all(d <= DP_RTOL for d in diffs):
+        problem(f"train-table1-dp: step losses {dp.step_loss}, batched "
+                f"{one.step_loss}")
+    p_err = {n: rel_l2(p.detach(), q.detach()) for (n, p), q in
+             zip(dp.model.named_parameters(), one.model.parameters())}
+    worst = max(p_err, key=p_err.get)
+    if not p_err[worst] <= DP_RTOL:
+        problem(f"train-table1-dp: parameter {worst} differs from the "
+                f"batched trainer's by {p_err[worst]} (relative L2)")
+    per_epoch = [min(len(slots), len(c)) if len(c) > 1 else 1
+                 for c in (graphs[i:i + 4] for i in range(0, len(graphs), 4))]
+    want = 2 * LAYERS * sum(per_epoch)
+    for k in ("drspmm_fwd_arena", "drspmm_bwd_arena"):
+        if launches[k] != want:
+            problem(f"train-table1-dp: {launches[k]} launches of {k}, "
+                    f"expected {want}")
+    check_launches("train-table1-dp", launches, [],
+                   [k for k in wrappers if k not in ("drspmm_fwd_arena",
+                                                     "drspmm_bwd_arena")])
+    step_ms = {"dp": [], "batched": []}
+    for tr, what in ((dp, "dp"), (one, "batched"), (one, "batched"),
+                     (dp, "dp")):
+        kw = {"devices": slots} if what == "dp" else {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.train_epoch(graphs[:4], batch_size=4, **kw)
+        torch.cuda.synchronize()
+        step_ms[what].append((time.perf_counter() - t) * 1e3)
+    log(f"path train-table1-dp: step losses {dp.step_loss[:4]}, relative "
+        f"difference to the batched trainer {diffs}, worst parameter "
+        f"{p_err[worst]} ({worst}); replicas {len(dp._replicas)}; "
+        f"launches={launches}; host ms a step on partitions 0-3 (4 "
+        f"members, caches warm), in turns dp / batched / batched / dp: "
+        f"{step_ms} [{CARD}]")
+    return launches
+
+
+def sharded_forward_large(state, wrappers):
+    """sharded-forward-large: one partition made by ``generate_partition``
+    at LARGE_TIMES x the large design's Table-1 node counts (the upper
+    ends), the model's forward with ``n_shards=LARGE_SHARDS`` against the
+    unsharded forward on the card (within SHARD_RTOL: a shard keeps each
+    row's slot order, so the sums agree); then, at the first layer's
+    operands, each shard's kernel 1 and kernel 4 launch and the unsharded
+    plan's, each held against its plain version on the same local arena
+    and timed (events), the exchange's host time and each shard's bytes.
+    Kernel 1 must run LARGE_SHARDS x LAYERS times in the forward, and
+    nothing else."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.hetero_mp import HeteroMPConfig
+    from repro_torch.graphs.circuit import relation_plan_of, sharded_plan_of
+    from repro_torch.graphs.generator import (TABLE1, generate_partition,
+                                              pack_graph_parallel)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.drspmm import (drspmm_bwd_arena,
+                                            drspmm_bwd_arena_plain,
+                                            drspmm_fwd_arena,
+                                            drspmm_fwd_arena_plain)
+    from repro_torch.models.hgnn import DRCircuitGNN
+    n = LARGE_SHARDS
+    n_cell = LARGE_TIMES * TABLE1["large"]["n_cell"][1]
+    n_net = LARGE_TIMES * TABLE1["large"]["n_net"][1]
+    t = time.perf_counter()
+    coo, xc, xn, y = generate_partition(np.random.default_rng(SEED + 34),
+                                        n_cell, n_net)
+    g = pack_graph_parallel(coo, n_cell, n_net, xc, xn, y)
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    plan = relation_plan_of(g)
+    plan_s = time.perf_counter() - t
+    t = time.perf_counter()
+    splan = sharded_plan_of(g, n)
+    shard_s = time.perf_counter() - t
+    gu = dataclasses.replace(g, plan=plan).to("cuda")
+    gs = dataclasses.replace(g, plan=splan).to("cuda")
+    placed = gs.plan
+    st = splan.halo_stats()
+    log(f"path sharded-forward-large: {n_cell} cells, {n_net} nets, "
+        f"{sum(len(d) for d, _ in coo.values())} edges; tiers "
+        f"{[(s.etype, s.tier) for s in plan.segments]}; made in "
+        f"{gen_s:.1f} s, plan {plan_s:.1f} s, {n} shards {shard_s:.1f} s "
+        f"(host); shards on {[str(d) for d in placed.devices]}, S "
+        f"{splan.src_slab}, T {splan.out_slab}, H {splan.halo_pad}, halo "
+        f"rows {[x['halo_rows'] for x in st['shards']]}, owned rows "
+        f"{[x['owned_rows'] for x in st['shards']]}, shard bytes "
+        f"{[x['arena_bytes'] for x in st['shards']]} against "
+        f"full_arena_bytes {st['full_arena_bytes']}")
+    model = DRCircuitGNN(FEAT, FEAT, HIDDEN, LAYERS, device="cuda")
+    model.load_state_dict(state)
+    cfg = HeteroMPConfig(hidden=HIDDEN, k_cell=K, k_net=K, n_shards=n)
+    with torch.inference_mode():
+        ref = model(gu, dataclasses.replace(cfg, n_shards=0))
+        zero_counts(wrappers)
+        out = model(gs, cfg)
+        torch.cuda.synchronize()
+        launches = lm_counts(wrappers)
+    if launches["drspmm_fwd_arena"] != n * LAYERS:
+        problem(f"sharded-forward-large: {launches['drspmm_fwd_arena']} "
+                f"launches of kernel 1, expected {n * LAYERS}")
+    check_launches("sharded-forward-large", launches, ["drspmm_fwd_arena"],
+                   [k for k in wrappers if k != "drspmm_fwd_arena"])
+    diff = (out - ref).abs()
+    share = float((diff <= CELL_ATOL).float().mean())
+    if not (torch.isfinite(out).all() and out.shape == (n_cell,)
+            and torch.allclose(out, ref, rtol=SHARD_RTOL, atol=SHARD_RTOL
+                               * max(1.0, float(ref.abs().max())))):
+        problem(f"sharded-forward-large: {share} of the cells within "
+                f"{CELL_ATOL} of the unsharded forward (max "
+                f"{float(diff.max())})")
+
+    # the first layer's kernel launches, shard by shard and unsharded
+    xv, xi, _ = first_layer_operands(model, gu, cfg)
+    gy = torch.randn((plan.n_out_total, HIDDEN),
+                     generator=torch.Generator().manual_seed(SEED)).cuda()
+    with torch.inference_mode():
+        sv, si = ops._shard_slabs(placed, xv), ops._shard_slabs(placed, xi)
+        gy_pad = ops._pad_rows(gy, n * placed.out_slab)
+        gys = [gy_pad[d * placed.out_slab:(d + 1) * placed.out_slab]
+               .contiguous() for d in range(n)]
+        fwds = [lambda: drspmm_fwd_arena(gu.plan.fwd, xv, xi, HIDDEN)] + [
+            lambda d=d: drspmm_fwd_arena(placed.fwd[d], sv[d], si[d],
+                                         HIDDEN) for d in range(n)]
+        bwds = [lambda: drspmm_bwd_arena(gu.plan.bwd, gu.plan.bwd_src_rows,
+                                         gy, xi)] + [
+            lambda d=d: drspmm_bwd_arena(placed.bwd[d], placed.bwd[d].rows,
+                                         gys[d], si[d]) for d in range(n)]
+        plain = [lambda: drspmm_fwd_arena_plain(gu.plan.fwd, xv, xi,
+                                                HIDDEN)] + [
+            lambda d=d: drspmm_fwd_arena_plain(placed.fwd[d], sv[d], si[d],
+                                               HIDDEN) for d in range(n)]
+        plain_t = [lambda: drspmm_bwd_arena_plain(
+            gu.plan.bwd, gu.plan.bwd_src_rows, gy, xi)] + [
+            lambda d=d: drspmm_bwd_arena_plain(placed.bwd[d],
+                                               placed.bwd[d].rows, gys[d],
+                                               si[d]) for d in range(n)]
+        errs = []
+        for what, ks, ps in (("kernel 1", fwds, plain),
+                             ("kernel 4", bwds, plain_t)):
+            for i, (kf, pf) in enumerate(zip(ks, ps)):
+                y, want = kf(), pf()
+                errs.append(float((y - want).abs().max()))
+                if not torch.allclose(y, want, rtol=1e-5, atol=1e-5 * max(
+                        1.0, float(want.abs().max()))):
+                    problem(f"sharded-forward-large: {what} "
+                            f"{'unsharded' if i == 0 else f'shard {i - 1}'} "
+                            f"disagrees with its plain version: max "
+                            f"|diff| {errs[-1]}")
+        ev_fwd = [queued_ms(f) for f in fwds]
+        ev_bwd = [queued_ms(f) for f in bwds]
+        ex_ms = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ops._shard_slabs(placed, xv)
+            ops._shard_slabs(placed, xi)
+            torch.cuda.synchronize()
+            ex_ms.append((time.perf_counter() - t) * 1e3)
+        fwd_wall = cuda_ms(lambda: model(gs, cfg), 5)
+        fwd_wall_u = cuda_ms(lambda: model(gu, dataclasses.replace(
+            cfg, n_shards=0)), 5)
+    log(f"path sharded-forward-large: {share} of the cells within "
+        f"{CELL_ATOL} of the unsharded forward, max |diff| "
+        f"{float(diff.max())}; launches={launches}; max |diff| against "
+        f"the plain versions (unsharded, then per shard) kernel 1 "
+        f"{errs[:n + 1]}, kernel 4 {errs[n + 1:]}; events ms a launch "
+        f"queued behind a sleep (unsharded, then per shard) kernel 1 "
+        f"{ev_fwd}, kernel 4 {ev_bwd}; exchange (both operands, host ms "
+        f"after the first) {ex_ms[1:]}; forward ms (events) sharded "
+        f"{fwd_wall}, unsharded "
+        f"{fwd_wall_u} [{CARD}]")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device visible")
@@ -2666,6 +2928,35 @@ def main() -> None:
         t = time.perf_counter()
         launches = lockstep_path(name, cfg, graphs, state, wrappers, expect,
                                  forbid, count_of)
+        for k, v in launches.items():
+            total[k] += v
+        log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+
+    # the plan sharded over 2 and 4 shards (all on the one card): single
+    # graphs in lockstep with a CPU trainer of the same shards and with
+    # the card's unsharded trainer; kernels 1 and 4 once per shard and
+    # layer, no dense tier
+    for n in (2, 4):
+        name = f"train-table1-sharded-{n}"
+        t = time.perf_counter()
+        launches = lockstep_path(
+            name, CircuitTrainConfig(**serial, n_shards=n), table1, state,
+            wrappers, ["drspmm_fwd_arena", "drspmm_bwd_arena"],
+            fused_only[1:2] + fused_only[3:] + bucket_kernels
+            + learnable_kernels,
+            lambda g, n=n: {"drspmm_fwd_arena": n * LAYERS,
+                            "drspmm_bwd_arena": n * LAYERS},
+            twin=(CircuitTrainConfig(**serial), SHARD_RTOL))
+        shard_log(name, table1, n)
+        for k, v in launches.items():
+            total[k] += v
+        log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+    for name, run in (
+            ("train-table1-dp", lambda: dp_path(table1, state, wrappers)),
+            ("sharded-forward-large",
+             lambda: sharded_forward_large(state, wrappers))):
+        t = time.perf_counter()
+        launches = run()
         for k, v in launches.items():
             total[k] += v
         log(f"phase {name}: {time.perf_counter() - t:.1f} s")

@@ -15,7 +15,9 @@ k is at least the width, or every type with D-ReLU off, stays dense.
   ``backend="fused"`` and k < width on both types): the whole message
   passing runs over the graph's :class:`RelationPlan` in one
   ``drspmm_multi`` call, one arena-kernel launch plus at most one
-  dense-tier launch.
+  dense-tier launch; over a :class:`ShardedRelationPlan`
+  (``n_shards > 1``) one ``drspmm_multi_sharded`` call, one arena-kernel
+  launch per shard.
 * **serial path** (every other config): the reference's per-relation loop
   over ``graph.edges``, one ``ops.drspmm`` per CBSR-sourced relation and
   one ``ops.spmm`` per dense-sourced one, each with ``cfg.backend``, then
@@ -38,6 +40,7 @@ from repro_torch.graphs.circuit import CircuitGraph
 from repro_torch.graphs.ell import RelationPlan
 from repro_torch.kernels import ops
 from repro_torch.kernels.drelu_topk import drelu_bisect
+from repro_torch.sharding.plan_shard import ShardedRelationPlan
 
 DRELU_BACKENDS = ("topk", "bisect")
 
@@ -61,6 +64,11 @@ class HeteroMPConfig:
     backend: str = "fused"
     # False pins the serial per-relation path
     use_plan: bool = True
+    # > 1: the model partitions a plain graph's plan over that many shards
+    # (``sharding/plan_shard.py``, placed by ``shard_devices``) and the
+    # layer runs ``ops.drspmm_multi_sharded``; a graph that carries a plan
+    # (a collated batch, a sharded plan) runs the plan it carries
+    n_shards: int = 0
 
     def __post_init__(self):
         if self.drelu_backend not in DRELU_BACKENDS:
@@ -145,20 +153,24 @@ def _merge(layer: HeteroLayer, x_cell: torch.Tensor, agg_near: torch.Tensor,
     return y_cell, y_net
 
 
-def hetero_conv(layer: HeteroLayer, over: Union[RelationPlan, CircuitGraph],
+def hetero_conv(layer: HeteroLayer,
+                over: Union[RelationPlan, ShardedRelationPlan, CircuitGraph],
                 x_cell: torch.Tensor, x_net: torch.Tensor,
                 cfg: HeteroMPConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """One HeteroConv layer.  Returns (y_cell, y_net).
 
     ``over`` is the layer's :class:`RelationPlan` (tables on the features'
-    device) on the plan path, or the :class:`CircuitGraph` whose edge
-    packings the serial loop runs (their device tables are memoised per
-    adjacency)."""
+    device) or placed :class:`ShardedRelationPlan` on the plan path, or the
+    :class:`CircuitGraph` whose edge packings the serial loop runs (their
+    device tables are memoised per adjacency)."""
     c_cell, c_net = _sparsify_types(x_cell, x_net, cfg)
-    if isinstance(over, RelationPlan):
-        aggs = ops.drspmm_multi(over, {"cell": (c_cell.values, c_cell.idx),
-                                       "net": (c_net.values, c_net.idx)},
-                                x_cell.shape[-1])
+    if isinstance(over, (RelationPlan, ShardedRelationPlan)):
+        cbsr = {"cell": (c_cell.values, c_cell.idx),
+                "net": (c_net.values, c_net.idx)}
+        aggs = ops.drspmm_multi_sharded(
+            over, cbsr, x_cell.shape[-1], backend=cfg.backend) \
+            if isinstance(over, ShardedRelationPlan) \
+            else ops.drspmm_multi(over, cbsr, x_cell.shape[-1])
         return _merge(layer, x_cell, aggs["near"], aggs["pinned"],
                       aggs["pin"])
     agg_near = _aggregate(over, "near", x_cell, c_cell, cfg)    # cell->cell

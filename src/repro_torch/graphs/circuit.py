@@ -9,9 +9,11 @@ Two node types (``cell``, ``net``), three edge types::
 Each edge type carries a forward and a transposed packing: degree-bucketed
 ELL (host numpy) for a member graph, or the fused arenas a collated batch
 is packed into (``graphs/collate.py``).  Features and labels are tensors,
-and the relation plan of a collated batch rides along.
-:meth:`CircuitGraph.to` moves the tensors, the fused arenas and the plan to
-a device; bucketed packings stay on the host, where plans are built.
+and the relation plan of a collated batch (or the sharded plan of a large
+graph, :func:`with_sharded_plan`) rides along.  :meth:`CircuitGraph.to`
+moves the tensors, the fused arenas and the plan to a device (a sharded
+plan's shards to :func:`~repro_torch.sharding.specs.shard_devices` of it);
+bucketed packings stay on the host, where plans are built.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import torch
 from repro_torch.graphs.ell import (BucketedELL, FusedELL, RelationPlan,
                                     _to_tensor, build_relation_plan,
                                     ell_to_coo, pack_ell_pair)
+from repro_torch.sharding.plan_shard import (ShardedRelationPlan,
+                                             shard_relation_plan)
 
 EDGE_TYPES = ("near", "pin", "pinned")
 # (source node type, destination node type) per edge type.
@@ -53,9 +57,10 @@ class CircuitGraph:
     x_cell: torch.Tensor            # (n_cell, f_cell) input features
     x_net: torch.Tensor             # (n_net, f_net)
     y_cell: torch.Tensor            # (n_cell,) congestion label
-    # relation plan attached by the collator; None means the model builds
-    # (and memoises) one from ``edges`` on the host
-    plan: Optional[RelationPlan] = None
+    # relation plan attached by the collator (or a sharded plan,
+    # ``with_sharded_plan``); None means the model builds (and memoises)
+    # one from ``edges`` on the host
+    plan: Optional[Union[RelationPlan, ShardedRelationPlan]] = None
 
     def to(self, device) -> "CircuitGraph":
         device = torch.device(device)
@@ -77,7 +82,7 @@ def relation_plan_of(graph: CircuitGraph,
     """Memoised host :class:`RelationPlan` covering every edge type of
     ``graph``.  ``dense_threshold`` overrides the dense-tier crossover;
     distinct thresholds memoise separately."""
-    if graph.plan is not None and dense_threshold is None:
+    if isinstance(graph.plan, RelationPlan) and dense_threshold is None:
         return graph.plan
     key = (id(graph), dense_threshold)
     hit = _PLAN_CACHE.get(key)
@@ -96,6 +101,41 @@ def relation_plan_of(graph: CircuitGraph,
     _PLAN_CACHE[key] = (
         weakref.ref(graph, lambda _: _PLAN_CACHE.pop(key, None)), plan)
     return plan
+
+
+# (id(graph), n_shards)-keyed memo, weakref-guarded like _PLAN_CACHE: the
+# partition is host-side numpy work done once per (graph, shard count)
+_SHARDED_PLAN_CACHE: Dict[tuple, tuple] = {}
+
+
+def sharded_plan_of(graph: CircuitGraph, n_shards: int,
+                    registry=None) -> ShardedRelationPlan:
+    """Memoised host partition of ``graph``'s relation plan over
+    ``n_shards`` shards: each owns one destination slab of the super-arena
+    and the halo tables of the source rows it reads from other shards
+    (``sharding/plan_shard.py``).  Consumed, placed, by
+    ``ops.drspmm_multi_sharded``."""
+    key = (id(graph), int(n_shards))
+    hit = _SHARDED_PLAN_CACHE.get(key)
+    if hit is not None and hit[0]() is graph:
+        return hit[1]
+    splan = shard_relation_plan(relation_plan_of(graph), n_shards,
+                                registry=registry)
+    _SHARDED_PLAN_CACHE[key] = (
+        weakref.ref(graph, lambda _: _SHARDED_PLAN_CACHE.pop(key, None)),
+        splan)
+    return splan
+
+
+def with_sharded_plan(graph: CircuitGraph, n_shards: int) -> CircuitGraph:
+    """``graph`` with its ``n_shards``-way host sharded plan attached in
+    place of any plan it carries."""
+    if isinstance(graph.plan, ShardedRelationPlan) \
+            and graph.plan.n_shards == n_shards:
+        return graph
+    base = dataclasses.replace(graph, plan=None) \
+        if graph.plan is not None else graph
+    return dataclasses.replace(base, plan=sharded_plan_of(graph, n_shards))
 
 
 def mean_weights(dst: np.ndarray, n_dst: int) -> np.ndarray:

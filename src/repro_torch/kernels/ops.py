@@ -37,15 +37,17 @@ transposed super-arena plus at most one dense-tier backward launch, summed
 per source node type.  A CUDA operand launches the kernels, a CPU operand
 runs their plain versions (``kernels/drspmm.py``).  ``dense=True`` runs the
 fully dense oracle instead, for tests; its backward is autograd through the
-dense product.
+dense product.  ``drspmm_multi_sharded`` runs the same contract over a plan
+partitioned over devices (``sharding/plan_shard.py``): kernel 1 and kernel
+4 once per shard on its local arenas, with the halo exchange around them.
 
 Every op call counts one ``ops.dispatch{family, kind}`` in
 :data:`~repro_torch.obs.metrics.DEFAULT_REGISTRY`: ``family`` is the route,
 the operands' device type and the executor family (``cuda_fused``,
 ``cpu_bucket``, ...), ``kind`` the executor (``multi_fwd``,
-``multi_dense_fwd``, ``multi_bwd``, ``multi_dense_bwd``, ``fwd``,
-``dense_fwd``, ``bwd``, ``dense_bwd``, ``spmm``, ``learnable_fwd``,
-``learnable_bwd``, ``learnable_dw``).  The reference counts while JAX
+``multi_dense_fwd``, ``multi_bwd``, ``multi_dense_bwd``, ``shard_fwd``,
+``shard_bwd``, ``fwd``, ``dense_fwd``, ``bwd``, ``dense_bwd``, ``spmm``,
+``learnable_fwd``, ``learnable_bwd``, ``learnable_dw``).  The reference counts while JAX
 traces; the port counts each Python-level call, so eager runs and CUDA-graph
 captures count and a replay of a captured graph adds nothing.
 """
@@ -66,6 +68,7 @@ from repro_torch.graphs.ell import (DENSE_TIER_AREA, DENSE_TIER_NNZ,
 from repro_torch.kernels import drspmm as _k
 from repro_torch.kernels import learnable as _learn
 from repro_torch.obs.metrics import DEFAULT_REGISTRY as _METRICS
+from repro_torch.sharding.plan_shard import ShardedRelationPlan
 
 BACKENDS = ("fused", "bucket")
 
@@ -230,6 +233,124 @@ def drspmm_multi(plan: RelationPlan,
     else:
         y_cat = _DRSpMMMulti.apply(plan, dim, idxs, *vals)
     return {s.etype: y for s, y in zip(plan.segments, _split_out(plan, y_cat))}
+
+
+# ---------------------------------------------------------------------------
+# drspmm_multi_sharded: the plan partitioned over devices
+# ---------------------------------------------------------------------------
+
+def _pad_rows(a: torch.Tensor, total: int) -> torch.Tensor:
+    return F.pad(a, (0, 0, 0, total - a.shape[0]))
+
+
+def _shard_slabs(splan: ShardedRelationPlan, x_cat: torch.Tensor):
+    """Each shard's local source slab ``[own | halo]`` on its device: the
+    type-concat ``x_cat`` padded to n·S rows, owner s's slab on its own
+    device, and shard d's halo segment s gathered at the owner
+    (``send[s][d]``) and copied over."""
+    n, s_slab, devs = splan.n_shards, splan.src_slab, splan.devices
+    x_pad = _pad_rows(x_cat, n * s_slab)
+    own = [x_pad[s * s_slab:(s + 1) * s_slab].to(dv)
+           for s, dv in enumerate(devs)]
+    return [torch.cat([own[d]] + [own[s].index_select(0, splan.send[s][d])
+                                  .to(devs[d]) for s in range(n)])
+            for d in range(n)]
+
+
+def _sharded_fwd(splan: ShardedRelationPlan, xv, xi,
+                 dim: int) -> torch.Tensor:
+    """Relation-concat Y: kernel 1 once per shard over its local forward
+    arena and exchanged slab, each shard's output slab brought to the
+    operands' device."""
+    _record_dispatch(xv, "fused", "shard_fwd")
+    ys = []
+    for f, sv, si in zip(splan.fwd, _shard_slabs(splan, xv),
+                         _shard_slabs(splan, xi)):
+        ya = _k.drspmm_fwd_arena(f, sv, si, dim)
+        ys.append(ya.index_select(0, f.gather).to(xv.device))
+    return torch.cat(ys)[:splan.n_out_total]
+
+
+def _sharded_bwd(splan: ShardedRelationPlan, gy_cat,
+                 xi) -> torch.Tensor:
+    """Type-concat dV (n_src_total, k), summed over the relations: kernel
+    4 once per shard over its transposed local arena (its ``rows`` map the
+    arena rows to the slab rows whose CBSR columns they sample), then the
+    halo segment of each shard's dx slab goes back to its owner and is
+    added at ``send``.  A padded halo slot adds the arena sentinel's exact
+    zeros to the owner's row 0."""
+    _record_dispatch(gy_cat, "fused", "shard_bwd")
+    n, s_slab, t_slab, h = (splan.n_shards, splan.src_slab, splan.out_slab,
+                            splan.halo_pad)
+    devs = splan.devices
+    gy_pad = _pad_rows(gy_cat, n * t_slab)
+    dx = []
+    for d, (ft, si) in enumerate(zip(splan.bwd, _shard_slabs(splan, xi))):
+        gy_d = gy_pad[d * t_slab:(d + 1) * t_slab].to(devs[d]).contiguous()
+        dv = _k.drspmm_bwd_arena(ft, ft.rows, gy_d, si)
+        dx.append(dv.index_select(0, ft.gather))
+    own = [dx[s][:s_slab] for s in range(n)]
+    for d in range(n):
+        for s in range(n):
+            own[s].index_add_(0, splan.send[s][d],
+                              dx[d][s_slab + s * h:s_slab + (s + 1) * h]
+                              .to(devs[s]))
+    return torch.cat([o.to(gy_cat.device) for o in own])[:splan.n_src_total]
+
+
+class _DRSpMMMultiSharded(torch.autograd.Function):
+    """:class:`_DRSpMMMulti` over a placed :class:`ShardedRelationPlan`:
+    the backward's dV is already type-concat (each local transposed arena
+    sums every relation of its source rows), so each type's gradient is a
+    row slice of it with the k padding sliced off."""
+
+    @staticmethod
+    def forward(ctx, splan, dim, idxs, *vals):
+        xv, xi = _multi_concat(splan, vals, idxs)
+        ctx.splan = splan
+        ctx.ks = [int(i.shape[1]) for i in idxs]
+        ctx.save_for_backward(xi)
+        return _sharded_fwd(splan, xv, xi, dim)
+
+    @staticmethod
+    def backward(ctx, gy_cat):
+        (xi,) = ctx.saved_tensors
+        sp = ctx.splan
+        dx = _sharded_bwd(sp, gy_cat.float().contiguous(), xi)
+        return (None, None, None,
+                *(dx[o:o + n, :k] for o, n, k in zip(sp.src_off,
+                                                     sp.src_sizes, ctx.ks)))
+
+
+def drspmm_multi_sharded(splan: ShardedRelationPlan,
+                         cbsr: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+                         dim: int, *, backend: str = "fused"
+                         ) -> Dict[str, torch.Tensor]:
+    """:func:`drspmm_multi` over a plan partitioned by
+    :func:`~repro_torch.sharding.plan_shard.shard_relation_plan` and placed
+    with ``splan.to(devices)``: the same contract (``{etype: y}`` on the
+    operands' device, gradients to every type's values), run as one
+    exchange and one launch of kernel 1 per shard forward, one exchange,
+    one launch of kernel 4 per shard and the reverse exchange backward.
+    A sharded plan has only local arenas, so every ``backend`` runs this
+    fused executor (the reference's rule)."""
+    check_backend(backend)
+    if splan.devices is None:
+        raise ValueError("place the sharded plan on its devices first: "
+                         "splan.to(device) or splan.to([devices])")
+    vals = tuple(cbsr[t][0] for t in splan.src_types)
+    idxs = tuple(cbsr[t][1] for t in splan.src_types)
+    where = vals[0].device.type
+    if any(dv.type != where for dv in splan.devices):
+        # a card's operands would be copied to a CPU shard (or the other
+        # way round) and run the kernels' plain versions there
+        raise ValueError(
+            f"operands on {where} but the plan's shards sit on "
+            f"{[str(dv) for dv in splan.devices]}: place it with "
+            f"splan.to(shard_devices(n, device))")
+    y_cat = _DRSpMMMultiSharded.apply(splan, dim, idxs, *vals)
+    return {s.etype: y for s, y in zip(splan.segments,
+                                       _split_out(splan, y_cat))}
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,9 @@
 DR-CircuitGNN: per-type input projection -> N x HeteroConv -> per-cell
 linear head (congestion regression in [0, 1]).  Where the plan path
 applies (``core/hetero_mp.py::plan_applicable``) every layer runs its whole
-message passing over the graph's :class:`RelationPlan`; otherwise
+message passing over the graph's :class:`RelationPlan` (or, with
+``n_shards > 1``, its plan partitioned over devices, where remat is off as
+in the reference); otherwise
 (``use_plan=False``, ``backend="bucket"``, k >= width on a node type, or
 D-ReLU off) each layer runs the serial per-relation loop over the graph's
 edge packings.  The inter-layer activation is D-ReLU in its dense form
@@ -25,9 +27,10 @@ copies a reference parameter tree over as it is.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import weakref
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,12 +41,15 @@ from repro_torch import resolve_device
 from repro_torch.core.drelu import drelu
 from repro_torch.core.hetero_mp import (HeteroLayer, HeteroMPConfig,
                                         hetero_conv, plan_applicable)
-from repro_torch.graphs.circuit import CircuitGraph, relation_plan_of
+from repro_torch.graphs.circuit import (CircuitGraph, relation_plan_of,
+                                        sharded_plan_of)
 from repro_torch.graphs.ell import (BucketedELL, FusedELL, RelationPlan,
                                     ell_to_coo, pack_ell_pair,
                                     pack_fused_eid_pair)
 from repro_torch.kernels import ops
 from repro_torch.models.backbone import BackboneSpec, apply_stack, spec_for
+from repro_torch.sharding.plan_shard import ShardedRelationPlan
+from repro_torch.sharding.specs import shard_devices
 
 _LAYER_FIELDS = ("w_near", "w_near_self", "w_pinned", "w_pinned_self",
                  "w_pin", "b_cell", "b_net")
@@ -55,15 +61,27 @@ def _uniform(shape, bound: float, generator, device) -> nn.Parameter:
 
 
 def _device_plan(graph: CircuitGraph, device: torch.device,
-                 dense_threshold: Optional[int]) -> Optional[RelationPlan]:
+                 cfg: HeteroMPConfig
+                 ) -> Union[None, RelationPlan, ShardedRelationPlan]:
     """The graph's plan with its tables on ``device``: a collated batch
     brings it there already; a plain graph gets its memoised host plan
-    copied over.  A batch collated without a plan has none (its layers run
-    the serial path over its fused arenas, as in the reference)."""
+    copied over, partitioned over ``cfg.n_shards`` shards when that is
+    above 1 (placed by ``shard_devices``, so shard 0 sits on ``device``).
+    A plan the graph carries is used whatever ``n_shards`` says; a sharded
+    one placed anywhere but ``shard_devices(n, device)`` is re-placed
+    there, as an unsharded one off ``device`` is.  A batch collated
+    without a plan has none (its layers run the serial path over its
+    fused arenas, as in the reference)."""
     if graph.plan is None and isinstance(graph.edges["near"].adj, FusedELL):
         return None
-    plan = graph.plan if graph.plan is not None \
-        else relation_plan_of(graph, dense_threshold)
+    if graph.plan is not None:
+        plan = graph.plan
+    elif cfg.n_shards > 1:
+        plan = sharded_plan_of(graph, cfg.n_shards)
+    else:
+        plan = relation_plan_of(graph, cfg.dense_threshold)
+    if isinstance(plan, ShardedRelationPlan):
+        return plan.to(shard_devices(plan.n_shards, device))
     if isinstance(plan.fwd.nbr, np.ndarray) or plan.fwd.nbr.device != device:
         plan = plan.to(device)
     return plan
@@ -116,8 +134,11 @@ class DRCircuitGNN(nn.Module):
         h = (graph.x_cell @ self.in_cell, graph.x_net @ self.in_net)
         # the serial path reads the graph's edge packings: no plan is
         # built or read
-        over = (_device_plan(graph, dev, cfg.dense_threshold)
+        over = (_device_plan(graph, dev, cfg)
                 if plan_applicable(cfg, self.hidden) else None) or graph
+        if spec.remat and isinstance(over, ShardedRelationPlan):
+            # the reference's sharded path draws no checkpoint boundary
+            spec = dataclasses.replace(spec, remat=False)
         if cfg.use_drelu:
             act = lambda hc, hn: (drelu(hc, cfg.k_cell), drelu(hn, cfg.k_net))
         else:                   # the dense baseline

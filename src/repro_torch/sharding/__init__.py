@@ -1,1 +1,2 @@
-from repro_torch.sharding.specs import DeviceRing, batch_devices  # noqa: F401
+from repro_torch.sharding.specs import (  # noqa: F401
+    DeviceRing, batch_devices, shard_devices)

@@ -1,11 +1,16 @@
-"""Device routing of independent dispatches: :func:`batch_devices` and
-:class:`DeviceRing`.
+"""Device placement: :func:`batch_devices`, :class:`DeviceRing` and
+:func:`shard_devices`.
 
-Independent collated batches (serving) have no dataflow between them, so
-routing them round-robin over the ring's slots is pure throughput.  A slot
-is a ``torch.device``; two slots may name one card (each then holds its
-own model replica and captures in the serve engine).  The mesh half of the
-reference module (logical-axis rules, sharded plans) is not ported.
+Independent collated batches (serving, data-parallel training) have no
+dataflow between them, so routing them round-robin over the ring's slots
+is pure throughput.  A slot is a ``torch.device``; two slots may name one
+card (each then holds its own model replica: the serve engine's captures,
+the trainer's data-parallel replicas).  :func:`shard_devices` places the
+shards of a :class:`~repro_torch.sharding.plan_shard.ShardedRelationPlan`,
+the counterpart of the reference's ``shard_mesh``: the port drives every
+shard from one process, so a "mesh" is a tuple of devices.  The
+reference's logical-axis rules (``shard_map`` / ``NamedSharding``
+plumbing) have no counterpart.
 """
 
 from __future__ import annotations
@@ -28,6 +33,26 @@ def batch_devices(device="cuda") -> Tuple[torch.device, ...]:
         return (dev,)
     return tuple(torch.device("cuda", i)
                  for i in range(torch.cuda.device_count()))
+
+
+def shard_devices(n_shards: int, device="cuda") -> Tuple[torch.device, ...]:
+    """Devices of ``n_shards`` shards: on a card, the visible cards in turn
+    starting from ``device``'s (so shard 0 sits on it, and ``n`` shards on
+    a one-card host all sit there); on the CPU, ``n`` times the CPU.
+    Raises, as :func:`~repro_torch.resolve_device` does, when a card is
+    asked for and none is visible, and when ``device`` names a card that
+    is not visible."""
+    dev = resolve_device(device)
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be at least 1, got {n_shards}")
+    if dev.type == "cpu":
+        return (dev,) * n_shards
+    count = torch.cuda.device_count()
+    if dev.index >= count:
+        raise RuntimeError(f"device {str(dev)!r} requested but only {count} "
+                           f"CUDA device(s) are visible")
+    return tuple(torch.device("cuda", (dev.index + d) % count)
+                 for d in range(n_shards))
 
 
 class DeviceRing:

@@ -27,13 +27,21 @@ Robustness and observability: ``chaos`` (a
 :class:`~repro_torch.fault.monitor.StepMonitor`) and the trainer's
 ``registry`` (``train.steps``, ``train.nonfinite_grad_steps``, the
 ``train.step_ms`` histogram, and the ``train.peak_memory_bytes`` /
-``train.recompute_ms`` gauges); ``recorder`` marks skipped steps.  The
-data-parallel (``devices=``) and sharded-plan (``n_shards > 1``) hooks are
-not ported: setting them raises.
+``train.recompute_ms`` gauges); ``recorder`` marks skipped steps.
+
+Scale-out: ``n_shards > 1`` partitions each single graph's plan over that
+many shards (``sharding/plan_shard.py``; kernels 1 and 4 once per shard and
+layer, shards placed by ``shard_devices``: the visible cards in turn), as
+the reference's giant-graph steps; ``train_epoch(devices=...)`` takes
+data-parallel steps, each batch's members dealt round-robin to the slots of
+a :class:`~repro_torch.sharding.specs.DeviceRing`, each slot's gradient
+taken on a replica of the model on its device, and their member-weighted
+mean applied once by AdamW on the master weights.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Dict, List, Optional
@@ -48,7 +56,7 @@ from repro_torch.core.hetero_mp import (DRELU_BACKENDS, HeteroMPConfig,
 from repro_torch.fault.inject import FaultInjector
 from repro_torch.fault.monitor import StepMonitor
 from repro_torch.graphs.circuit import (EDGE_SCHEMA, CircuitGraph,
-                                        relation_plan_of)
+                                        relation_plan_of, sharded_plan_of)
 from repro_torch.graphs.collate import collate_graphs
 from repro_torch.graphs.ell import ell_to_coo
 from repro_torch.kernels import ops
@@ -58,6 +66,7 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NULL_RECORDER, Recorder
 from repro_torch.optim.adamw import adamw_init, adamw_update
 from repro_torch.optim.schedules import constant
+from repro_torch.sharding.specs import DeviceRing, batch_devices
 from repro_torch.train import metrics as M
 
 
@@ -76,7 +85,9 @@ class CircuitTrainConfig:
     # "fused" | "bucket" (per-degree-bucket kernels on single graphs)
     backend: str = "fused"
     use_plan: bool = True             # False: the serial per-relation path
-    n_shards: int = 0                 # not ported: must stay 0 or 1
+    # > 1: single-graph steps run the graph's plan partitioned over that
+    # many shards (the sharded path has no remat, as in the reference)
+    n_shards: int = 0
     # dense-tier crossover for single-graph plans (None: DENSE_TIER_NNZ);
     # collated batches are tiered at pack time with the constant
     dense_threshold: Optional[int] = None
@@ -86,14 +97,22 @@ class CircuitTrainConfig:
     wiring: str = "plain"             # plain | residual | dense
 
     def __post_init__(self):
-        if self.n_shards > 1:
-            raise NotImplementedError(
-                f"n_shards={self.n_shards}: sharded plans are not ported "
-                f"yet")
         if self.drelu_backend not in DRELU_BACKENDS:
             raise ValueError(f"unknown drelu_backend {self.drelu_backend!r}; "
                              f"expected one of {DRELU_BACKENDS}")
         ops.check_backend(self.backend)
+
+
+def _grads(model: DRCircuitGNN, loss_of) -> tuple:
+    """``loss_of()``'s value and the gradients of ``model``'s parameters
+    (zeros where none reaches, as for the last layer's net-side weights)."""
+    for p in model.parameters():
+        p.grad = None
+    loss = loss_of()
+    loss.backward()
+    return loss.detach(), [p.grad if p.grad is not None
+                           else torch.zeros_like(p)
+                           for p in model.parameters()]
 
 
 class CircuitTrainer:
@@ -130,7 +149,8 @@ class CircuitTrainer:
                                      dense_threshold=cfg.dense_threshold,
                                      use_drelu=cfg.use_drelu,
                                      backend=cfg.backend,
-                                     use_plan=cfg.use_plan)
+                                     use_plan=cfg.use_plan,
+                                     n_shards=cfg.n_shards)
         self._with_plan = plan_applicable(self.mp_cfg, cfg.hidden)
         self.spec = BackboneSpec(depth=cfg.n_layers, hidden=cfg.hidden,
                                  wiring=cfg.wiring, remat=cfg.remat)
@@ -157,6 +177,8 @@ class CircuitTrainer:
         # the entry pins its graphs so their ids cannot be reused
         self._plan_cache: Dict[int, tuple] = {}
         self._batch_cache: Dict[tuple, tuple] = {}
+        # data-parallel replicas of the model, one per ring slot
+        self._replicas: Dict[int, DRCircuitGNN] = {}
 
     @property
     def nonfinite_grad_steps(self) -> int:
@@ -214,53 +236,55 @@ class CircuitTrainer:
         self._g_recompute.set(recompute_ms)
 
     def _planned(self, g: CircuitGraph) -> CircuitGraph:
-        """``g`` on the device with its relation plan attached (cached).
-        Where the plan path does not apply no plan is built: the layers
-        read ``g``'s edge packings, whose device tables the ops memoise."""
+        """``g`` on the device with its relation plan attached (cached):
+        with ``n_shards > 1`` its sharded plan, each shard's tables on its
+        device (``shard_devices``), so that the kernels' schedules are
+        built once per graph.  Where the plan path does not apply no plan
+        is built: the layers read ``g``'s edge packings, whose device
+        tables the ops memoise."""
         hit = self._plan_cache.get(id(g))
         if hit is not None and hit[0] is g:
             return hit[1]
         pg = g
         if self._with_plan:
-            pg = dataclasses.replace(
-                g, plan=relation_plan_of(g, self.cfg.dense_threshold))
+            plan = sharded_plan_of(g, self.cfg.n_shards) \
+                if self.cfg.n_shards > 1 \
+                else relation_plan_of(g, self.cfg.dense_threshold)
+            pg = dataclasses.replace(g, plan=plan)
         pg = pg.to(self.device)
         self._plan_cache[id(g)] = (g, pg)
         return pg
 
-    def _collate(self, graphs: List[CircuitGraph]):
+    def _collate(self, graphs: List[CircuitGraph], device=None):
         """Collate a batch into fused, quantized arenas once and reuse it
-        across epochs: (graph, cell_weight, n_real) on the device."""
-        key = tuple(id(g) for g in graphs)
+        across epochs: (graph, cell_weight, n_real) on ``device`` (the
+        trainer's by default)."""
+        dev = self.device if device is None else device
+        key = (tuple(id(g) for g in graphs), str(dev))
         hit = self._batch_cache.get(key)
         if hit is not None and all(a is b for a, b in zip(hit[0], graphs)):
             return hit[1]
-        batch = collate_graphs(graphs, with_plan=self._with_plan,
-                               device=self.device)
+        batch = collate_graphs(graphs, with_plan=self._with_plan, device=dev)
         entry = (batch.graph, batch.cell_weight, batch.n_real)
         self._batch_cache[key] = (tuple(graphs), entry)
         return entry
 
-    def _step(self, loss_of, key) -> tuple:
-        """One optimizer step on the loss ``loss_of()`` -> (loss, ok);
-        ``key`` is the step's input (the recompute estimate's cache key)."""
+    def _step(self, grads_of, recompute_of=lambda: 0.0) -> tuple:
+        """One optimizer step -> (loss, ok): ``grads_of()`` gives the
+        step's loss and the gradients of ``self.params``; they are applied
+        by AdamW when all are finite.  ``recompute_of()`` is the step's
+        recompute estimate (ms)."""
         if self.chaos is not None:
             self.chaos.stall("straggler")
         t0 = time.perf_counter()
-        for p in self.params:
-            p.grad = None
-        loss = loss_of()
-        loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
+        loss, grads = grads_of()
         ok = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
         if ok:
             adamw_update(self.params, grads, self.opt_state,
                          self.lr(self.opt_state.step),
                          weight_decay=self.cfg.weight_decay)
-        loss = float(loss.detach())          # device barrier ends the step
-        self._tick(time.perf_counter() - t0,
-                   self._recompute_ms(loss_of, key))
+        loss = float(loss)                   # device barrier ends the step
+        self._tick(time.perf_counter() - t0, recompute_of())
         if not ok:
             self._c_nonfinite.inc()
             if self._rec.enabled:
@@ -269,21 +293,69 @@ class CircuitTrainer:
         self.step_loss.append(loss if ok else float("nan"))
         return loss, ok
 
+    def _model_step(self, loss_of, key) -> tuple:
+        """:meth:`_step` on the model's loss ``loss_of()``; ``key`` is the
+        step's input (the recompute estimate's cache key)."""
+        return self._step(lambda: _grads(self.model, loss_of),
+                          lambda: self._recompute_ms(loss_of, key))
+
+    def _replica(self, slot: int, device: torch.device) -> DRCircuitGNN:
+        """Ring slot ``slot``'s replica of the model on ``device``, its
+        parameters copied from the master's."""
+        rep = self._replicas.get(slot)
+        if rep is None or rep.device != device:
+            rep = copy.deepcopy(self.model).to(device)
+            self._replicas[slot] = rep
+        with torch.no_grad():
+            for r, p in zip(rep.parameters(), self.params):
+                r.copy_(p)
+        return rep
+
+    def _dp_grads(self, graphs: List[CircuitGraph], ring: DeviceRing):
+        """One data-parallel step's loss and gradients: the members dealt
+        round-robin to the ring's slots, each slot's members collated on
+        its device and its loss and backward run on its replica, the
+        slots' gradients combined on slot 0 as their member-count-weighted
+        mean (the batched step's gradient over the same members) and
+        brought to the master's device."""
+        n_dev = min(len(ring), len(graphs))
+        losses, grads, weights = [], [], []
+        for d in range(n_dev):
+            dev = ring.devices[d]
+            graph, cell_w, n_real = self._collate(graphs[d::n_dev], device=dev)
+            rep = self._replica(d, dev)
+            loss, g = _grads(rep, lambda: batched_loss_fn(
+                rep, graph, cell_w, self.mp_cfg, self.spec))
+            losses.append(loss)
+            grads.append(g)
+            weights.append(n_real)
+        total = sum(weights)
+        dev0 = ring.devices[0]
+        mean = [sum((w / total) * g.to(dev0) for w, g in zip(weights, gs))
+                .to(self.device) for gs in zip(*grads)]
+        return np.average([float(x) for x in losses], weights=weights), mean
+
     def train_epoch(self, graphs: List[CircuitGraph],
                     batch_size: Optional[int] = None, devices=None) -> float:
         """One epoch: one step per graph, or with ``batch_size > 1`` one
         step per block-diagonal batch of consecutive graphs (gradient = the
         mean of the members' losses).  Returns the mean loss of the steps
-        taken (member-weighted for batches)."""
-        if devices is not None:
-            raise NotImplementedError("data-parallel steps (devices=) are "
-                                      "not ported yet")
+        taken (member-weighted for batches).
+
+        ``devices`` (a sequence of devices, or True for every visible card,
+        or the CPU for a CPU trainer) makes each batch a data-parallel step
+        over a :class:`DeviceRing` of them (:meth:`_dp_grads`); a ring of
+        one slot, or a batch of one graph, takes the batched step."""
         b = self.cfg.batch_size if batch_size is None else batch_size
+        ring = None
+        if devices is not None:
+            ring = DeviceRing(batch_devices(self.device) if devices is True
+                              else [resolve_device(d) for d in devices])
         losses, weights = [], []
         if b <= 1:
             for g in graphs:
                 pg = self._planned(g)
-                loss, ok = self._step(
+                loss, ok = self._model_step(
                     lambda: loss_fn(self.model, pg, self.mp_cfg, self.spec),
                     pg)
                 if ok:
@@ -291,10 +363,16 @@ class CircuitTrainer:
                     weights.append(1)
         else:
             for i in range(0, len(graphs), b):
-                graph, cell_w, n_real = self._collate(graphs[i:i + b])
-                loss, ok = self._step(lambda: batched_loss_fn(
-                    self.model, graph, cell_w, self.mp_cfg, self.spec),
-                    graph)
+                chunk = graphs[i:i + b]
+                if ring is not None and len(ring) > 1 and len(chunk) > 1:
+                    loss, ok = self._step(
+                        lambda: self._dp_grads(chunk, ring))
+                    n_real = len(chunk)
+                else:
+                    graph, cell_w, n_real = self._collate(chunk)
+                    loss, ok = self._model_step(lambda: batched_loss_fn(
+                        self.model, graph, cell_w, self.mp_cfg, self.spec),
+                        graph)
                 if ok:
                     losses.append(loss)
                     weights.append(n_real)

@@ -1806,3 +1806,93 @@ def test_online_kernel_error_raises(cuda, monkeypatch):
     assert "CUDA error 9" in str(ei.value.__cause__)
     st = eng.stats()
     assert st["retries"] == 0 and st["failures"] == 1
+
+
+# ---------------------------------------------------------------------------
+# sharded plans and data-parallel steps
+# ---------------------------------------------------------------------------
+
+_SHARD_KERNELS = ("drspmm_fwd_arena", "drspmm_bwd_arena",
+                  "drspmm_dense_tier_fwd", "drspmm_dense_tier_bwd")
+
+
+def _zero_launches(names):
+    for n in names:
+        getattr(tk, n).launches = 0
+    return lambda: {n: getattr(tk, n).launches for n in names}
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_sharded_executor_on_card_matches_cpu(cuda, n):
+    """``drspmm_multi_sharded`` with every shard on the card against its
+    CPU run: outputs and per-type gradients, one launch of kernel 1 and of
+    kernel 4 per shard, no dense-tier kernel (a sharded plan has none)."""
+    from repro_torch.sharding.plan_shard import shard_relation_plan
+    coo, xc, xn, y = generate_partition(np.random.default_rng(n), 400, 200)
+    g = pack_graph_parallel(coo, 400, 200, xc, xn, y)
+    splan = shard_relation_plan(relation_plan_of(g), n)
+    ops_ = cbsr_operands(splan, {"cell": K, "net": K}, seed=n)
+    gy = {s.etype: torch.randn((s.n_dst, HIDDEN),
+                               generator=torch.Generator().manual_seed(7))
+          for s in splan.segments}
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        sp = splan.to(dev)
+        vals = {t: torch.from_numpy(v).to(dev).requires_grad_()
+                for t, (v, _) in ops_.items()}
+        read = _zero_launches(_SHARD_KERNELS)
+        ys = tops.drspmm_multi_sharded(
+            sp, {t: (vals[t], torch.from_numpy(i).to(dev))
+                 for t, (_, i) in ops_.items()}, HIDDEN)
+        torch.autograd.backward([ys[e] for e in gy],
+                                [gy[e].to(dev) for e in gy])
+        out[dev.type] = ({e: y.detach().cpu() for e, y in ys.items()},
+                         {t: v.grad.cpu() for t, v in vals.items()}, read())
+    (yg, gg, lg), (yc, gc, _) = out["cuda"], out["cpu"]
+    assert lg == {"drspmm_fwd_arena": n, "drspmm_bwd_arena": n,
+                  "drspmm_dense_tier_fwd": 0, "drspmm_dense_tier_bwd": 0}
+    for e in yc:
+        assert_close(yg[e].numpy(), yc[e].numpy(), e)
+    for t in gc:
+        assert_close(gg[t].numpy(), gc[t].numpy(), t)
+
+
+def test_sharded_trainer_step_on_card_matches_cpu(cuda):
+    """One ``n_shards=2`` step on a single graph on the card against the
+    same step on the CPU: kernels 1 and 4 twice a layer, none of 2 and 5,
+    and shard 0 on the trainer's card."""
+    g = generate_design(1, "medium", SCALE)[0]
+    cfg = CircuitTrainConfig(hidden=HIDDEN, k_cell=K, k_net=K, lr=1e-3,
+                             n_shards=2)
+    gpu = CircuitTrainer(cfg, 16, 16, device=cuda)
+    cpu = CircuitTrainer(cfg, 16, 16, device="cpu")
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    assert gpu._planned(g).plan.devices[0] == gpu.device
+    read = _zero_launches(_SHARD_KERNELS)
+    lg = gpu.train_epoch([g])
+    launched = read()
+    lc = cpu.train_epoch([g])
+    assert launched == {"drspmm_fwd_arena": 2 * LAYERS,
+                        "drspmm_bwd_arena": 2 * LAYERS,
+                        "drspmm_dense_tier_fwd": 0,
+                        "drspmm_dense_tier_bwd": 0}
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for pg, pc in zip(gpu.model.parameters(), cpu.model.parameters()):
+        _rel_close(pg, pc)
+
+
+def test_dp_step_on_card_matches_batched(cuda):
+    """A data-parallel step over two slots of the card against the batched
+    step over the same four members on the card."""
+    gs = generate_design(1, "medium", SCALE)[:3] \
+        + generate_design(0, "small", SCALE)[:1]
+    cfg = CircuitTrainConfig(hidden=HIDDEN, k_cell=K, k_net=K, lr=1e-3)
+    dp = CircuitTrainer(cfg, 16, 16, device=cuda)
+    one = CircuitTrainer(cfg, 16, 16, device=cuda)
+    one.model.load_state_dict(dp.model.state_dict())
+    ld = dp.train_epoch(gs, batch_size=4, devices=[cuda, cuda])
+    lo = one.train_epoch(gs, batch_size=4)
+    assert len(dp._replicas) == 2
+    assert abs(ld - lo) <= 1e-5 * abs(lo)
+    for pa, pb in zip(dp.model.parameters(), one.model.parameters()):
+        _rel_close(pa, pb, 1e-5)

@@ -71,7 +71,7 @@ def test_training_stack_imports_without_jax():
             "sys.modules['repro'] = None; "
             "import repro_torch.train.circuit_trainer, "
             "repro_torch.optim.schedules, repro_torch.kernels.learnable, "
-            "repro_torch.core.parallel; "
+            "repro_torch.core.parallel, repro_torch.sharding.plan_shard; "
             "assert 'jax' not in {m.split('.')[0] for m, v in "
             "sys.modules.items() if v is not None}")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -243,16 +243,10 @@ def test_trainer_skips_nonfinite_step(designs):
         assert torch.equal(a, b.detach())
 
 
-@pytest.mark.parametrize("kw", [dict(n_shards=2)])
-def test_trainer_refuses_unported_fields(kw):
-    with pytest.raises(NotImplementedError, match=next(iter(kw))):
-        CircuitTrainConfig(**kw)
-
-
 def test_trainer_refuses_unported_hooks(designs):
     """The chaos, monitor and registry hooks are ported (tests/
-    test_torch_fault.py, test_torch_obs.py); data-parallel steps are
-    not."""
+    test_torch_fault.py, test_torch_obs.py) and taken as given;
+    data-parallel steps (tests/test_torch_shard.py) are ported too."""
     from repro_torch.fault import FaultInjector, StepMonitor
     from repro_torch.obs import MetricsRegistry
     reg = MetricsRegistry()
@@ -260,8 +254,6 @@ def test_trainer_refuses_unported_hooks(designs):
                         device="cpu", chaos=FaultInjector([]),
                         monitor=StepMonitor(), registry=reg)
     assert tt.metrics is reg
-    with pytest.raises(NotImplementedError, match="devices"):
-        tt.train_epoch(designs[1][:2], batch_size=2, devices=True)
 
 
 def test_circuitgnn_learns():
