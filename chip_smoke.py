@@ -85,7 +85,28 @@ seed, fp32 on the card, computed in bf16):
 16. ``serve-lm-fp32-depth2``: full width, 2 layers, fp32: the card's
     prefill + 8 decode steps against the port's CPU path;
 17. ``serve-lm-engine``: ``ServeEngine`` (4 slots, s_max 128) over 8 ragged
-    requests, slots reused, no flash launch.
+    requests, slots reused, no flash launch;
+
+and trains it through kernel 13 and its backward, kernel 13b:
+
+18. ``flash-bwd``: kernel 13b against its plain version (the same o, lse
+    and a seeded dO), on the plain forward's o and lse and on kernel 13's
+    own (its lse against the plain version's, its output bit-equal to the
+    launch without lse): fp32 at head dims 32, 64 and 128 (GQA, ragged
+    tails, causal and full, q offsets) and bf16 at the prefill's q/k/v;
+    timed beside SDPA's backward on tiled k/v, by events queued behind a
+    sleep;
+19. ``train-lm-fp32-depth2``: full width, 2 layers, fp32, B 2 x S 128:
+    the card's loss, gradients and one ``make_train_step`` step against
+    the port's CPU from the same weights (1e-5 / 1e-4);
+20. ``train-lm-qwen3-0.6b``: ``launch.train.main`` at depth 28, bf16,
+    remat ``full``, B 4 x S 1,024, 6 steps with a checkpoint every 3
+    (under ``build/``), then a restart that restores step 3 bit for bit
+    and runs steps 4-5: finite losses, the first within 0.5 of ln V, 56
+    launches of kernel 13 and 28 of 13b a step, no plain version; step
+    p50, tokens/s (every token over the runs' whole wall time, checkpoint
+    saves included), forward+backward / AdamW ms and peak memory, and
+    remat ``full`` against off at depth 2.
 
 Every kernel's launch count is zeroed just before each path and read just
 after; a kernel that the path should run and did not, or one it must not
@@ -1475,6 +1496,7 @@ def modules_time(g, reps=REPS):
 
 LM_ARCH = "qwen3-0.6b"
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 1008, 16   # examples/serve_lm.py's layout
+LM_SEQ = 1024                # the training paths' sequence (B LM_BATCH)
 # bf16, 28 layers: decode at S-1 against the prefill's last logits, rel L2
 # (the two round the same numbers through differently shaped products)
 DECODE_RTOL = 5e-2
@@ -1540,16 +1562,32 @@ def bf16_limit(ref):
 
 def check_flash_kernel(q, k, v):
     """Kernel 13 against its plain version: at the prefill's q/k/v (k and v
-    at their KV heads) and the cases above; timed at the prefill's shape
-    beside SDPA."""
+    at their KV heads) and the cases above, without an lse buffer (every
+    serving launch) and with one (training's: the lse against the plain
+    version's, the output bit for bit the same); timed at the prefill's
+    shape beside SDPA."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models.lm.attention import tile_kv
     err_main = None
     for label, a, b_, c, causal in flash_cases(q, k, v):
         y = FA.flash_attention(a, b_, c, causal=causal)
-        ref = FA.flash_attention_plain(a, b_, c, causal=causal)
+        ref, lse_ref = FA.flash_attention_plain(a, b_, c, causal=causal,
+                                                return_lse=True)
+        # the launch training makes: with an lse buffer
+        y_lse, lse = FA._forward(a, b_, c, causal, 0, with_lse=True)
         torch.cuda.synchronize()
+        bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        lse_err, lse_worst = worst_ratio(lse, lse_ref, False)
+        log(f"kernel flash_attention {label} with lse: lse max_abs_err "
+            f"{lse_err} (worst err/limit {lse_worst}), output bit-equal "
+            f"to the launch without: "
+            f"{torch.equal(y_lse.view(bits), y.view(bits))}")
+        if not lse_worst <= 1.0 or not torch.equal(y_lse.view(bits),
+                                                   y.view(bits)):
+            problem(f"flash kernel ({label}) with an lse buffer: lse "
+                    f"max_abs_err {lse_err}, or its output differs from "
+                    f"the launch without")
         diff = (y.float() - ref.float()).abs()
         err = float(diff.max())
         if a.dtype == torch.bfloat16:
@@ -1795,6 +1833,446 @@ def serve_lm_engine_path(lm, wrappers):
     check_launches("serve-lm-engine", launches, [], list(wrappers))
     return launches
 
+
+
+def bwd_cases(q, k, v):
+    """(label, q, k, v, causal, q_offset) of kernel 13b's check: fp32 at
+    head dims 32, 64 and 128 (GQA, ragged tails, causal and full, a q
+    offset), then bf16 at the prefill's own q/k/v (k/v at the 8 KV
+    heads), the main path's shape."""
+    g = torch.Generator("cuda").manual_seed(SEED + 3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    cases = []
+    for hd, (b, sq, sk, h, n_kv, causal, off) in (
+            (32, (1, 37, 101, 4, 1, True, 64)),
+            (32, (2, 1000, 1000, 16, 8, True, 0)),
+            (64, (2, 1000, 1000, 16, 8, True, 0)),
+            (64, (2, 128, 256, 4, 2, False, 0)),
+            (64, (1, 200, 300, 6, 3, True, 100)),
+            (128, (2, 300, 300, 8, 2, True, 0)),
+            (128, (1, 130, 70, 4, 4, False, 0))):
+        cases.append((f"fp32 hd{hd} B{b} Sq{sq} Sk{sk} H{h} KV{n_kv} "
+                      f"{'causal' if causal else 'full'} q_offset {off}",
+                      rnd(b, sq, h, hd), rnd(b, sk, n_kv, hd),
+                      rnd(b, sk, n_kv, hd), causal, off))
+    cases.append(("prefill bf16 causal", q, k, v, True, 0))
+    return cases
+
+
+def fp32_limit(ref):
+    """Per element: 1e-5 of the reference value plus 1e-5 scaled by the
+    largest magnitude (fp32 results that differ in summation order)."""
+    ref = ref.float()
+    return 1e-5 * (ref.abs() + max(1.0, float(ref.abs().max())))
+
+
+def worst_ratio(got, ref, bf16: bool):
+    """(max |got - ref|, the largest ratio of error to limit; inf where
+    ``got`` is not finite)."""
+    diff = (got.float() - ref.float()).abs()
+    lim = bf16_limit(ref) if bf16 else fp32_limit(ref)
+    worst = float((diff / lim).max())
+    return float(diff.max()), (worst if torch.isfinite(got).all()
+                               else float("inf"))
+
+
+def check_flash_bwd_kernel(q, k, v, wrappers):
+    """Kernel 13b against its plain version on each case, twice: on the
+    plain forward's o and lse (only the backward compared), and on kernel
+    13's own o and lse, the pair training feeds it.  There kernel 13's lse
+    is held against the plain version's at the fp32 limit and its output
+    bit for bit against the launch without an lse buffer (serving's).
+    Timed at the prefill's shape beside SDPA's backward on tiled k/v
+    (never called by the port), both by events queued behind a sleep so
+    that neither reads the host's dispatch."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.lm.attention import tile_kv
+    g = torch.Generator("cuda").manual_seed(SEED + 4)
+    err_main = None
+    for label, a, b_, c, causal, off in bwd_cases(q, k, v):
+        bf16 = a.dtype == torch.bfloat16
+        o, lse = FA.flash_attention_plain(a, b_, c, causal=causal,
+                                          q_offset=off, return_lse=True)
+        do = torch.randn(a.shape, generator=g, device="cuda").to(a.dtype)
+        ko, klse = FA._forward(a, b_, c, causal, off, with_lse=True)
+        ko_serve = FA._forward(a, b_, c, causal, off, with_lse=False)[0]
+        bits = torch.int16 if bf16 else torch.int32
+        same_out = torch.equal(ko.view(bits), ko_serve.view(bits))
+        lse_err, lse_worst = worst_ratio(klse, lse, False)
+        errs, worst = {}, 0.0
+        for which, (oo, ll) in (("plain o/lse", (o, lse)),
+                                ("kernel o/lse", (ko, klse))):
+            got = FA.flash_attention_bwd(a, b_, c, oo, ll, do,
+                                         causal=causal, q_offset=off)
+            ref = FA.flash_attention_bwd_plain(a, b_, c, oo, ll, do,
+                                               causal=causal, q_offset=off)
+            pairs = [worst_ratio(x, r, bf16) for x, r in zip(got, ref)]
+            errs[which] = [e for e, _ in pairs]
+            worst = max([worst] + [w for _, w in pairs])
+        torch.cuda.synchronize()
+        log(f"kernel flash_attention_bwd {label}: max_abs_err dq/dk/dv "
+            f"{errs} (worst err/limit {worst}); kernel 13's lse "
+            f"max_abs_err {lse_err} (worst err/limit {lse_worst}), output "
+            f"bit-equal to the launch without lse: {same_out}")
+        if not worst <= 1.0:
+            problem(f"flash backward kernel ({label}) disagrees with its "
+                    f"plain version: {errs}")
+        if not lse_worst <= 1.0:
+            problem(f"flash kernel's lse ({label}) disagrees with the plain "
+                    f"version's: {lse_err}")
+        if not same_out:
+            problem(f"flash kernel ({label}): the output with an lse buffer "
+                    f"differs from the one without")
+        if a is q:
+            err_main = max(max(e) for e in errs.values())
+    b, s, h, hd = q.shape
+    n_kv = k.shape[2]
+    o, lse = FA._forward(q, k, v, True, 0, with_lse=True)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    # q, o, dO, lse read and dq written; k, v read and dk, dv written at
+    # the KV heads; 5 products over the causal half
+    n_bytes = ((4 * h + 4 * n_kv) * b * s * hd * q.element_size()
+               + b * h * s * 4)
+    b_ms, b_by = bound(n_bytes, 10.0 * hd * b * h * (s * (s + 1) // 2),
+                       H100_BF16_PER_S)
+    run = lambda: FA.flash_attention_bwd(q, k, v, o, lse, do)
+    # SDPA's backward on the same operands, k/v tiled outside the call
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, tile_kv(k, h), tile_kv(v, h)))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                           retain_graph=True)
+    row = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/lm/attention.py:102",
+        max_abs_err=err_main, ms=queued_ms(run),
+        plain_ms=queued_ms(lambda: FA.flash_attention_bwd_plain(
+            q, k, v, o, lse, do)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=queued_ms(sdpa_bwd))
+    _, _, names = device_breakdown(lambda: [run() for _ in range(REPS)])
+    parts = {n: ms / REPS for ms, _, n in names if "flash_bwd" in n}
+    lib_names = device_breakdown(lambda: [sdpa_bwd() for _ in range(REPS)])[2]
+    log(f"  flash_attention_bwd (B {b}, S {s}, H {h}, KV {n_kv}, hd {hd}, "
+        f"bf16, causal): ms={row['ms']} plain_ms={row['plain_ms']} "
+        f"bound_ms={b_ms} ({b_by}, {n_bytes} bytes) library_ms(SDPA "
+        f"backward, tiled k/v)={row['library_ms']} (events queued behind "
+        f"a sleep); events back to back: kernel {cuda_ms(run)}, SDPA "
+        f"backward {cuda_ms(sdpa_bwd)}; kernel device ms a call "
+        f"(profiler) {sum(parts.values())}: {parts}; SDPA backward device "
+        f"ms a call {sum(ms for ms, _, _ in lib_names) / REPS}; "
+        f"{10.0 * hd * b * h * (s * (s + 1) // 2) / row['ms'] / 1e9:.1f} "
+        f"TFLOP/s on the 5 causal products [{CARD}]")
+    return row
+
+
+def count_plain_calls(fa_module):
+    """Wrap kernel 13's two plain versions to count their calls; returns
+    (counts, restore)."""
+    counts = {"flash_attention_plain": 0, "flash_attention_bwd_plain": 0}
+    saved = {n: getattr(fa_module, n) for n in counts}
+
+    def wrap(n):
+        def f(*a, **kw):
+            counts[n] += 1
+            return saved[n](*a, **kw)
+        return f
+    for n in counts:
+        setattr(fa_module, n, wrap(n))
+    return counts, lambda: [setattr(fa_module, n, f)
+                            for n, f in saved.items()]
+
+
+def lm_batch(vocab, seq, batch, step, device):
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    b = TokenPipeline(DataConfig(vocab=vocab, seq_len=seq,
+                                 global_batch=batch)).global_batch(step)
+    return {k: torch.from_numpy(v).long().to(device) for k, v in b.items()}
+
+
+def train_lm_fp32_path(wrappers):
+    """train-lm-fp32-depth2: qwen3-0.6b's full width, 2 layers, fp32 (TF32
+    off), remat on, B 2 x S 128: the card's loss and gradients, then one
+    ``make_train_step`` step, against the port's CPU from the same
+    weights (loss 1e-5 relative, gradients and parameters 1e-4 relative L2
+    a leaf)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.lm.model import build_lm
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+    from repro_torch.train import lm_step
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2,
+                              dtype="float32")
+    lm = build_lm(cfg, device="cuda")
+    lm.init(torch.Generator("cuda").manual_seed(SEED + 5))
+    cpu = build_lm(cfg, device="cpu")
+    cpu.load_state_dict(lm.state_dict())
+    out, launches, plain = {}, None, None
+    for model, dev in ((lm, "cuda"), (cpu, "cpu")):
+        batch = lm_batch(cfg.vocab, 128, 2, 0, dev)
+        params = model.params()
+        if dev == "cuda":
+            zero_counts(wrappers)
+            calls, restore = count_plain_calls(FA)
+        t = time.perf_counter()
+        loss = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        state = lm_step.TrainState(params, adamw_init(params))
+        _, metrics = lm_step.make_train_step(model, lr=1e-3,
+                                             total_steps=10)(state, batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches, plain = lm_counts(wrappers), dict(calls)
+            restore()
+        out[dev] = (float(loss.detach()), [g.cpu() for g in grads],
+                    [p.detach().cpu() for p in tree_leaves(params)],
+                    float(metrics["grad_norm"]),
+                    time.perf_counter() - t)
+    (l_g, g_g, p_g, n_g, t_g), (l_c, g_c, p_c, n_c, t_c) = \
+        out["cuda"], out["cpu"]
+    loss_rel = abs(l_g - l_c) / abs(l_c)
+    grad_rel = max(rel_l2(a, b) for a, b in zip(g_g, g_c))
+    par_rel = max(rel_l2(a, b) for a, b in zip(p_g, p_c))
+    log(f"path train-lm-fp32-depth2: B 2 x S 128, 2 layers fp32: loss card "
+        f"{l_g} CPU {l_c} (rel {loss_rel}, limit 1e-5); gradients rel L2 "
+        f"max {grad_rel} (limit 1e-4); grad norm {n_g} / {n_c}; one AdamW "
+        f"step: parameters rel L2 max {par_rel} (limit 1e-4); card "
+        f"{t_g:.2f} s, CPU {t_c:.2f} s; launches={launches}; plain calls "
+        f"on the card {plain}")
+    n = cfg.n_layers
+    if launches["flash_attention"] != 4 * n or \
+            launches["flash_attention_bwd"] != 2 * n:
+        problem(f"path train-lm-fp32-depth2: kernel 13 / 13b launched "
+                f"{launches['flash_attention']} / "
+                f"{launches['flash_attention_bwd']} times, expected "
+                f"{4 * n} / {2 * n} (remat: a forward and its recompute)")
+    check_launches("train-lm-fp32-depth2", launches,
+                   ["flash_attention", "flash_attention_bwd"],
+                   [k for k in wrappers if not k.startswith("flash")])
+    if any(plain.values()):
+        problem(f"path train-lm-fp32-depth2: plain versions ran on the "
+                f"card: {plain}")
+    if not (loss_rel <= 1e-5 and grad_rel <= 1e-4 and par_rel <= 1e-4):
+        problem("path train-lm-fp32-depth2: the card disagrees with the CPU")
+    return launches
+
+
+def remat_compare():
+    """Forward+backward and AdamW ms and peak memory of qwen3-0.6b at depth
+    2, bf16, B 4 x S 1,024, with remat ``full`` against remat off."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm.model import build_lm
+    from repro_torch.optim.adamw import adamw_init, adamw_update, tree_leaves
+    res = {}
+    for remat in (True, False):
+        cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2,
+                                  remat=remat)
+        lm = build_lm(cfg, device="cuda")
+        lm.init(torch.Generator("cuda").manual_seed(SEED))
+        params = lm.params()
+        opt = adamw_init(params)
+        batch = lm_batch(cfg.vocab, LM_SEQ, LM_BATCH, 0, "cuda")
+        fb, ad = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(4):
+            t = time.perf_counter()
+            grads = torch.autograd.grad(lm.loss(params, batch),
+                                        tree_leaves(params))
+            torch.cuda.synchronize()
+            fb.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            adamw_update(params, grads, opt, 1e-4, weight_decay=0.1,
+                         grad_clip=1.0)
+            torch.cuda.synchronize()
+            ad.append((time.perf_counter() - t) * 1e3)
+            del grads
+        res[remat] = (sorted(fb[1:])[1], sorted(ad[1:])[1],
+                      torch.cuda.max_memory_allocated() / 2 ** 30)
+        del lm, params, opt
+        torch.cuda.empty_cache()
+    log(f"  remat at depth 2 (bf16, B {LM_BATCH} x S {LM_SEQ}): "
+        f"forward+backward / AdamW ms (median of 3 after a warm-up) and "
+        f"peak GiB: full {res[True]}, off {res[False]} [{CARD}]")
+
+
+def train_lm_path(wrappers, ckpt_dir):
+    """train-lm-qwen3-0.6b: ``launch.train.main`` at depth 28, bf16, remat
+    ``full``, B 4 x S 1,024: 6 steps with a checkpoint every 3, then a
+    restart from the latest checkpoint (step 3), which runs steps 4-5."""
+    import shutil
+
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim.adamw import adamw_update, tree_leaves
+    from repro_torch.train import lm_step
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    argv = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--seq",
+            str(LM_SEQ), "--ckpt-dir", ckpt_dir, "--ckpt-every", "3",
+            "--log-every", "1", "--lr", "3e-4", "--steps", "6"]
+    step_ms, snap, got, models, bad, starts = [], {}, {}, [], [], []
+    make_step, save, restore_fn, build = (
+        lm_step.make_train_step, ckpt_mod.save_checkpoint,
+        launch_train.restore_checkpoint, launch_train.build_lm)
+
+    def timed_make(*a, **kw):
+        fn = make_step(*a, **kw)
+        starts.append(None)
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if starts[-1] is None:      # the run's training window opens
+                starts[-1] = t
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+        return step
+
+    def saving(ckpt_dir_, step, state, **kw):
+        if step == 3:       # the state the restart must find, on the host
+            snap.update({k: v.detach().to("cpu", copy=True)
+                         if torch.is_tensor(v) else v
+                         for k, v in ckpt_mod._flatten(state).items()})
+        return save(ckpt_dir_, step, state, **kw)
+
+    bits = lambda t: t.detach().cpu().reshape(-1).view(torch.uint8)
+
+    def restoring(ckpt_dir_, step, like, **kw):
+        """Restore, and hold every restored leaf against the state saved
+        at step 3, bit for bit, before the run updates it."""
+        got["state"] = restore_fn(ckpt_dir_, step, like, **kw)
+        got["step"] = step
+        flat = ckpt_mod._flatten(got["state"])
+        if set(flat) != set(snap):
+            bad.append("leaf sets differ")
+        for k, v in flat.items():
+            w = snap.get(k)
+            if torch.is_tensor(v):
+                same = (torch.is_tensor(w) and v.shape == w.shape
+                        and v.dtype == w.dtype
+                        and torch.equal(bits(v), bits(w)))
+            else:
+                same = v == w
+            if not same:
+                bad.append(k)
+        snap.clear()
+        return got["state"]
+
+    def building(*a, **kw):
+        models.append(build(*a, **kw))
+        return models[-1]
+    zero_counts(wrappers)
+    calls, restore_plain = count_plain_calls(FA)
+    lm_step.make_train_step = timed_make
+    ckpt_mod.save_checkpoint = saving
+    launch_train.restore_checkpoint = restoring
+    launch_train.build_lm = building
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    try:
+        # each run's window: its first step's start to main's return
+        # (checkpoint saves and their final wait included)
+        losses = launch_train.main(argv)
+        spans = [time.perf_counter() - starts[-1]]
+        first_run = (lm_counts(wrappers), len(losses))
+        restart = launch_train.main(argv)
+        spans.append(time.perf_counter() - starts[-1])
+    finally:
+        lm_step.make_train_step, ckpt_mod.save_checkpoint = make_step, save
+        launch_train.restore_checkpoint = restore_fn
+        launch_train.build_lm = build
+        restore_plain()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches, plain = lm_counts(wrappers), dict(calls)
+    n_steps = len(losses) + len(restart)
+    steady = sorted(step_ms[1:len(losses)] + step_ms[len(losses) + 1:])
+    p50 = steady[len(steady) // 2] if steady else float("nan")
+    # users' rate: every token trained over the windows' whole wall time
+    tok_s = n_steps * LM_BATCH * LM_SEQ / sum(spans)
+    # forward+backward against AdamW of the restarted run's model and
+    # state, one step each after the run
+    lm, state = models[-1], got.get("state")
+    fb_ms = opt_ms = float("nan")
+    if state is not None:
+        batch = lm_batch(lm.cfg.vocab, LM_SEQ, LM_BATCH, 99, "cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(lm.loss(state.params, batch),
+                                    tree_leaves(state.params))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        adamw_update(state.params, grads, state.opt, 3e-4, weight_decay=0.1,
+                     grad_clip=1.0)
+        torch.cuda.synchronize()
+        fb_ms, opt_ms = (t2 - t1) * 1e3, (time.perf_counter() - t2) * 1e3
+        del grads
+        # where a forward+backward's device time goes
+        p_wall, busy, rows = device_breakdown(lambda: torch.autograd.grad(
+            lm.loss(state.params, batch), tree_leaves(state.params)))
+        k13 = sum(ms for ms, _, n in rows if "flash_attention_fwd" in n)
+        k13b = sum(ms for ms, _, n in rows if "flash_bwd" in n)
+        log(f"breakdown train-lm forward+backward: wall {p_wall:.3f} ms "
+            f"under the profiler, device busy {busy:.3f} ms "
+            f"({busy / p_wall:.3f}) "
+            f"[{CARD}]; {sum(c for _, c, _ in rows)} device activities; "
+            f"kernel 13 {k13:.3f} ms, 13b {k13b:.3f} ms "
+            f"({(k13 + k13b) / busy:.3f} of busy); top kernels (ms, calls): "
+            + "; ".join(f"{n} {ms:.3f} x{c}" for ms, c, n in rows[:10]))
+    ln_v = math.log(lm.cfg.vocab)
+    log(f"path train-lm-{LM_ARCH}: launch.train.main, {lm.cfg.n_layers} "
+        f"layers bf16, remat {lm.cfg.remat_policy}, B {LM_BATCH} x S "
+        f"{LM_SEQ}: losses {losses} then, restarted from step "
+        f"{got.get('step')}, {restart} (ln V {ln_v}); step "
+        f"host ms {[round(x, 3) for x in step_ms]}, p50 {p50} after each "
+        f"run's first; {tok_s:.1f} tokens/s over the two runs' windows "
+        f"({[round(x, 3) for x in spans]} s, checkpoints included); one "
+        f"step split: forward+backward {fb_ms:.3f} ms, AdamW {opt_ms:.3f} ms;"
+        f" peak memory {peak:.2f} GiB; {wall:.1f} s with the checkpoints "
+        f"[{CARD}]; launches={launches} over {n_steps} steps (first run "
+        f"{first_run}); plain calls {plain}; restored leaves not equal to "
+        f"the saved ones: {bad[:5]}")
+    allv = losses + restart
+    if not all(math.isfinite(x) for x in allv) or len(losses) != 6 or \
+            len(restart) != 2:
+        problem(f"path train-lm: losses {losses} / {restart}: expected 6 "
+                f"then 2 finite losses")
+    if not abs(losses[0] - ln_v) <= 0.5:
+        problem(f"path train-lm: first loss {losses[0]} not within 0.5 of "
+                f"ln V {ln_v}")
+    n = lm.cfg.n_layers
+    if launches["flash_attention"] != 2 * n * n_steps or \
+            launches["flash_attention_bwd"] != n * n_steps:
+        problem(f"path train-lm: kernel 13 / 13b launched "
+                f"{launches['flash_attention']} / "
+                f"{launches['flash_attention_bwd']} times over {n_steps} "
+                f"steps, expected {2 * n} / {n} a step")
+    check_launches(f"train-lm-{LM_ARCH}", launches,
+                   ["flash_attention", "flash_attention_bwd"],
+                   [k for k in wrappers if not k.startswith("flash")])
+    if any(plain.values()):
+        problem(f"path train-lm: plain versions ran on the card: {plain}")
+    if got.get("step") != 3 or "state" not in got or bad:
+        problem(f"path train-lm: the restart restored step "
+                f"{got.get('step')}, leaves differing from the saved ones: "
+                f"{bad[:5]}")
+    del lm, state, models[:]
+    got.clear()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    remat_compare()
+    return launches
 
 
 def member_rows(batch):
@@ -2448,22 +2926,28 @@ def shard_log(name, graphs, n):
             f"{st['full_arena_bytes']}")
 
 
-def queued_ms(fn, reps=REPS):
-    """Device ms of one ``fn()`` launch: ``reps`` launches, each between
-    two CUDA events, queued behind a ``torch.cuda._sleep`` so that the
-    host has issued all of them before the first runs (back-to-back
-    events, ``cuda_ms``, read the host's launch rate on short kernels)."""
+def queued_ms(fn, reps=REPS, cycles=20_000_000):
+    """Device ms of one ``fn()`` call: ``reps`` calls, each between two
+    CUDA events, queued behind a ``torch.cuda._sleep`` so that the host
+    has issued all of them before the first runs (back-to-back events,
+    ``cuda_ms``, read the host's launch rate on short kernels).  Where the
+    first event had already run when the host finished issuing, the sleep
+    was too short: it is doubled and the calls queued again."""
     fn()
-    evs = [(torch.cuda.Event(enable_timing=True),
-            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    torch.cuda.synchronize()
-    torch.cuda._sleep(20_000_000)
-    for a, b in evs:
-        a.record()
-        fn()
-        b.record()
-    torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in evs) / reps
+    while True:
+        evs = [(torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        for a, b in evs:
+            a.record()
+            fn()
+            b.record()
+        ahead = not evs[0][0].query()
+        torch.cuda.synchronize()
+        if ahead or cycles >= 2 ** 31:
+            return sum(a.elapsed_time(b) for a, b in evs) / reps
+        cycles *= 2
 
 
 def dp_path(graphs, state, wrappers):
@@ -3008,13 +3492,32 @@ def main() -> None:
         problem(f"the prefill handed kernel 13 k/v at {k.shape[2]} heads, "
                 f"expected the {lm.cfg.n_kv} KV heads")
     rows["flash_attention"] = check_flash_kernel(q, k, v)
-    del q, k, v
     log(f"phase kernel-flash: {LM_ARCH} ({sum(p.numel() for p in lm.parameters())}"
         f" parameters, fp32 on the card) in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    wrappers["flash_attention_bwd"] = FA.flash_attention_bwd
+    total["flash_attention_bwd"] = 0
+    rows["flash_attention_bwd"] = check_flash_bwd_kernel(q, k, v, wrappers)
+    del q, k, v
+    log(f"phase flash-bwd: {time.perf_counter() - t:.1f} s")
     for name, run in (
             (f"serve-lm-{LM_ARCH}", lambda: serve_lm_path(lm, tokens, wrappers)),
             ("serve-lm-fp32-depth2", lambda: serve_lm_fp32_path(wrappers)),
             ("serve-lm-engine", lambda: serve_lm_engine_path(lm, wrappers))):
+        t = time.perf_counter()
+        launches = run()
+        for k, v in launches.items():
+            total[k] += v
+        log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+    del lm
+    torch.cuda.empty_cache()
+    # training the dense LM: kernel 13 and its backward 13b
+    ckpt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "chip_smoke_lm_ckpt")
+    for name, run in (
+            ("train-lm-fp32-depth2", lambda: train_lm_fp32_path(wrappers)),
+            (f"train-lm-{LM_ARCH}", lambda: train_lm_path(wrappers,
+                                                          ckpt_dir))):
         t = time.perf_counter()
         launches = run()
         for k, v in launches.items():

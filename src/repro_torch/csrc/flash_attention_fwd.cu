@@ -47,6 +47,13 @@
 // fp32 (the parity paths): the scalar kernel below, one block of 4 warps
 // per (b*h, 64-row q tile), fp32 tiles in shared memory, fp32 FMAs; it
 // matches the plain version to fp32 rounding, which TF32 would not.
+//
+// Training: given an lse buffer (fp32, (B, H, Sq)), both kernels also
+// write each row's log-sum-exp of its scaled scores, m + log(l) in natural
+// units (the bf16 kernel keeps m raw and l in base-2 units, so it writes
+// (m * scale_log2 + log2 l) * ln 2), which the backward
+// (flash_attention_bwd.cu) exponentiates as exp(s * scale - lse).  A null
+// lse (every serving launch) skips the store and leaves the rest as it is.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,8 +89,9 @@ constexpr int smem_floats() {
 template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_attention_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int n_heads,
-    int n_kv, int sq, int sk, int causal, int q_offset, float scale) {
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int n_heads, int n_kv, int sq, int sk,
+    int causal, int q_offset, float scale) {
   constexpr int QS = HD + 1;  // padded row stride of the q and k tiles
   constexpr int NC = HD / 8;  // output columns per lane
   extern __shared__ float smem[];
@@ -209,6 +217,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_f32_kernel(
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c) ob[r * rs + cg + 8 * c] = acc[i][c] / den;
+    if (lse != nullptr && cg == 0)
+      lse[((long long)b * n_heads + h) * sq + r] = m[i] + logf(den);
   }
 }
 
@@ -235,8 +245,8 @@ static int opt_in_smem(K kernel, int bytes, bool (&done)[kMaxDevices]) {
 
 template <int HD>
 static int launch_f32(const void* q, const void* k, const void* v, void* o,
-                      int b, int h, int n_kv, int sq, int sk, int causal,
-                      int q_offset, cudaStream_t stream) {
+                      float* lse, int b, int h, int n_kv, int sq, int sk,
+                      int causal, int q_offset, cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * (int)sizeof(float);
   auto kernel = flash_attention_fwd_f32_kernel<HD>;
   static bool opted_in[kMaxDevices] = {};
@@ -246,8 +256,8 @@ static int launch_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
   const float scale = (float)(1.0 / sqrt((double)(HD)));
   kernel<<<grid, kThreads, bytes, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, h, n_kv,
-      sq, sk, causal, q_offset, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, h,
+      n_kv, sq, sk, causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
@@ -517,7 +527,8 @@ __device__ __forceinline__ int kv_end(int r1, int sq, int sk, int causal,
 // The consumer warpgroups' part of the kernel.
 template <int HD>
 __device__ __forceinline__ void consumer(
-    __nv_bfloat16* __restrict__ o, uint32_t s_q, uint32_t s_k0,
+    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, uint32_t s_q,
+    uint32_t s_k0,
     uint32_t bar_q, uint32_t bar_f0, uint32_t bar_e0,
     int n_heads, int sq, int sk, int causal, int q_offset, float scale_log2,
     int q0, int b, int h, int n_tiles) {
@@ -715,6 +726,9 @@ __device__ __forceinline__ void consumer(
     const int row = qw + r + 8 * i;
     if (row >= sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && lane % 4 == 0)
+      lse[((long long)b * n_heads + h) * sq + row] =
+          (m[i] * scale_log2 + log2f(den)) * 0.69314718055994531f;
     __nv_bfloat16* orow = o + ((long long)b * sq + row) * rs + (long long)h * HD;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
@@ -730,8 +744,8 @@ __global__ void __launch_bounds__(Tc<HD>::THREADS, 1) flash_attention_fwd_tc_ker
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-    int n_heads, int n_kv, int sq, int sk, int causal, int q_offset,
-    float scale_log2) {
+    float* __restrict__ lse, int n_heads, int n_kv, int sq, int sk,
+    int causal, int q_offset, float scale_log2) {
   using C = Tc<HD>;
   constexpr int BK = C::BK, CW = C::CW, NCH = C::NCH, SWB = C::SWB;
   extern __shared__ uint8_t smem_raw[];
@@ -785,7 +799,7 @@ __global__ void __launch_bounds__(Tc<HD>::THREADS, 1) flash_attention_fwd_tc_ker
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
                  ::"n"(C::CONSUMER_REGS));
-    consumer<HD>(o, s_q, s_k0, bar_q, bar_f0, bar_e0, n_heads, sq, sk,
+    consumer<HD>(o, lse, s_q, s_k0, bar_q, bar_f0, bar_e0, n_heads, sq, sk,
                  causal, q_offset, scale_log2, q0, b, h, n_tiles);
   }
 }
@@ -839,8 +853,8 @@ static int make_map(CUtensorMap* map, const void* ptr, int b, int s,
 
 template <int HD>
 static int launch_tc(const void* q, const void* k, const void* v, void* o,
-                     int b, int h, int n_kv, int sq, int sk, int causal,
-                     int q_offset, cudaStream_t stream) {
+                     float* lse, int b, int h, int n_kv, int sq, int sk,
+                     int causal, int q_offset, cudaStream_t stream) {
   using C = Tc<HD>;
   // TMA takes 16-byte aligned bases
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15)
@@ -858,31 +872,33 @@ static int launch_tc(const void* q, const void* k, const void* v, void* o,
   // the scores in log2 units: exp(s - m) = exp2((s - m) log2(e))
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)(HD)));
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, h, n_kv, sq, sk, causal, q_offset,
+      tq, tk, tv, (__nv_bfloat16*)o, lse, h, n_kv, sq, sk, causal, q_offset,
       scale_log2);
   return (int)cudaGetLastError();
 }
 
+// lse: null, or an fp32 (B, H, Sq) buffer for each row's log-sum-exp
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int b, int h,
-                                   int n_kv, int sq, int sk, int hd, int bf16,
-                                   int causal, int q_offset,
+                                   const void* v, void* o, void* lse_buf,
+                                   int b, int h, int n_kv, int sq, int sk,
+                                   int hd, int bf16, int causal, int q_offset,
                                    cudaStream_t stream) {
   if (n_kv <= 0 || h % n_kv) return (int)cudaErrorInvalidValue;
+  float* lse = (float*)lse_buf;
   if (bf16) {  // grid (b * h, q tiles of 128 rows)
     if ((sq + 127) / 128 > 65535) return (int)cudaErrorInvalidValue;
     switch (hd) {
-      case 32: return launch_tc<32>(q, k, v, o, b, h, n_kv, sq, sk, causal, q_offset, stream);
-      case 64: return launch_tc<64>(q, k, v, o, b, h, n_kv, sq, sk, causal, q_offset, stream);
-      case 128: return launch_tc<128>(q, k, v, o, b, h, n_kv, sq, sk, causal, q_offset, stream);
+      case 32: return launch_tc<32>(q, k, v, o, lse, b, h, n_kv, sq, sk, causal, q_offset, stream);
+      case 64: return launch_tc<64>(q, k, v, o, lse, b, h, n_kv, sq, sk, causal, q_offset, stream);
+      case 128: return launch_tc<128>(q, k, v, o, lse, b, h, n_kv, sq, sk, causal, q_offset, stream);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   if (b * h > 65535) return (int)cudaErrorInvalidValue;
   switch (hd) {
-    case 32: return launch_f32<32>(q, k, v, o, b, h, n_kv, sq, sk, causal, q_offset, stream);
-    case 64: return launch_f32<64>(q, k, v, o, b, h, n_kv, sq, sk, causal, q_offset, stream);
-    case 128: return launch_f32<128>(q, k, v, o, b, h, n_kv, sq, sk, causal, q_offset, stream);
+    case 32: return launch_f32<32>(q, k, v, o, lse, b, h, n_kv, sq, sk, causal, q_offset, stream);
+    case 64: return launch_f32<64>(q, k, v, o, lse, b, h, n_kv, sq, sk, causal, q_offset, stream);
+    case 128: return launch_f32<128>(q, k, v, o, lse, b, h, n_kv, sq, sk, causal, q_offset, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

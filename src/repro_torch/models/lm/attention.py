@@ -7,7 +7,9 @@ their true count; q head h reads kv head h % n_kv (``jnp.tile``'s order).
 launch of kernel 13 (``kernels/flash_attention.py``), which reads each KV
 head where it lies, and on CPU tensors one call of its plain online
 softmax; the reference's chunk schedule (``_pick_chunk``, brick or masked)
-is not ported, since it changes no number.  Decode attention is plain
+is not ported, since it changes no number.  Under autograd its backward
+is kernel 13b on the card and the plain backward on the CPU (the
+reference's is XLA's autodiff of its scan).  Decode attention is plain
 PyTorch on both devices, as the reference computes it outside any kernel.
 The sequence-sharded ``shard_map`` decode is not ported.
 """
@@ -19,7 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
-from repro_torch.models.lm.common import head_rms_norm, rope
+from repro_torch.models.lm.common import head_rms_norm, rope, tag_proj
 
 NEG_INF = -1e30
 
@@ -74,7 +76,10 @@ def attention_block(x, wq, wk, wv, wo, *, n_kv: int,
             positions = torch.arange(s, device=x.device)[None, :]
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
-    ctx = chunked_attention(q, k, v, causal=causal and kv_x is None)
+    # the projections the "proj" remat policy keeps, as the reference
+    # names them
+    q, k, v = tag_proj(q), tag_proj(k), tag_proj(v)
+    ctx = tag_proj(chunked_attention(q, k, v, causal=causal and kv_x is None))
     out = torch.einsum("bshe,hed->bsd", ctx, wo)
     if return_kv:
         return out, (k, v)

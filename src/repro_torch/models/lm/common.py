@@ -4,8 +4,10 @@ Port of ``repro/models/lm/common.py``.  Each model family declares its
 weights once as a nested dict of :class:`PSpec` (shape + logical axes +
 init); real parameters are derived from the template.  The numerics follow
 the reference cast for cast: norms in fp32 cast back to the input dtype and
-then scaled by ``gamma`` in that dtype, RoPE angles in fp32.  The sharding
-helpers and ``cross_entropy_chunked`` (LM training) are not ported yet.
+then scaled by ``gamma`` in that dtype, RoPE angles in fp32.
+``cross_entropy_chunked`` is the training loss; :func:`tag_proj` marks the
+tensors that the ``proj`` remat policy keeps.  The sharding helpers are
+not ported (one device).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,3 +122,52 @@ def pad_vocab(vocab: int, tp: int) -> int:
         return vocab
     m = 256 * tp
     return round_up(vocab, m) if vocab % tp else vocab
+
+
+def tag_proj(x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``checkpoint_name(x, "proj")``: under autograd an
+    ``aten.alias`` view of ``x`` (no copy, no number changed), which the
+    ``proj`` remat policy (``model._maybe_remat``) saves and every other
+    policy recomputes; without autograd ``x`` itself."""
+    return torch.ops.aten.alias(x) if torch.is_grad_enabled() else x
+
+
+def _ce_chunk_sum(xc: torch.Tensor, out_w: torch.Tensor, tc: torch.Tensor,
+                  vocab: int) -> torch.Tensor:
+    """Sum over one chunk's tokens of logsumexp(logits) - logits[target],
+    fp32 logits, padded vocab columns at -1e30."""
+    logits = xc.float() @ out_w.float()
+    if out_w.shape[-1] > vocab:
+        pad = torch.arange(out_w.shape[-1], device=logits.device) >= vocab
+        logits = logits.masked_fill(pad, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+    return torch.sum(lse - gold)
+
+
+def cross_entropy_chunked(x_final: torch.Tensor, out_w: torch.Tensor,
+                          targets: torch.Tensor, vocab: int,
+                          chunk: int = 512) -> torch.Tensor:
+    """Next-token CE in sequence chunks, so no more than one chunk's
+    (B, chunk, V) fp32 logits are live: under autograd each chunk is
+    recomputed in the backward (non-reentrant checkpoint), as the
+    reference's ``jax.checkpoint`` of its scan body.  ``out_w`` is
+    (d, V_padded); ids >= ``vocab`` never occur in ``targets``.  The
+    chunk sums add up in order, then divide by B * S."""
+    b, s, _ = x_final.shape
+    n_chunks = max(s // chunk, 1)
+    chunk = s // n_chunks
+    if n_chunks * chunk != s:
+        raise ValueError(f"sequence {s} does not split into {n_chunks} "
+                         f"chunks of {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=x_final.device)
+    for c in range(n_chunks):
+        xc = x_final[:, c * chunk:(c + 1) * chunk]
+        tc = targets[:, c * chunk:(c + 1) * chunk]
+        if torch.is_grad_enabled():
+            part = checkpoint(_ce_chunk_sum, xc, out_w, tc, vocab,
+                              use_reentrant=False)
+        else:
+            part = _ce_chunk_sum(xc, out_w, tc, vocab)
+        total = total + part
+    return total / (b * s)

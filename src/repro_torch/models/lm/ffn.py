@@ -5,7 +5,8 @@ Port of the dense half of ``repro/models/lm/ffn.py``.  ``drelu_k`` keeps
 the top-k entries of every token's hidden (balanced row sparsity, Eqs. 2-3
 of the paper): prefill runs it as a masked dense product, decode gathers
 only the k surviving rows of W_down (``vals . W_down[idx]``), the analogue
-of DR-SpMM consuming CBSR operands.  With no mesh the reference's
+of DR-SpMM consuming CBSR operands.  The hidden is tagged for the ``proj``
+remat policy, as the reference names it.  With no mesh the reference's
 ``_drelu_sharded`` is ``drelu_grouped``.  MoE is not ported yet.
 """
 
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.cbsr import cbsr_from_dense
 from repro_torch.core.drelu import drelu_grouped
+from repro_torch.models.lm.common import tag_proj
 
 
 def _swiglu_hidden(x, w_gate, w_up):
@@ -30,6 +32,7 @@ def swiglu_ffn(x, w_gate, w_up, w_down, drelu_k: int = 0,
     h = _swiglu_hidden(x, w_gate, w_up)
     if 0 < drelu_k < h.shape[-1]:
         h = drelu_grouped(h, drelu_k, drelu_groups)
+    h = tag_proj(h)
     return torch.einsum("bsf,fd->bsd", h, w_down)
 
 

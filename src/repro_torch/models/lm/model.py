@@ -6,31 +6,82 @@ stored in fp32 and cast to ``cfg.dtype`` where the reference casts them
 (``_attn_args``, the FFN weights).  The functions take the parameter tree
 ``params`` (``lm.params()``: nested dicts of the module's tensors) as the
 reference's pure functions do, so the two packages compare call for call.
-The layer scan is a Python loop over the layer index.  Other families, the
-training loss and remat wait (ROADMAP.md §1 item 6).
+The layer scan is a Python loop over the layer index.  ``loss`` is the
+training objective (chunked CE + 0.01 aux); with ``cfg.remat`` each layer
+body is recomputed in the backward under ``cfg.remat_policy``
+(:func:`_maybe_remat`).  Other families wait (ROADMAP.md §1 item 6).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.lm import attention as attn
 from repro_torch.models.lm import ffn as ffn_mod
-from repro_torch.models.lm.common import (PSpec, init_params, pad_heads,
-                                          pad_vocab, rms_norm)
+from repro_torch.models.lm.common import (PSpec, cross_entropy_chunked,
+                                          init_params, pad_heads, pad_vocab,
+                                          rms_norm)
 
 Params = Dict[str, Any]
 
 
-def layer_params(params: Params, i: int) -> Params:
-    """Layer ``i``'s slice of the stacked per-layer weights."""
-    return {k: v[i] for k, v in params["layers"].items()}
+def layer_list(params: Params):
+    """Every layer's slice at once (``unbind``: the backward stacks the
+    layers' gradients once instead of one full-size buffer a layer)."""
+    per_key = {k: v.unbind(0) for k, v in params["layers"].items()}
+    return [{k: v[i] for k, v in per_key.items()}
+            for i in range(len(next(iter(per_key.values()))))]
+
+
+# the matrix products at the dispatcher (what einsum, matmul and @ become)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _policy(saved, ctx, op, *args, **kwargs):
+    # grad mode: ops inside an autograd Function's forward (a plain
+    # kernel version's full-range slices are aliases too) are not tags
+    return (CheckpointPolicy.MUST_SAVE
+            if op in saved and torch.is_grad_enabled()
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, enable: bool, policy: str = "full"):
+    """``fn`` recomputed in the backward (non-reentrant
+    ``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``:
+    ``full`` saves only the inputs; ``dots`` also every matrix product's
+    output (``dots_saveable``; the attention kernel's own products stay
+    inside its autograd Function); ``proj`` also the tensors tagged by
+    ``common.tag_proj`` (q, k, v, the attention context and the FFN
+    hidden: ``save_only_these_names("proj")``).  The recompute re-runs
+    ``fn``; a saved op's output is taken from the first run.  No policy
+    changes a number."""
+    if not enable:
+        return fn
+    if policy not in ("full", "dots", "proj"):
+        raise ValueError(f"remat policy {policy!r}: full, dots or proj")
+    saved = {"dots": _DOTS, "proj": (torch.ops.aten.alias.default,)}.get(
+        policy)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        if saved is None:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              functools.partial(_policy, saved)))
+    return run
 
 
 class LM(nn.Module):
@@ -183,14 +234,30 @@ class LM(nn.Module):
         return params["embed"][tokens].to(self.dtype)
 
     def forward(self, params, tokens, extra: Optional[Dict] = None):
-        """Returns (hidden (B,S,d), aux_loss scalar).  On the card the
-        attention kernel has no backward: call it under ``torch.no_grad()``
-        there (training on the card raises)."""
+        """Returns (hidden (B,S,d), aux_loss scalar); each layer under
+        remat when ``cfg.remat``."""
+        c = self.cfg
         x = self._embed(params, tokens)
-        for i in range(self.cfg.n_layers):
-            x = self._dense_body(x, layer_params(params, i))
+        body = _maybe_remat(self._dense_body, c.remat, c.remat_policy)
+        for lp in layer_list(params):
+            x = body(x, lp)
         return (rms_norm(x, params["final_norm"]),
                 torch.zeros((), dtype=torch.float32, device=x.device))
+
+    # ------------------------------------------------------------------
+    # loss
+    # ------------------------------------------------------------------
+
+    def loss(self, params, batch: Dict) -> torch.Tensor:
+        """Mean next-token CE of ``batch["tokens"]`` against
+        ``batch["targets"]`` (fp32 logits a 512-token chunk at a time) +
+        0.01 x the aux loss."""
+        extra = {k: v for k, v in batch.items()
+                 if k not in ("tokens", "targets")}
+        hidden, aux = self.forward(params, batch["tokens"], extra or None)
+        ce = cross_entropy_chunked(hidden, self._out_w(params),
+                                   batch["targets"], self.cfg.vocab)
+        return ce + 0.01 * aux
 
     def logits_last(self, params, hidden_last):
         """hidden_last (B,1,d) -> (B,1,V_pad), an fp32 product."""

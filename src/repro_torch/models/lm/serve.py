@@ -17,7 +17,7 @@ import torch
 from repro_torch.models.lm import attention as attn
 from repro_torch.models.lm import ffn as ffn_mod
 from repro_torch.models.lm.common import head_rms_norm, rms_norm, rope
-from repro_torch.models.lm.model import LM, layer_params
+from repro_torch.models.lm.model import LM, layer_list
 
 CacheTmpl = Dict[str, Tuple[Tuple[int, ...], Tuple[Any, ...], Any]]
 
@@ -86,8 +86,8 @@ def prefill(lm: LM, params, tokens, extra: Optional[Dict] = None,
     assert s_max == s, "prefill cache sized to prompt (pad prompt to s_max)"
     x = lm._embed(params, tokens)
     ks, vs = [], []
-    for i in range(lm.cfg.n_layers):
-        x, (k, v) = lm._dense_body(x, layer_params(params, i), kv_out=True)
+    for lp in layer_list(params):
+        x, (k, v) = lm._dense_body(x, lp, kv_out=True)
         ks.append(k)
         vs.append(v)
     cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -102,8 +102,7 @@ def decode_step(lm: LM, params, cache: Dict, token, pos):
     Writes the token's K/V into ``cache`` in place; returns
     (cache, logits (B,1,V_pad))."""
     x = lm._embed(params, token)
-    for i in range(lm.cfg.n_layers):
-        lp = layer_params(params, i)
+    for i, lp in enumerate(layer_list(params)):
         h, _, _ = _decode_attn(lm, rms_norm(x, lp["ln1"]), lp,
                                cache["k"][i], cache["v"][i], pos)
         x = x + h

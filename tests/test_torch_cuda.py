@@ -5,7 +5,10 @@ trainer, the dense-SpMM trainer, the serial per-bucket trainer and the
 homogeneous baselines), the concurrent relation modules against the
 sequential ones, the flash-attention kernel (fp32 and bf16, k/v at
 KV <= H heads, up to S 4,096) and the reduced dense LM (prefill, decode,
-``ServeEngine``) on the card against the CPU, and the engine's captured
+``ServeEngine``) on the card against the CPU, kernel 13b (the flash
+backward) against its plain version, the forward's log-sum-exp, autograd
+through ``chunked_attention`` and two LM training steps against the CPU,
+and the engine's captured
 CUDA graphs (each replay bit for bit the eager forward of its batch, two
 contents of one signature, re-capture after an eviction), padded arenas
 through kernels 1 and 4, and batched steps under ``backend="bucket"`` /
@@ -47,8 +50,12 @@ from repro_torch.kernels import drspmm as tk
 from repro_torch.kernels import ops as tops
 from repro_torch.models.hgnn import (HOMO_KINDS, DRCircuitGNN, HomoGNN,
                                      homo_forward, homogenize)
+from repro_torch.data.pipeline import DataConfig, TokenPipeline
+from repro_torch.models.lm import attention as lm_attention
 from repro_torch.models.lm import serve as lm_serve
 from repro_torch.models.lm.model import build_lm
+from repro_torch.optim.adamw import adamw_init, tree_leaves
+from repro_torch.train import lm_step
 from repro_torch.serve.circuit_engine import CircuitServeEngine
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.train.circuit_trainer import (CircuitTrainConfig,
@@ -1293,6 +1300,133 @@ def test_flash_kernel_rejects_kv_heads_not_dividing(cuda, dtype):
     with pytest.raises(ValueError, match="KV head count"):
         flash_attention.flash_attention(q, k, k)
     assert flash_attention.flash_attention.launches == before
+
+
+BWD_SHAPES = [(128, 128, True, 0), (200, 200, False, 0), (37, 101, True, 64),
+              (1000, 1000, True, 0), (64, 300, False, 0), (1, 77, True, 76)]
+
+
+def _bwd_case(cuda, dt, hd, sq, sk, h, kv, causal, q_offset, seed):
+    """Seeded q/k/v/dO on the card and the plain forward's o and lse."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn((2, s, n, hd), generator=g).to(cuda, dt)
+                   for s, n in ((sq, h), (sk, kv), (sk, kv), (sq, h)))
+    o, lse = flash_attention.flash_attention_plain(
+        q, k, v, causal=causal, q_offset=q_offset, return_lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal,q_offset", BWD_SHAPES)
+@pytest.mark.parametrize("h,kv", [(3, 3), (4, 2), (4, 1)])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, hd, sq, sk, causal,
+                                        q_offset, h, kv):
+    """Kernel 13b against ``flash_attention_bwd_plain`` on the same q, k,
+    v, o, lse and dO: fp32 as the fp32 kernels (another summation order),
+    bf16 within one bf16 ulp of each element plus the fp32 slack (each
+    side rounds one fp32 sum), dk/dv at the KV heads."""
+    dt = getattr(torch, dtype)
+    args = _bwd_case(cuda, dt, hd, sq, sk, h, kv, causal, q_offset,
+                     hd + sq + sk + kv)
+    before = flash_attention.flash_attention_bwd.launches
+    got = flash_attention.flash_attention_bwd(*args, causal=causal,
+                                              q_offset=q_offset)
+    ref = flash_attention.flash_attention_bwd_plain(*args, causal=causal,
+                                                    q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention_bwd.launches == before + 1
+    for name, a, b, t in zip(("dq", "dk", "dv"), got, ref, args[:3]):
+        assert a.dtype == dt and a.shape == t.shape, name
+        if dt == torch.float32:
+            assert_close(a.cpu().numpy(), b.cpu().numpy(), name)
+        else:
+            assert_bf16_close(a.float().cpu().numpy(),
+                              b.float().cpu().numpy(), name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal,q_offset", BWD_SHAPES)
+def test_flash_lse_matches_plain(cuda, dtype, hd, sq, sk, causal, q_offset):
+    """The forward's log-sum-exp (the backward's input) against the plain
+    version's, and its output bit for bit the same as without the lse
+    buffer (a null pointer: every serving launch)."""
+    dt = getattr(torch, dtype)
+    q, k, v, _, lse_ref, _ = _bwd_case(cuda, dt, hd, sq, sk, 4, 2, causal,
+                                       q_offset, hd * sq)
+    before = flash_attention.flash_attention.launches
+    out, lse = flash_attention._forward(q, k, v, causal, q_offset,
+                                        with_lse=True)
+    plain_out = flash_attention.flash_attention(q, k, v, causal=causal,
+                                                q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 2
+    assert lse.shape == (2, 4, sq) and lse.dtype == torch.float32
+    assert_close(lse.cpu().numpy(), lse_ref.cpu().numpy())
+    assert torch.equal(out.view(torch.int16 if dt == torch.bfloat16
+                                else torch.int32),
+                       plain_out.view(torch.int16 if dt == torch.bfloat16
+                                      else torch.int32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_autograd_on_card_matches_cpu(cuda, dtype):
+    """``chunked_attention`` under autograd on the card (kernels 13 and 13b)
+    against the same on the CPU (the plain versions): fp32 within
+    ``assert_close``; bf16 output within one bf16 ulp plus the fp32 slack,
+    bf16 gradients within 1e-2 relative L2 (each side's o is one bf16
+    rounding of its own fp32 sum, up to an ulp apart, and feeds
+    D = rowsum(dO o), so the gradients are not one rounding apart)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(7)
+    base = [torch.randn((2, 300, n, 64), generator=g).to(dt)
+            for n in (4, 2, 2)]
+    do = torch.randn((2, 300, 4, 64), generator=g).to(dt)
+    grads = {}
+    for dev in ("cpu", cuda):
+        x = [t.detach().to(dev).requires_grad_() for t in base]
+        out = lm_attention.chunked_attention(*x, causal=True)
+        out.backward(do.to(dev))
+        grads[str(dev)] = [out.detach().cpu()] + [t.grad.cpu() for t in x]
+    for i, (a, b) in enumerate(zip(grads[str(cuda)], grads["cpu"])):
+        if dt == torch.float32:
+            assert_close(a.numpy(), b.numpy())
+        elif i == 0:
+            assert_bf16_close(a.float().numpy(), b.float().numpy())
+        else:
+            _rel_close(a.float(), b.float(), rtol=1e-2)
+
+
+def test_lm_train_step_on_card_matches_cpu(cuda):
+    """Two steps of ``make_train_step`` on the reduced qwen3-0.6b in fp32
+    (remat on) from the same weights and batches: losses, grad norms and
+    parameters within 1e-4 relative; kernel 13 twice a layer a step (the
+    forward and its recompute), 13b once."""
+    lm, cpu = _lm_pair(cuda)
+    batch = {k: torch.from_numpy(v.astype(np.int64)) for k, v in
+             TokenPipeline(DataConfig(vocab=lm.cfg.vocab, seq_len=64,
+                                      global_batch=2)).global_batch(0).items()}
+    out = {}
+    for model, dev in ((lm, cuda), (cpu, "cpu")):
+        state = lm_step.TrainState(model.params(),
+                                   adamw_init(model.params()))
+        step = lm_step.make_train_step(model, lr=1e-3, total_steps=10)
+        f0 = flash_attention.flash_attention.launches
+        b0 = flash_attention.flash_attention_bwd.launches
+        metrics = [step(state, {k: v.to(dev) for k, v in batch.items()})[1]
+                   for _ in range(2)]
+        out[str(dev)] = (metrics, state)
+        if dev != "cpu":
+            n = lm.cfg.n_layers
+            assert flash_attention.flash_attention.launches - f0 == 4 * n
+            assert flash_attention.flash_attention_bwd.launches - b0 == 2 * n
+    (m_gpu, s_gpu), (m_cpu, s_cpu) = out[str(cuda)], out["cpu"]
+    for a, b in zip(m_gpu, m_cpu):
+        _rel_close(a["loss"], b["loss"])
+        _rel_close(a["grad_norm"], b["grad_norm"])
+    for a, b in zip(tree_leaves(s_gpu.params), tree_leaves(s_cpu.params)):
+        _rel_close(a, b)
 
 
 def _lm_pair(cuda, dtype="float32"):

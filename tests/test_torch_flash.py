@@ -8,13 +8,17 @@ and masked, causal and not, GQA heads 4 / KV 2; the port has no schedule).
 The port takes k/v untiled, (B, Sk, KV, hd), q head h reading KV head
 h % KV: ``chunked_attention`` and the plain version with KV 1, 2 and 4 of
 4 heads against the reference on ``tile_kv``'s copies, and a case that
-tells h % KV from h // (H / KV).  The kernel itself is held against
-the plain version on a card in ``tests/test_torch_cuda.py`` (which imports
+tells h % KV from h // (H / KV).  The backward: kernel 13b's plain
+version against ``jax.vjp`` of the reference's ``chunked_attention`` and
+against autograd through the plain forward, and the log-sum-exp it reads.
+The kernels themselves are held against
+the plain versions on a card in ``tests/test_torch_cuda.py`` (which imports
 no JAX, so it runs where the card is).  Tolerances: fp32 parity as
 ``_torch_port.assert_close`` (rtol 1e-5, atol 1e-5 scaled by the
 magnitude); bf16 against the float64 oracle within two bf16 ulps at the
 oracle's largest magnitude (``_torch_port.assert_bf16_close``)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -120,7 +124,8 @@ def test_plain_keeps_bf16():
 
 
 def test_cpu_path_is_differentiable():
-    """On the CPU the plain version carries autograd (the card raises)."""
+    """On the CPU the attention's autograd Function runs the plain forward
+    and the plain backward (the card runs kernels 13 and 13b)."""
     rng = np.random.default_rng(11)
     q, k, v = (torch.from_numpy(a).requires_grad_()
                for a in _qkv(rng, 1, 32, 32, 2, 32))
@@ -172,3 +177,129 @@ def test_untiled_kv_rejects_bad_head_count():
     k = torch.zeros((1, 8, 3, 32))
     with pytest.raises(ValueError, match="KV head count"):
         chunked_attention(q, k, k)
+
+
+# ---------------------------------------------------------------------------
+# the backward (kernel 13b's plain version) and the log-sum-exp
+# ---------------------------------------------------------------------------
+
+def _fold(g, kv):
+    """A gradient over tiled heads (B, S, H, hd) summed to the KV heads:
+    tiled head r * KV + j reads KV head j."""
+    b, s, h, hd = g.shape
+    return g.reshape(b, s, h // kv, kv, hd).sum(2)
+
+
+BWD_CASES = [  # sq, sk, h, kv, causal, q_offset
+    (96, 96, 4, 2, True, 0), (96, 96, 4, 4, False, 0),
+    (37, 101, 4, 1, True, 64), (70, 70, 3, 3, True, 0),
+    (64, 128, 4, 2, False, 0), (1, 77, 2, 1, True, 76)]
+
+
+@pytest.mark.parametrize("sq,sk,h,kv,causal,q_offset,hd", [
+    c + (hd,) for c, hd in zip(BWD_CASES, (32, 64, 128, 32, 64, 128))])
+def test_bwd_plain_matches_reference_vjp(sq, sk, h, kv, causal, q_offset,
+                                         hd):
+    """``flash_attention_bwd_plain`` (from the plain forward's o and lse)
+    against ``jax.vjp`` of the reference's ``chunked_attention`` on the
+    tiled k/v, its k/v gradients summed to the KV heads: GQA, causal and
+    full, a q offset, ragged lengths, each case at one of the head dims
+    (the next test takes every case at every head dim); fp32 as
+    ``assert_close``."""
+    rng = np.random.default_rng(hd + sq + sk + kv)
+    q, k, v = _qkv(rng, 2, sq, sk, h, hd, kv=kv)
+    do = rng.normal(size=q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: j_chunked(
+        a, b, c, causal=causal, q_chunk=32, kv_chunk=64, q_offset=q_offset),
+        jnp.asarray(q), j_tile_kv(jnp.asarray(k), h),
+        j_tile_kv(jnp.asarray(v), h))
+    rq, rk, rv = (np.asarray(g) for g in vjp(jnp.asarray(do)))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = fa.flash_attention_plain(tq, tk, tv, causal=causal,
+                                      q_offset=q_offset, return_lse=True)
+    dq, dk, dv = fa.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo,
+                                              causal=causal,
+                                              q_offset=q_offset)
+    assert dk.shape == tk.shape and dv.shape == tv.shape
+    assert_close(dq.numpy(), rq)
+    assert_close(dk.numpy(), _fold(rk, kv))
+    assert_close(dv.numpy(), _fold(rv, kv))
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk,h,kv,causal,q_offset", BWD_CASES)
+def test_bwd_plain_matches_autograd_of_plain(hd, sq, sk, h, kv, causal,
+                                             q_offset):
+    """The plain backward against torch autograd through the plain
+    forward in float64 (the same function differentiated op by op), and
+    ``flash_attention``'s autograd Function on CPU tensors against both;
+    fp32 as ``assert_close``."""
+    rng = np.random.default_rng(100 + hd + sq + kv)
+    q, k, v = _qkv(rng, 1, sq, sk, h, hd, kv=kv)
+    do = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
+    x64 = [torch.from_numpy(a).double().requires_grad_() for a in (q, k, v)]
+    out = fa.flash_attention_plain(*x64, causal=causal, q_offset=q_offset)
+    ref = torch.autograd.grad(out, x64, do.double())
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    o, lse = fa.flash_attention_plain(tq, tk, tv, causal=causal,
+                                      q_offset=q_offset, return_lse=True)
+    plain = fa.flash_attention_bwd_plain(tq, tk, tv, o, lse, do,
+                                         causal=causal, q_offset=q_offset)
+    xs = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    fa.flash_attention(*xs, causal=causal, q_offset=q_offset).backward(do)
+    for a, b, c in zip(plain, (x.grad for x in xs), ref):
+        assert_close(a.numpy(), c.double().numpy())
+        assert np.array_equal(a.numpy(), b.numpy())
+
+
+def test_lse_is_log_sum_exp_of_scaled_scores():
+    """The plain version's lse: log sum_j exp(q.k_j / sqrt(hd)) over the
+    visible keys, in float64 (the units kernel 13b exponentiates)."""
+    rng = np.random.default_rng(40)
+    q, k, v = _qkv(rng, 1, 50, 80, 2, 32, kv=1)
+    _, lse = fa.flash_attention_plain(*(torch.from_numpy(a)
+                                        for a in (q, k, v)),
+                                      causal=True, q_offset=30,
+                                      return_lse=True)
+    s = np.einsum("bqhd,bshd->bhqs", q.astype(np.float64),
+                  np.repeat(k, 2, axis=2).astype(np.float64)) / np.sqrt(32)
+    vis = (30 + np.arange(50))[:, None] >= np.arange(80)[None, :]
+    s = np.where(vis[None, None], s, -np.inf)
+    ref = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + s.max(-1)
+    assert lse.shape == (1, 2, 50) and lse.dtype == torch.float32
+    assert_close(lse.numpy(), ref)
+
+
+def test_bf16_backward_keeps_dtypes():
+    """bf16 q/k/v: the plain backward's gradients come back in bf16, at
+    their inputs' shapes (k/v at the KV heads)."""
+    rng = np.random.default_rng(41)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(rng, 1, 40, 40, 4, 64, kv=2))
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+    grads = fa.flash_attention_bwd_plain(q, k, v, o, lse, torch.ones_like(o))
+    assert [g.dtype for g in grads] == [torch.bfloat16] * 3
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+
+
+def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(monkeypatch):
+    """On a (monkeypatched) card tensor the backward wrapper raises before
+    any launch on a head dim the kernel lacks, an lse of the wrong shape or
+    dtype, or an o whose dtype differs from q's."""
+    monkeypatch.setattr(fa, "_on_card", lambda *ts: True)
+
+    def no_launch(*a, **k):
+        raise AssertionError("launched")
+    monkeypatch.setattr(fa, "_call", no_launch)
+    q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 8))
+    before = fa.flash_attention_bwd.launches
+    for args, what in (
+            ((q[..., :48], q[..., :48], q[..., :48], q[..., :48], lse,
+              q[..., :48]), "head dim"),
+            ((q, q, q, q, lse[:, :, :4], q), "lse"),
+            ((q, q, q, q, lse.double(), q), "lse"),
+            ((q, q, q, q.float(), lse, q), "do not fit")):
+        with pytest.raises(ValueError, match=what):
+            fa.flash_attention_bwd(*args)
+    assert fa.flash_attention_bwd.launches == before

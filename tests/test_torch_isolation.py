@@ -71,7 +71,9 @@ def test_training_stack_imports_without_jax():
             "sys.modules['repro'] = None; "
             "import repro_torch.train.circuit_trainer, "
             "repro_torch.optim.schedules, repro_torch.kernels.learnable, "
-            "repro_torch.core.parallel, repro_torch.sharding.plan_shard; "
+            "repro_torch.core.parallel, repro_torch.sharding.plan_shard, "
+            "repro_torch.launch.train, repro_torch.train.lm_step, "
+            "repro_torch.checkpoint, repro_torch.data.pipeline; "
             "assert 'jax' not in {m.split('.')[0] for m, v in "
             "sys.modules.items() if v is not None}")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -202,20 +204,67 @@ def test_flash_wrapper_counts_launches():
     assert callable(flash_attention.flash_attention_plain)
 
 
-def test_flash_refuses_gradients_on_card(monkeypatch):
-    """The kernel has no backward: tensors that need a gradient raise
-    before any launch instead of running the plain version.  The device
-    test is made to answer "card" for CPU tensors, so this runs here."""
+def _fake_card(monkeypatch):
+    """Make the flash wrappers take CPU tensors for card tensors, with
+    every C entry replaced by a recorder (outputs stay uninitialised) and
+    both plain versions refusing to run."""
     monkeypatch.setattr(flash_attention, "_on_card", lambda *ts: True)
 
     def boom(*a, **k):
         raise AssertionError("plain version called for a card tensor")
     monkeypatch.setattr(flash_attention, "flash_attention_plain", boom)
+    monkeypatch.setattr(flash_attention, "flash_attention_bwd_plain", boom)
+    calls = []
+    monkeypatch.setattr(flash_attention, "_call",
+                        lambda entry, *args, stream_of: calls.append(
+                            (entry, args)))
+    return calls
+
+
+def test_flash_refuses_gradients_on_card(monkeypatch):
+    """A card tensor that needs a gradient never reaches the plain
+    versions: the forward launches kernel 13 with a log-sum-exp buffer and
+    the backward launches kernel 13b, each counted once.  The device test
+    is made to answer "card" for CPU tensors, so this runs here."""
+    calls = _fake_card(monkeypatch)
+    f0 = flash_attention.flash_attention.launches
+    b0 = flash_attention.flash_attention_bwd.launches
     q = torch.zeros((1, 8, 2, 64), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm_attention.chunked_attention(q, q.detach(), q.detach())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention.flash_attention(q, q.detach(), q.detach())
+    kv = torch.zeros((1, 8, 1, 64), requires_grad=True)
+    out = lm_attention.chunked_attention(q, kv, kv)
+    assert [e for e, _ in calls] == ["flash_attention_fwd"]
+    assert calls[0][1][4] is not None            # the lse buffer
+    out.backward(torch.ones_like(out))
+    assert [e for e, _ in calls] == ["flash_attention_fwd",
+                                     "flash_attention_bwd"]
+    assert q.grad.shape == q.shape and kv.grad.shape == kv.shape
+    out = flash_attention.flash_attention(q, kv.detach(), kv.detach())
+    out.sum().backward()
+    assert flash_attention.flash_attention.launches == f0 + 2
+    assert flash_attention.flash_attention_bwd.launches == b0 + 2
+    with torch.no_grad():                        # serving: no lse buffer
+        flash_attention.flash_attention(q, kv, kv)
+    assert calls[-1][0] == "flash_attention_fwd" and calls[-1][1][4] is None
+
+
+def test_flash_remat_relaunches_forward_on_card(monkeypatch):
+    """Under the LM's remat the backward re-runs the layer: kernel 13 twice
+    (forward and recompute, both with lse), kernel 13b once, no plain
+    version."""
+    from repro_torch.models.lm.model import _maybe_remat
+    calls = _fake_card(monkeypatch)
+    q = torch.zeros((1, 8, 2, 32), requires_grad=True)
+    for policy in ("full", "dots", "proj"):
+        calls.clear()
+        body = _maybe_remat(
+            lambda x: lm_attention.chunked_attention(x, x[:, :, :1],
+                                                     x[:, :, :1]) * 2,
+            True, policy)
+        body(q).sum().backward()
+        assert [e for e, _ in calls] == ["flash_attention_fwd",
+                                         "flash_attention_fwd",
+                                         "flash_attention_bwd"], policy
+        assert all(args[4] is not None for e, args in calls[:2])
 
 
 @pytest.mark.cuda
@@ -229,6 +278,11 @@ def test_flash_never_runs_plain_on_card(cuda, monkeypatch):
     lm_attention.chunked_attention(q, q, q, causal=True)
     torch.cuda.synchronize()
     assert flash_attention.flash_attention.launches == before + 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm_attention.chunked_attention(q.float().requires_grad_(), q.float(),
-                                       q.float())
+    monkeypatch.setattr(flash_attention, "flash_attention_bwd_plain", boom)
+    x = q.float().requires_grad_()
+    b0 = flash_attention.flash_attention_bwd.launches
+    lm_attention.chunked_attention(x, q.float(), q.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 3
+    assert flash_attention.flash_attention_bwd.launches == b0 + 1
+    assert torch.isfinite(x.grad).all()

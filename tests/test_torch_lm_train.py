@@ -1,0 +1,305 @@
+"""The port's dense-LM training against the reference, on the CPU.
+
+From the reduced qwen3-0.6b and minicpm-2b configs (tied embeddings, WSD)
+with the reference's weights carried by ``LM.from_jax_params`` and
+batches from the token pipeline (numpy, the same arrays on both sides):
+
+* ``cross_entropy_chunked``'s value and its ``jax.vjp`` gradients (one
+  chunk, two chunks, a padded vocab);
+* ``LM.loss`` and every gradient against ``jax.value_and_grad(lm.loss)``:
+  fp32 within 1e-5 of the loss and 1e-4 relative L2 a leaf (observed
+  ~1e-6); bf16 loss within 1e-3 of the reference's bf16 loss, and each
+  leaf's distance from the fp32 gradient at most 1.25x the reference's
+  bf16 distance plus 5e-3 (the two frameworks round each bf16 product
+  once at other places and flip other near-tied D-ReLU picks; both sit
+  1-10 % from fp32, observed ratio <= 1.1);
+* remat off / ``full`` / ``dots`` / ``proj``: the same loss and gradients
+  bit for bit;
+* 1 and 3 steps of ``make_train_step`` (``grad_accum`` 1 and 2) against
+  the reference's jitted step: loss and grad norm within 1e-5 relative,
+  lr within 1e-6 relative, parameters within 1e-4 relative L2 a leaf;
+* the step's surroundings: the schedule, the abstract state, the serve
+  steps, what raises.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jbase
+from repro.models.lm import common as jcommon
+from repro.models.lm.model import build_lm as j_build_lm
+from repro.optim import adamw_init as j_adamw_init
+from repro.train import lm_step as jstep
+from repro_torch.configs import base as tbase
+from repro_torch.data.pipeline import DataConfig, TokenPipeline
+from repro_torch.models.lm import common as tcommon
+from repro_torch.models.lm.model import LM
+from repro_torch.optim.adamw import adamw_init, tree_leaves
+from repro_torch.train import lm_step
+from _torch_port import assert_close
+
+SEQ, BATCH = 64, 2
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _flat(tree, pre=""):
+    """name -> leaf in ``tree_leaves``' order (sorted keys)."""
+    out = {}
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            out.update(_flat(tree[k], f"{pre}{k}/"))
+        else:
+            out[pre + k] = tree[k]
+    return out
+
+
+def _pair(arch, dtype="float32", **over):
+    """(reference LM, its params, port LM holding the same weights)."""
+    jc = dataclasses.replace(jbase.reduced(jbase.get_config(arch)),
+                             dtype=dtype, **over)
+    tc = dataclasses.replace(tbase.reduced(tbase.get_config(arch)),
+                             dtype=dtype, **over)
+    jlm = j_build_lm(jc)
+    params = jlm.init(jax.random.PRNGKey(0))
+    return jlm, params, LM.from_jax_params(tc, params, device="cpu")
+
+
+def _batch(vocab, step=0, batch=BATCH):
+    return TokenPipeline(DataConfig(vocab=vocab, seq_len=SEQ,
+                                    global_batch=batch)).global_batch(step)
+
+
+def _torch_batch(b):
+    return {k: torch.from_numpy(v.astype(np.int64)) for k, v in b.items()}
+
+
+def _port_loss_grads(lm, batch):
+    params = lm.params()
+    loss = lm.loss(params, _torch_batch(batch))
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    names = list(_flat(params))
+    return float(loss.detach()), {n: g.numpy() for n, g in zip(names, grads)}
+
+
+# ---------------------------------------------------------------------------
+# the chunked cross-entropy
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s,vocab,v_pad", [(96, 300, 300), (1024, 260, 300),
+                                           (1536, 300, 300)])
+def test_cross_entropy_chunked_matches_reference(s, vocab, v_pad):
+    """One chunk (S 96), two chunks with 40 padded vocab columns, three
+    chunks: value and the gradients of x and out_w (``jax.vjp``), fp32 as
+    ``assert_close``."""
+    rng = np.random.default_rng(s + v_pad)
+    x = rng.normal(size=(2, s, 16)).astype(np.float32)
+    w = (rng.normal(size=(16, v_pad)) * 0.3).astype(np.float32)
+    tgt = rng.integers(0, vocab, size=(2, s)).astype(np.int32)
+    ref, vjp = jax.vjp(lambda a, b: jcommon.cross_entropy_chunked(
+        a, b, jnp.asarray(tgt), vocab), jnp.asarray(x), jnp.asarray(w))
+    gx_ref, gw_ref = vjp(jnp.ones((), jnp.float32))
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    out = tcommon.cross_entropy_chunked(xt, wt, torch.from_numpy(tgt), vocab)
+    out.backward()
+    assert_close(out.detach().numpy(), np.asarray(ref))
+    assert_close(xt.grad.numpy(), np.asarray(gx_ref))
+    assert_close(wt.grad.numpy(), np.asarray(gw_ref))
+    if v_pad > vocab:                       # padded columns get nothing
+        assert not wt.grad[:, vocab:].any()
+
+
+def test_cross_entropy_chunked_keeps_no_logits():
+    """Under autograd no chunk's (B, chunk, V) logits outlive its own
+    forward: the saved tensors are the inputs only."""
+    saved = []
+    x = torch.randn(2, 1024, 8, requires_grad=True)
+    w = torch.randn(8, 500, requires_grad=True)
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append(tuple(t.shape)) or t, lambda t: t):
+        tcommon.cross_entropy_chunked(x, w, torch.zeros(2, 1024,
+                                                        dtype=torch.long),
+                                      500)
+    assert (2, 512, 8) in saved and (2, 512, 500) not in saved, saved
+
+
+# ---------------------------------------------------------------------------
+# LM.loss and its gradients
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "minicpm-2b"])
+def test_loss_and_grads_match_reference_fp32(arch):
+    """fp32: loss within 1e-5, every gradient within 1e-4 relative L2
+    (minicpm ties ``embed`` to ``out_w``: both paths feed its gradient)."""
+    jlm, params, lm = _pair(arch)
+    b = _batch(lm.cfg.vocab)
+    ref_l, ref_g = jax.value_and_grad(jlm.loss)(
+        params, {k: jnp.asarray(v) for k, v in b.items()})
+    loss, grads = _port_loss_grads(lm, b)
+    ref_g = _flat(ref_g)
+    assert set(grads) == set(ref_g)
+    assert abs(loss - float(ref_l)) <= 1e-5
+    for n, g in grads.items():
+        assert _rel(g, ref_g[n]) <= 1e-4, (n, _rel(g, ref_g[n]))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "minicpm-2b"])
+def test_loss_and_grads_match_reference_bf16(arch):
+    """bf16 (the module docstring states the limits): the port's bf16 is as
+    far from the fp32 gradient as the reference's bf16 is."""
+    jlm32, params, lm32 = _pair(arch)
+    jlm, _, lm = _pair(arch, "bfloat16")
+    b = _batch(lm.cfg.vocab)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    _, g32 = jax.value_and_grad(jlm32.loss)(params, jb)
+    ref_l, ref_g = jax.value_and_grad(jlm.loss)(params, jb)
+    loss, grads = _port_loss_grads(lm, b)
+    g32, ref_g = _flat(g32), _flat(ref_g)
+    assert abs(loss - float(ref_l)) <= 1e-3
+    for n, g in grads.items():
+        ours, theirs = _rel(g, g32[n]), _rel(ref_g[n], g32[n])
+        assert ours <= 1.25 * theirs + 5e-3, (n, ours, theirs)
+
+
+def test_remat_policies_change_no_number():
+    """remat off, ``full``, ``dots`` and ``proj`` on the reduced qwen3-0.6b:
+    the same loss and gradients, bit for bit."""
+    _, params, _ = _pair("qwen3-0.6b")
+    b = _batch(512)
+    out = {}
+    for remat, policy in ((False, "full"), (True, "full"), (True, "dots"),
+                          (True, "proj")):
+        cfg = dataclasses.replace(tbase.reduced(tbase.get_config(
+            "qwen3-0.6b")), remat=remat, remat_policy=policy)
+        out[(remat, policy)] = _port_loss_grads(
+            LM.from_jax_params(cfg, params, device="cpu"), b)
+    base_l, base_g = out[(False, "full")]
+    for key, (l, g) in out.items():
+        assert l == base_l, key
+        for n in base_g:
+            assert np.array_equal(g[n], base_g[n]), (key, n)
+
+
+def test_remat_policies_save_what_they_name(monkeypatch):
+    """One layer's forward under each policy: ``full`` asks no op to be
+    saved; ``proj`` saves exactly the five tagged tensors (q, k, v, the
+    attention context, the FFN hidden); ``dots`` every matrix product
+    (the seven projections and more)."""
+    from repro_torch.models.lm import model as tmodel
+    _, _, lm = _pair("qwen3-0.6b")
+    lp = tmodel.layer_list(lm.params())[0]
+    x = torch.randn(2, 16, lm.cfg.d_model, requires_grad=True)
+    policy_fn = tmodel._policy
+    for policy, check in (("full", lambda ops: ops == []),
+                          ("proj", lambda ops: ops == ["aten.alias"] * 5),
+                          ("dots", lambda ops: len(ops) >= 7 and all(
+                              o.split(".")[1] in ("mm", "bmm", "addmm",
+                                                  "baddbmm") for o in ops))):
+        saved = []
+
+        def spy(names, ctx, op, *a, **k):
+            out = policy_fn(names, ctx, op, *a, **k)
+            if not ctx.is_recompute and \
+                    out == tmodel.CheckpointPolicy.MUST_SAVE:
+                saved.append(str(op.overloadpacket))
+            return out
+        monkeypatch.setattr(tmodel, "_policy", spy)
+        tmodel._maybe_remat(lm._dense_body, True, policy)(x, lp).sum() \
+            .backward()
+        assert check(saved), (policy, saved)
+
+
+# ---------------------------------------------------------------------------
+# the train step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "minicpm-2b"])
+def test_train_steps_match_reference(arch, grad_accum):
+    """3 steps (lr 1e-3, 10 total: cosine warmup, or minicpm's WSD) against
+    the reference's jitted step from the same weights and batches; step 1
+    and step 3 compared.  ``grad_accum`` 2 splits each batch of 4 into two
+    microbatches."""
+    jlm, params, lm = _pair(arch)
+    j_fn = jax.jit(jstep.make_train_step(jlm, lr=1e-3, total_steps=10,
+                                         grad_accum=grad_accum))
+    t_fn = lm_step.make_train_step(lm, lr=1e-3, total_steps=10,
+                                   grad_accum=grad_accum)
+    j_state = jstep.TrainState(params, j_adamw_init(params))
+    t_state = lm_step.TrainState(lm.params(), adamw_init(lm.params()))
+    for step in range(3):
+        b = _batch(lm.cfg.vocab, step, batch=4)
+        if grad_accum > 1:
+            b = {k: v.reshape(grad_accum, 4 // grad_accum, SEQ)
+                 for k, v in b.items()}
+        j_state, jm = j_fn(j_state, {k: jnp.asarray(v) for k, v in b.items()})
+        t_state, tm = t_fn(t_state, _torch_batch(b))
+        assert abs(float(tm["loss"]) - float(jm["loss"])) <= \
+            1e-5 * abs(float(jm["loss"]))
+        assert abs(float(tm["grad_norm"]) - float(jm["grad_norm"])) <= \
+            1e-5 * float(jm["grad_norm"])
+        assert abs(tm["lr"] - float(jm["lr"])) <= 1e-6 * float(jm["lr"])
+        if step in (0, 2):
+            ref = _flat(j_state.params)
+            for n, p in _flat(t_state.params).items():
+                assert _rel(p.detach().numpy(), ref[n]) <= 1e-4, (step, n)
+    assert t_state.opt.step == int(j_state.opt.step) == 3
+
+
+def test_schedule_matches_reference():
+    for arch in ("qwen3-0.6b", "minicpm-2b"):
+        ours = lm_step.make_schedule(tbase.get_config(arch), 3e-4, 1000)
+        ref = jstep.make_schedule(jbase.get_config(arch), 3e-4, 1000)
+        for s in (0, 1, 9, 10, 500, 899, 900, 950, 999, 1000, 2000):
+            assert abs(ours(s) - float(ref(jnp.asarray(s)))) <= 1e-6 * 3e-4
+
+
+def test_abstract_state_and_raises():
+    """The abstract state is the real state's shapes on the meta device;
+    the multi-device knobs raise citing ROADMAP.md."""
+    _, _, lm = _pair("qwen3-0.6b")
+    abstract = lm_step.abstract_train_state(lm)
+    real = lm_step.TrainState(lm.params(), adamw_init(lm.params()))
+    for tree in ("params",):
+        a, r = _flat(getattr(abstract, tree)), _flat(getattr(real, tree))
+        assert {n: tuple(t.shape) for n, t in a.items()} == \
+            {n: tuple(t.shape) for n, t in r.items()}
+        assert all(t.device.type == "meta" for t in a.values())
+    assert abstract.opt.step == 0
+    big = LM(tbase.get_config("qwen3-0.6b"), device="meta")
+    assert sum(t.numel() for t in tree_leaves(lm_step.abstract_train_state(
+        big).params)) == sum(p.numel() for p in big.parameters())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lm_step.make_train_step(lm, compress_pod_grads=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lm_step.train_state_shardings(lm, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LM(tbase.reduced(tbase.get_config("granite-moe-1b-a400m")),
+           device="cpu")
+
+
+def test_init_state_and_serve_steps():
+    """``init_train_state`` draws into the model; ``make_serve_steps``'
+    prefill and decode are the serve module's."""
+    from repro_torch.models.lm import serve
+    cfg = tbase.reduced(tbase.get_config("qwen3-0.6b"))
+    lm = LM(cfg, device="cpu")
+    state = lm_step.init_train_state(lm, torch.Generator().manual_seed(3))
+    assert state.params["embed"] is lm.embed and state.opt.step == 0
+    assert all(not m.any() for m in tree_leaves(state.opt.m))
+    prefill, decode = lm_step.make_serve_steps(lm)
+    tok = torch.from_numpy(_batch(cfg.vocab)["tokens"].astype(np.int64))
+    cache, logits = prefill(lm.params(), tok)
+    ref_cache, ref_logits = serve.prefill(lm, lm.params(), tok)
+    assert torch.equal(logits, ref_logits)
+    _, l2 = decode(lm.params(), cache, tok[:, -1:], SEQ - 1)
+    assert torch.isfinite(l2).all()
