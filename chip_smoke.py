@@ -92,10 +92,10 @@ and trains it through kernel 13 and its backward, kernel 13b:
 18. ``flash-bwd``: kernel 13b against its plain version (the same o, lse
     and a seeded dO), on the plain forward's o and lse and on kernel 13's
     own (its lse against the plain version's, its output bit-equal to the
-    launch without lse): fp32 at head dims 32, 64 and 128 (GQA, ragged
-    tails, causal and full, q offsets) and bf16 at the prefill's q/k/v;
-    timed beside SDPA's backward on tiled k/v, by events queued behind a
-    sleep;
+    launch without lse): fp32 and bf16 at head dims 32, 64 and 128 (GQA,
+    ragged tails, causal and full, q offsets) and bf16 at the prefill's
+    q/k/v; 13b's ``ptxas`` registers and spills; timed beside SDPA's
+    backward on tiled k/v, by events queued behind a sleep;
 19. ``train-lm-fp32-depth2``: full width, 2 layers, fp32, B 2 x S 128:
     the card's loss, gradients and one ``make_train_step`` step against
     the port's CPU from the same weights (1e-5 / 1e-4);
@@ -1836,29 +1836,54 @@ def serve_lm_engine_path(lm, wrappers):
 
 
 def bwd_cases(q, k, v):
-    """(label, q, k, v, causal, q_offset) of kernel 13b's check: fp32 at
-    head dims 32, 64 and 128 (GQA, ragged tails, causal and full, a q
-    offset), then bf16 at the prefill's own q/k/v (k/v at the 8 KV
+    """(label, q, k, v, causal, q_offset) of kernel 13b's check: fp32 and
+    bf16 at head dims 32, 64 and 128 (GQA, ragged tails, causal and full,
+    a q offset), then bf16 at the prefill's own q/k/v (k/v at the 8 KV
     heads), the main path's shape."""
     g = torch.Generator("cuda").manual_seed(SEED + 3)
 
-    def rnd(*shape):
-        return torch.randn(shape, generator=g, device="cuda")
+    def rnd(*shape, dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
     cases = []
-    for hd, (b, sq, sk, h, n_kv, causal, off) in (
-            (32, (1, 37, 101, 4, 1, True, 64)),
-            (32, (2, 1000, 1000, 16, 8, True, 0)),
-            (64, (2, 1000, 1000, 16, 8, True, 0)),
-            (64, (2, 128, 256, 4, 2, False, 0)),
-            (64, (1, 200, 300, 6, 3, True, 100)),
-            (128, (2, 300, 300, 8, 2, True, 0)),
-            (128, (1, 130, 70, 4, 4, False, 0))):
-        cases.append((f"fp32 hd{hd} B{b} Sq{sq} Sk{sk} H{h} KV{n_kv} "
-                      f"{'causal' if causal else 'full'} q_offset {off}",
-                      rnd(b, sq, h, hd), rnd(b, sk, n_kv, hd),
-                      rnd(b, sk, n_kv, hd), causal, off))
+    for dt in (torch.float32, torch.bfloat16):
+        for hd, (b, sq, sk, h, n_kv, causal, off) in (
+                (32, (1, 37, 101, 4, 1, True, 64)),
+                (32, (2, 1000, 1000, 16, 8, True, 0)),
+                (64, (2, 1000, 1000, 16, 8, True, 0)),
+                (64, (2, 128, 256, 4, 2, False, 0)),
+                (64, (1, 200, 300, 6, 3, True, 100)),
+                (128, (2, 300, 300, 8, 2, True, 0)),
+                (128, (1, 130, 70, 4, 4, False, 0))):
+            cases.append((f"{str(dt)[6:]} hd{hd} B{b} Sq{sq} Sk{sk} H{h} "
+                          f"KV{n_kv} {'causal' if causal else 'full'} "
+                          f"q_offset {off}",
+                          rnd(b, sq, h, hd, dtype=dt),
+                          rnd(b, sk, n_kv, hd, dtype=dt),
+                          rnd(b, sk, n_kv, hd, dtype=dt), causal, off))
     cases.append(("prefill bf16 causal", q, k, v, True, 0))
     return cases
+
+
+def ptxas_report(source: str) -> list:
+    """[kernel, registers, spill store bytes, spill load bytes] of each
+    kernel in ``source``'s ``nvcc -Xptxas -v`` build log."""
+    import re
+    from repro_torch.kernels import _build
+    out, name, spill = [], None, (0, 0)
+    for line in (_build.build_dir() / f"{source}.log").read_text() \
+            .splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = tuple(int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append([name, int(m.group(1)), *spill])
+            name = None
+    return out
 
 
 def fp32_limit(ref):
@@ -1928,6 +1953,9 @@ def check_flash_bwd_kernel(q, k, v, wrappers):
                     f"differs from the one without")
         if a is q:
             err_main = max(max(e) for e in errs.values())
+    for name, regs, st, ld in ptxas_report("flash_attention_bwd"):
+        log(f"kernel flash_attention_bwd ptxas: {name}: {regs} registers, "
+            f"spill stores {st} B, spill loads {ld} B")
     b, s, h, hd = q.shape
     n_kv = k.shape[2]
     o, lse = FA._forward(q, k, v, True, 0, with_lse=True)

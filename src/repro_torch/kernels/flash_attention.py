@@ -29,7 +29,12 @@ both devices.  Its forward also writes each row's log-sum-exp (fp32,
 :func:`flash_attention_bwd`, kernel 13b (``csrc/flash_attention_bwd.cu``,
 FlashAttention-2's backward without atomics) on the card and
 :func:`flash_attention_bwd_plain` on the CPU.  dK and dV come back at the
-KV heads, summed over the q heads that read each.
+KV heads, summed over the q heads that read each.  In bf16, 13b runs two
+warp-specialised tensor-core kernels (TMA + ``wgmma``, the machinery of
+kernel 13 in ``csrc/flash_hopper.cuh``): dK/dV a 128-key tile, dQ a 128-row
+tile, with P and dS as bf16 hi + lo, since one bf16 rounding of either
+leaves the gradients more than one bf16 ulp from the plain version; fp32
+runs scalar kernels.
 """
 
 from __future__ import annotations
@@ -211,7 +216,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         q_offset: int = 0):
     """(dq, dk, dv) of :func:`flash_attention` from its output ``o`` and
     log-sum-exp ``lse``; dk/dv at the KV heads.  CUDA tensors launch kernel
-    13b (three launches: D = rowsum(dO·O), dK/dV, dQ; counted once)."""
+    13b (three launches: D = rowsum(dO·O), dK/dV, dQ; counted once); in
+    bf16 the tensors must start on 16-byte boundaries (TMA), or the launch
+    raises."""
     if not _on_card(q, k, v, o, lse, do):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          q_offset=q_offset)

@@ -6,7 +6,8 @@ homogeneous baselines), the concurrent relation modules against the
 sequential ones, the flash-attention kernel (fp32 and bf16, k/v at
 KV <= H heads, up to S 4,096) and the reduced dense LM (prefill, decode,
 ``ServeEngine``) on the card against the CPU, kernel 13b (the flash
-backward) against its plain version, the forward's log-sum-exp, autograd
+backward) against its plain version, bit-equal across two bf16 launches
+and refusing a misaligned view, the forward's log-sum-exp, autograd
 through ``chunked_attention`` and two LM training steps against the CPU,
 and the engine's captured
 CUDA graphs (each replay bit for bit the eager forward of its batch, two
@@ -1343,6 +1344,33 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, hd, sq, sk, causal,
         else:
             assert_bf16_close(a.float().cpu().numpy(),
                               b.float().cpu().numpy(), name)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_flash_bwd_bf16_is_deterministic_and_refuses_misaligned(cuda, hd):
+    """bf16 kernel 13b: two launches on the same inputs give bit-equal dq,
+    dk and dv (no atomics: every element has one owner); a q view two
+    bytes off a 16-byte boundary (TMA takes 16-byte aligned bases) raises
+    without counting a launch, and the next launch runs as before."""
+    args = _bwd_case(cuda, torch.bfloat16, hd, 1000, 1000, 4, 2, True, 0,
+                     11 + hd)
+    first = flash_attention.flash_attention_bwd(*args)
+    again = flash_attention.flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    q = args[0]
+    buf = torch.empty(q.numel() + 8, dtype=q.dtype, device=cuda)
+    shifted = buf[1:1 + q.numel()].view(q.shape)
+    shifted.copy_(q)
+    before = flash_attention.flash_attention_bwd.launches
+    with pytest.raises(RuntimeError, match="misaligned"):
+        flash_attention.flash_attention_bwd(shifted, *args[1:])
+    assert flash_attention.flash_attention_bwd.launches == before
+    after = flash_attention.flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, after):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

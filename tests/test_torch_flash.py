@@ -10,7 +10,10 @@ h % KV: ``chunked_attention`` and the plain version with KV 1, 2 and 4 of
 4 heads against the reference on ``tile_kv``'s copies, and a case that
 tells h % KV from h // (H / KV).  The backward: kernel 13b's plain
 version against ``jax.vjp`` of the reference's ``chunked_attention`` and
-against autograd through the plain forward, and the log-sum-exp it reads.
+against autograd through the plain forward, and the log-sum-exp it reads;
+and the rounding scheme of 13b's bf16 kernel reproduced in plain torch (P
+and dS as bf16 hi + lo into fp32 sums): within the card test's limit of
+the plain version, where one bf16 rounding of P and dS is not.
 The kernels themselves are held against
 the plain versions on a card in ``tests/test_torch_cuda.py`` (which imports
 no JAX, so it runs where the card is).  Tolerances: fp32 parity as
@@ -303,3 +306,76 @@ def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(monkeypatch):
         with pytest.raises(ValueError, match=what):
             fa.flash_attention_bwd(*args)
     assert fa.flash_attention_bwd.launches == before
+
+
+def _bwd_tensor_core_scheme(q, k, v, o, lse, do, causal, q_offset,
+                            split=True):
+    """Kernel 13b's bf16 arithmetic in plain torch: bf16 q/k/v/dO, fp32
+    sums (S, dP, D, the products), P = exp2(S scale log2 e - lse log2 e)
+    and dS = P (dP - D) in fp32, then each as bf16 hi + bf16 lo (``split``)
+    or one bf16 rounding into dV = P^T dO, dK = dS^T Q scale and
+    dQ = dS K scale; dK/dV folded to the KV heads in fp32, then rounded."""
+    b, sq, h, hd = q.shape
+    sk, n_kv = k.shape[1], k.shape[2]
+    kt, vt = (t.repeat(1, 1, h // n_kv, 1).float() for t in (k, v))
+    qf, dof = q.float(), do.float()
+    scale, log2e = 1.0 / hd ** 0.5, 1.4426950408889634
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)
+    s = torch.einsum("bqhd,bshd->bhqs", qf, kt)
+    p = torch.exp2(s * (scale * log2e) - (lse * log2e)[..., None])
+    if causal:
+        vis = (q_offset + torch.arange(sq))[:, None] >= torch.arange(sk)
+        p = torch.where(vis, p, torch.zeros(()))
+    ds = p * (torch.einsum("bqhd,bshd->bhqs", dof, vt) - delta[..., None])
+
+    def operand(x):
+        hi = x.to(torch.bfloat16).float()
+        return hi + (x - hi).to(torch.bfloat16).float() if split else hi
+    p, ds = operand(p), operand(ds)
+    dv = torch.einsum("bhqs,bqhd->bshd", p, dof)
+    dq = torch.einsum("bhqs,bshd->bqhd", ds, kt) * scale
+    dk = torch.einsum("bhqs,bqhd->bshd", ds, qf) * scale
+    fold = lambda t: t.reshape(b, sk, h // n_kv, n_kv, hd).sum(2)
+    return dq.to(q.dtype), fold(dk).to(k.dtype), fold(dv).to(v.dtype)
+
+
+def _bf16_bwd_case(hd, sq, sk, h, kv, causal, q_offset):
+    """Seeded bf16 q/k/v/dO, the plain forward's o and lse, and the plain
+    backward's gradients."""
+    rng = np.random.default_rng(hd + sq + sk + kv)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(rng, 2, sq, sk, h, hd, kv=kv))
+    do = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)) \
+        .to(torch.bfloat16)
+    o, lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                      q_offset=q_offset, return_lse=True)
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                       q_offset=q_offset)
+    return (q, k, v, o, lse, do), ref
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk,h,kv,causal,q_offset", BWD_CASES)
+def test_bwd_hi_lo_scheme_within_one_bf16_ulp(hd, sq, sk, h, kv, causal,
+                                              q_offset):
+    """P and dS carried as bf16 hi + lo (kernel 13b's bf16 kernels) keep
+    dq, dk and dv within the card test's limit of the plain version
+    (``assert_bf16_close``: one bf16 ulp plus the fp32 slack)."""
+    args, ref = _bf16_bwd_case(hd, sq, sk, h, kv, causal, q_offset)
+    got = _bwd_tensor_core_scheme(*args, causal, q_offset)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert_bf16_close(a.float().numpy(), b.float().numpy(), name)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk,h,kv,causal,q_offset", BWD_CASES)
+def test_bwd_single_bf16_rounding_exceeds_the_limit(hd, sq, sk, h, kv,
+                                                    causal, q_offset):
+    """One bf16 rounding of P and dS (a single tensor-core pass each)
+    leaves at least one of dq, dk, dv beyond that limit: the reason the
+    kernels pay a second pass for every product that takes P or dS."""
+    args, ref = _bf16_bwd_case(hd, sq, sk, h, kv, causal, q_offset)
+    got = _bwd_tensor_core_scheme(*args, causal, q_offset, split=False)
+    with pytest.raises(AssertionError, match="beyond one bf16 ulp"):
+        for a, b in zip(got, ref):
+            assert_bf16_close(a.float().numpy(), b.float().numpy())

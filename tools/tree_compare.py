@@ -1,6 +1,6 @@
 """What a change to the port moves against its parent, on one NVIDIA card:
-the served Table-1 paths and the wide (k > 32) walks of kernels 1, 4, 7
-and 8.  The script imports the ``repro_torch`` package found first on
+the served Table-1 paths, the wide (k > 32) walks of kernels 1, 4, 7 and
+8, and kernels 13 and 13b.  The script imports the ``repro_torch`` package found first on
 ``PYTHONPATH``, so one copy of it times either tree; compare two trees
 within one call, in the order parent, change, change, parent:
 
@@ -30,9 +30,23 @@ It prints one JSON object a line:
   kernel's own device time, 50 calls), with the output's SHA-256, so the
   two trees' outputs can be held bit for bit; and kernel 1's narrow walk
   on the main path's shape: the quantized super-arena of that batch as
-  the engine serves it, a seeded k = 16 operand, dim 64.
+  the engine serves it, a seeded k = 16 operand, dim 64;
+* ``kernel`` of kernels 13 and 13b at the qwen3-0.6b prefill's shape (B 4,
+  S 1,024, H 16, KV 8, hd 64, bf16, causal) on seeded q/k/v/dO: kernel 13
+  without an lse buffer (serving's launch) and with one (training's), and
+  13b on that launch's o and lse: ms a call by CUDA events queued behind a
+  sleep (``queued_ms``) and back to back, the profiler's device ms (and
+  13b's by kernel), and the SHA-256 of every output (13b: dq, dk, dv).
 
-Every line carries the card's name and power limit as ``nvidia-smi``
+* ``lm_train``: qwen3-0.6b training at ``chip_smoke.py``'s shape (28
+  layers bf16, remat ``full``, B 4 x S 1,024, seeded weights, the token
+  pipeline's batches): LM_STEPS steps of ``make_train_step``, each
+  synchronised and timed on the host (p50 after the first), then one
+  forward+backward under the profiler: its wall, the device's busy ms and
+  share, and kernel 13b's device ms.
+
+``--only gnn``, ``--only flash`` or ``--only lm`` runs one group.  Every
+line carries the card's name and power limit as ``nvidia-smi``
 reports them.
 """
 
@@ -45,6 +59,7 @@ import time
 import torch
 
 SEED, HIDDEN, LAYERS, K, FEAT = 0, 64, 2, 16, 16
+LM_STEPS = 8
 WIDE_K, WIDE_DIM = 64, 128
 REPS, PROF_REPS = 20, 50
 
@@ -89,8 +104,51 @@ def kernel_ms(fn, match: str):
     return own / PROF_REPS / 1e3, total / PROF_REPS / 1e3
 
 
+def queued_ms(fn, cycles=20_000_000) -> float:
+    """Device ms of one ``fn()`` call: REPS calls, each between two CUDA
+    events, queued behind a ``torch.cuda._sleep`` so that the host has
+    issued all of them before the first runs; the sleep doubles until it
+    outlasts the host's issue."""
+    fn()
+    while True:
+        evs = [(torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True)) for _ in range(REPS)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        for a, b in evs:
+            a.record()
+            fn()
+            b.record()
+        ahead = not evs[0][0].query()
+        torch.cuda.synchronize()
+        if ahead or cycles >= 2 ** 31:
+            return sum(a.elapsed_time(b) for a, b in evs) / REPS
+        cycles *= 2
+
+
+def parts_ms(fn, match: str) -> dict:
+    """Device ms a call of each kernel whose name holds ``match``, under
+    the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROF_REPS):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and match in e.name:
+            name = e.name.split("(")[0].replace("void ", "")
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() \
+                / PROF_REPS / 1e3
+    return out
+
+
 def sha(t: torch.Tensor) -> str:
-    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+    t = t.detach()
+    if t.dtype == torch.bfloat16:                  # numpy has no bf16
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def serve(label, smi, model, cfg, graphs, name):
@@ -226,10 +284,88 @@ def wide_kernels(label, smi, table1):
             flush=True)
 
 
+def flash_kernels(label, smi):
+    """Kernels 13 and 13b at the qwen3-0.6b prefill's shape."""
+    from repro_torch.kernels import flash_attention as FA
+    b, s, h, kv, hd = 4, 1024, 16, 8, 64
+    gen = torch.Generator().manual_seed(SEED)
+    q, k, v, do = (torch.randn((b, s, n, hd), generator=gen)
+                   .to("cuda", torch.bfloat16) for n in (h, kv, kv, h))
+    o, lse = FA._forward(q, k, v, True, 0, with_lse=True)
+    cases = (
+        ("flash_attention", "flash_attention_fwd",
+         lambda: FA._forward(q, k, v, True, 0, with_lse=False)[:1]),
+        ("flash_attention+lse", "flash_attention_fwd",
+         lambda: FA._forward(q, k, v, True, 0, with_lse=True)),
+        ("flash_attention_bwd", "flash_bwd",
+         lambda: FA.flash_attention_bwd(q, k, v, o, lse, do)))
+    for name, match, fn in cases:
+        out = fn()
+        torch.cuda.synchronize()
+        parts = parts_ms(fn, match)
+        print(json.dumps(dict(
+            what="kernel", tree=label, kernel=name, card=smi,
+            shape=[b, s, h, kv, hd], queued_ms=queued_ms(fn),
+            events_ms=events_ms(fn), device_ms=sum(parts.values()),
+            parts=parts, sha256=[sha(t) for t in out])), flush=True)
+
+
+def lm_train(label, smi):
+    """qwen3-0.6b training steps and one profiled forward+backward."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.train import build_lm, get_config
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import lm_step
+    cfg = get_config("qwen3-0.6b")
+    lm = build_lm(cfg, device=torch.device("cuda"))
+    state = lm_step.init_train_state(
+        lm, torch.Generator("cuda").manual_seed(SEED))
+    step = lm_step.make_train_step(lm, lr=3e-4, total_steps=LM_STEPS)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=1024,
+                                    global_batch=4, seed=SEED))
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for i in range(LM_STEPS):
+        batch = {k: torch.from_numpy(v).long().cuda()
+                 for k, v in pipe.global_batch(i).items()
+                 if not k.startswith("_")}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    steady = sorted(ms[1:])
+    p50 = steady[len(steady) // 2]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        torch.autograd.grad(lm.loss(state.params, batch),
+                            tree_leaves(state.params))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    busy = k13b = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            busy += us / 1e3
+            k13b += us / 1e3 if "flash_bwd" in e.name else 0.0
+    print(json.dumps(dict(
+        what="lm_train", tree=label, card=smi, steps_ms=ms, p50_ms=p50,
+        tokens_per_s_p50=4 * 1024 / (p50 / 1e3), fwd_bwd_wall_ms=wall,
+        device_busy_ms=busy, busy_share=busy / wall, k13b_ms=k13b,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="tree")
-    label = ap.parse_args().label
+    ap.add_argument("--only", choices=("gnn", "flash", "lm"), default=None)
+    args = ap.parse_args()
+    label = args.label
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device visible")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -244,6 +380,12 @@ def main() -> None:
     print(json.dumps(dict(what="build", tree=label,
                           package=repro_torch.__file__,
                           s=time.perf_counter() - t)), flush=True)
+    if args.only in (None, "flash"):
+        flash_kernels(label, smi)
+    if args.only in (None, "lm"):
+        lm_train(label, smi)
+    if args.only not in (None, "gnn"):
+        return
     table1 = generate_design(0, "small", 1.0) + generate_design(1, "medium",
                                                                 1.0)
     tiny = (generate_design(0, "small", 0.02)
