@@ -106,7 +106,33 @@ and trains it through kernel 13 and its backward, kernel 13b:
     launches of kernel 13 and 28 of 13b a step, no plain version; step
     p50, tokens/s (every token over the runs' whole wall time, checkpoint
     saves included), forward+backward / AdamW ms and peak memory, and
-    remat ``full`` against off at depth 2.
+    remat ``full`` against off at depth 2;
+
+and serves and trains the MoE and SSM LM families at full width (random
+weights from a seed, bf16):
+
+21. ``serve-lm-granite-moe-1b-a400m``: 24 layers, 32 experts top-8,
+    ``examples/serve_lm.py``'s layout: prefill (24 launches of kernel 13),
+    16 greedy decode steps (none); the assignments each layer's capacity
+    drops; a profiler breakdown of a prefill by MoE stage (router and
+    top-k, slots, dispatch, experts, combine) and kernel 13's share;
+22. ``serve-lm-moonshot-v1-16b-a3b-depth8``: the same at 8 of 48 layers
+    (64 experts top-6, hd 128, MHA 16/16, vocab 163,840);
+23. ``serve-lm-mamba2-1.3b``: 48 layers, 4 x 1,024 tokens, 16 greedy
+    steps, no kernel 13; a 768-token prefill then decode steps over
+    tokens 768-1,023 whose last logits match the 1,024-token prefill's
+    (teacher forcing: within twice the bf16 prefill's distance from the
+    fp32 prefill of the same weights);
+24. ``lm-families-fp32-depth2``: each of the three at 2 layers, fp32:
+    prefill + 8 decode steps, loss, gradients and one ``make_train_step``
+    step against the port's CPU from the same weights (1e-4 / 1e-5 /
+    1e-4), the MoE top-k expert sets equal on both; mamba2's teacher
+    forcing over 64 decode steps in fp32;
+25. ``train-lm-granite-moe-1b-a400m`` and 26. ``train-lm-mamba2-1.3b``:
+    ``launch.train.main`` at full depth, bf16, remat ``full``, B 4 x S
+    1,024, 4 steps: finite losses, the first near ln V; granite 48
+    launches of kernel 13 and 24 of 13b a step, mamba2 none; step p50,
+    tokens/s, peak memory, a forward+backward breakdown by stage.
 
 Every kernel's launch count is zeroed just before each path and read just
 after; a kernel that the path should run and did not, or one it must not
@@ -1645,12 +1671,13 @@ def check_flash_kernel(q, k, v):
     return row
 
 
-def device_breakdown(run):
+def device_breakdown(run, spans=None):
     """Wall ms of ``run()`` under ``torch.profiler``, the summed time of
     the device activities (kernels, copies, sets) it traced, and every
     name's (ms, count, name), largest first.  Only device-side events
     count, so no kernel is counted twice through the operator that
-    launched it."""
+    launched it.  ``spans``, a dict keyed by ``record_function`` labels,
+    gets each label's device ms (the kernels launched inside it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1661,13 +1688,20 @@ def device_breakdown(run):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     by_name = {}
+    labels = spans or {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a record_function span's device-side range is not an activity
+        if e.device_type == DeviceType.CUDA and not (
+                e.name in labels or getattr(e, "is_user_annotation", False)):
             ms, n = by_name.get(e.name[:60], (0.0, 0))
             by_name[e.name[:60]] = (ms + e.time_range.elapsed_us() / 1e3,
                                     n + 1)
     rows = sorted(((ms, n, k) for k, (ms, n) in by_name.items()),
                   reverse=True)
+    for e in prof.events() if spans is not None else ():
+        # the host-side span: the device time of the kernels it launched
+        if e.name in spans and e.device_type == DeviceType.CPU:
+            spans[e.name] += e.device_time_total / 1e3
     return wall, sum(ms for ms, _, _ in rows), rows
 
 
@@ -2300,6 +2334,484 @@ def train_lm_path(wrappers, ckpt_dir):
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     remat_compare()
+    return launches
+
+
+# the MoE and SSM LM families (granite, moonshot at depth 8, mamba2)
+MOE_SPANS = ("moe.route", "moe.slots", "moe.dispatch", "moe.experts",
+             "moe.combine")
+SSM_SPANS = ("ssm.conv", "ssm.ssd")
+SSM_SPLIT = 768              # teacher forcing: prefill 768, decode the rest
+# bf16, 48 layers: the last logits of a 768-token prefill + 256 decode
+# steps may differ from the 1,024-token prefill's by twice the bf16
+# prefill's own distance (rel L2) from the fp32 prefill of the same
+# weights: each bf16 path rounds the same sums in other places (the
+# decode conv in fp32, the prefill's in bf16; the recurrence against the
+# chunked form), and each may be that far from the fp32 result
+SSM_DECODE_FACTOR = 2.0
+FAMILY_STEPS = 4             # train-lm-<family>: steps of launch.train.main
+
+
+class StageSpans:
+    """While installed, the MoE stages (``ffn._route``, ``_slots``,
+    ``_dispatch``, ``_expert_ffn``, ``_combine``) and the SSD core's
+    (``mamba2.causal_conv1d``, ``ssd_chunked``) each run inside a
+    ``record_function`` span named for the stage, ``_slots`` records each
+    call's dropped assignments (a device count) and ``_route`` each call's
+    expert ids."""
+
+    def __init__(self):
+        from repro_torch.models.lm import ffn, mamba2
+        self.drops, self.ids = [], []
+        self.saved = []
+        for mod, name, label in (
+                (ffn, "_route", "moe.route"), (ffn, "_slots", "moe.slots"),
+                (ffn, "_dispatch", "moe.dispatch"),
+                (ffn, "_expert_ffn", "moe.experts"),
+                (ffn, "_combine", "moe.combine"),
+                (mamba2, "causal_conv1d", "ssm.conv"),
+                (mamba2, "ssd_chunked", "ssm.ssd")):
+            self.saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, self._wrap(getattr(mod, name), label))
+
+    def _wrap(self, fn, label):
+        from torch.profiler import record_function
+
+        def run(*a, **kw):
+            with record_function(label):
+                out = fn(*a, **kw)
+            if label == "moe.slots":
+                self.drops.append((~out[2]).sum())
+            elif label == "moe.route":
+                self.ids.append(out[1].detach())
+            return out
+        return run
+
+    def close(self):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def family_model(arch, device, dtype=None, n_layers=None, seed=SEED):
+    """``build_lm`` of ``arch`` (depth ``n_layers`` if given, ``dtype`` if
+    given) with weights drawn from ``seed`` on ``device``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm.model import build_lm
+    cfg = get_config(arch)
+    over = {k: v for k, v in (("n_layers", n_layers), ("dtype", dtype))
+            if v is not None}
+    lm = build_lm(dataclasses.replace(cfg, **over), device=device)
+    lm.init(torch.Generator(device).manual_seed(seed))
+    return lm
+
+
+def breakdown_log(name, what, run, labels):
+    spans = dict.fromkeys(labels, 0.0)
+    wall, busy, rows = device_breakdown(run, spans)
+    k13 = sum(ms for ms, _, n in rows if "flash_attention_fwd" in n)
+    k13b = sum(ms for ms, _, n in rows if "flash_bwd" in n)
+    log(f"breakdown {name} {what}: wall {wall:.3f} ms under the profiler, "
+        f"device busy {busy:.3f} ms ({busy / wall:.3f}) [{CARD}]; "
+        f"{sum(c for _, c, _ in rows)} device activities; kernel 13 "
+        f"{k13:.3f} ms ({k13 / busy:.3f} of busy), 13b {k13b:.3f} ms; "
+        f"stages (device ms) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in spans.items())
+        + f" ({sum(spans.values()) / busy:.3f} of busy); top kernels (ms, "
+        f"calls): " + "; ".join(f"{n} {ms:.3f} x{c}"
+                                for ms, c, n in rows[:8]))
+
+
+def serve_lm_moe_path(name, arch, n_layers, wrappers):
+    """serve-lm-<moe arch>: ``examples/serve_lm.py``'s layout at full width
+    (``n_layers`` cut when given), bf16: prefill the padded prompts (one
+    kernel 13 launch a layer), 16 greedy decode steps (none); the
+    assignments each layer's capacity drops in the prefill; a profiler
+    breakdown of a prefill by MoE stage."""
+    from repro_torch.models.lm import serve
+    from repro_torch.models.lm.ffn import moe_capacity
+    lm = family_model(arch, "cuda", n_layers=n_layers)
+    params, vocab, n = lm.params(), lm.cfg.vocab, lm.cfg.n_layers
+    tokens = lm_tokens(vocab, LM_BATCH, LM_PROMPT, LM_PROMPT + LM_NEW,
+                       SEED).cuda()
+    b, total = tokens.shape
+    s = total - LM_NEW
+    serve.prefill(lm, params, tokens)                 # warm-up
+    spans = StageSpans()
+    try:
+        zero_counts(wrappers)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cache, logits = serve.prefill(lm, params, tokens)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t) * 1e3
+        n_prefill = wrappers["flash_attention"].launches
+        drops = [int(d) for d in spans.drops]
+        finite = torch.isfinite(logits).all()
+        tok = logits[:, -1:, :vocab].argmax(-1)
+        gen = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(LM_NEW):
+            cache, logits = serve.decode_step(lm, params, cache, tok, s + i)
+            finite &= torch.isfinite(logits).all()
+            tok = logits[:, :, :vocab].argmax(-1)
+            gen.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t
+        launches = lm_counts(wrappers)
+        breakdown_log(name, "prefill",
+                      lambda: serve.prefill(lm, params, tokens), MOE_SPANS)
+    finally:
+        spans.close()
+    from repro_torch.configs import get_config
+    c = lm.cfg
+    cap = moe_capacity(b * total, c.n_experts, c.top_k, c.capacity_factor)
+    log(f"path {name}: {c.name} d {c.d_model}, {c.n_experts} experts top-"
+        f"{c.top_k}, hd {c.hd}, heads {c.n_heads}/{c.n_kv}, vocab "
+        f"{c.vocab}, {n} of {get_config(arch).n_layers} layers, bf16: {b} "
+        f"prompts of {s} tokens padded to {total}: prefill {prefill_ms:.3f} "
+        f"ms, {LM_NEW} decode steps {decode_s * 1e3 / LM_NEW:.3f} ms a step "
+        f"= {b * LM_NEW / decode_s:.1f} tokens/s [{CARD}]; capacity "
+        f"{cap} of {b * total * c.top_k} assignments over {c.n_experts} "
+        f"experts, dropped per layer in the prefill {drops}; launches="
+        f"{launches}; sample {torch.cat(gen, 1)[:2].tolist()}")
+    if n_prefill != n or launches["flash_attention"] != n:
+        problem(f"path {name}: {n_prefill} flash launches in the prefill "
+                f"and {launches['flash_attention'] - n_prefill} in the "
+                f"decode, expected {n} and 0")
+    check_launches(name, launches, ["flash_attention"],
+                   [k for k in wrappers if k != "flash_attention"])
+    if not bool(finite):
+        problem(f"path {name}: non-finite logits")
+    del lm, params, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_lm_ssm_path(wrappers):
+    """serve-lm-mamba2-1.3b: full width and depth (48 layers), bf16: a
+    1,024-token prefill of 4 sequences and 16 greedy decode steps; then a
+    768-token prefill and decode steps over tokens 768-1,023, whose last
+    logits match the 1,024-token prefill's (teacher forcing); no kernel
+    13 launch; a profiler breakdown of a prefill."""
+    from repro_torch.models.lm import serve
+    arch = "mamba2-1.3b"
+    lm = family_model(arch, "cuda")
+    params, vocab = lm.params(), lm.cfg.vocab
+    tokens = lm_tokens(vocab, LM_BATCH, LM_SEQ, LM_SEQ, SEED).cuda()
+    b, total = tokens.shape
+    serve.prefill(lm, params, tokens)                 # warm-up
+    zero_counts(wrappers)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cache, full = serve.prefill(lm, params, tokens)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    finite = torch.isfinite(full).all()
+    tok = full[:, -1:, :vocab].argmax(-1)
+    gen = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(LM_NEW):
+        cache, logits = serve.decode_step(lm, params, cache, tok, total + i)
+        finite &= torch.isfinite(logits).all()
+        tok = logits[:, :, :vocab].argmax(-1)
+        gen.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    del cache
+    t = time.perf_counter()
+    cache, _ = serve.prefill(lm, params, tokens[:, :SSM_SPLIT])
+    for i in range(SSM_SPLIT, total):
+        cache, logits = serve.decode_step(lm, params, cache,
+                                          tokens[:, i:i + 1], i)
+    torch.cuda.synchronize()
+    tf_s = time.perf_counter() - t
+    rel = rel_l2(logits, full)
+    same = torch.equal(logits[:, :, :vocab].argmax(-1),
+                       full[:, :, :vocab].argmax(-1))
+    launches = lm_counts(wrappers)
+    # the bf16 prefill against the fp32 prefill of the same weights
+    lm32 = family_model(arch, "cuda", dtype="float32")
+    _, full32 = serve.prefill(lm32, lm32.params(), tokens)
+    bf16_rel = rel_l2(full, full32)
+    limit = SSM_DECODE_FACTOR * bf16_rel
+    del lm32
+    torch.cuda.empty_cache()
+    spans = StageSpans()
+    try:
+        breakdown_log("serve-lm-mamba2-1.3b", "prefill",
+                      lambda: serve.prefill(lm, params, tokens), SSM_SPANS)
+        breakdown_log("serve-lm-mamba2-1.3b", "decode step",
+                      lambda: serve.decode_step(lm, params, cache,
+                                                tokens[:, :1], 0), ())
+    finally:
+        spans.close()
+    c = lm.cfg
+    log(f"path serve-lm-{arch}: d {c.d_model}, state {c.ssm_state}, "
+        f"{c.ssm_expand * c.d_model // c.ssm_head_dim} heads of "
+        f"{c.ssm_head_dim}, chunk {c.ssm_chunk}, {c.n_layers} layers, bf16: "
+        f"{b} x {total} tokens: prefill {prefill_ms:.3f} ms, {LM_NEW} "
+        f"decode steps {decode_s * 1e3 / LM_NEW:.3f} ms a step = "
+        f"{b * LM_NEW / decode_s:.1f} tokens/s [{CARD}]; prefill "
+        f"{SSM_SPLIT} + {total - SSM_SPLIT} decode steps ({tf_s:.2f} s): "
+        f"last logits vs the {total}-token prefill rel L2 {rel} (limit "
+        f"{limit}: {SSM_DECODE_FACTOR} x the bf16 prefill's rel L2 "
+        f"{bf16_rel} from the fp32 prefill), greedy token equal: {same}; "
+        f"launches="
+        f"{launches}; sample {torch.cat(gen, 1)[:2].tolist()}")
+    check_launches(f"serve-lm-{arch}", launches, [], list(wrappers))
+    if not bool(finite):
+        problem(f"path serve-lm-{arch}: non-finite logits")
+    if not rel <= limit:
+        problem(f"path serve-lm-{arch}: decoding tokens {SSM_SPLIT}-"
+                f"{total - 1} after a {SSM_SPLIT}-token prefill differs from "
+                f"the {total}-token prefill by {rel} relative L2")
+    del lm, params, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def topk_diff(ids_a, ids_b):
+    """Tokens whose top-k expert set differs between two runs' routing
+    calls (the same calls in the same order)."""
+    if len(ids_a) != len(ids_b):
+        return float("inf")
+    return sum(int((a.sort(-1).values.cpu() != b.sort(-1).values.cpu())
+                   .any(-1).sum()) for a, b in zip(ids_a, ids_b))
+
+
+def lm_families_fp32_path(wrappers, n_steps=8):
+    """lm-families-fp32-depth2: granite, moonshot and mamba2 at full width,
+    2 layers, fp32 (TF32 off), from the same weights on the card and on
+    the CPU: the prefill of 2 x 120 tokens padded to 128 and 8 greedy
+    decode steps (logits 1e-4 relative L2), then one ``make_train_step``
+    step at B 2 x S 128: its loss (1e-5 relative), the gradients it hands
+    AdamW and the updated parameters (1e-4 relative L2 a leaf); the MoE top-k expert sets of
+    every routing call equal on both; mamba2 also a 64-token prefill and
+    64 decode steps against the 128-token prefill on the card (1e-4)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.lm import serve
+    from repro_torch.models.lm.model import build_lm
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+    from repro_torch.train import lm_step
+    update = lm_step.adamw_update
+    total_launches = {k: 0 for k in wrappers}
+    for i, arch in enumerate(("granite-moe-1b-a400m", "moonshot-v1-16b-a3b",
+                              "mamba2-1.3b")):
+        t0 = time.perf_counter()
+        lm = family_model(arch, "cuda", dtype="float32", n_layers=2,
+                          seed=SEED + 11 + i)
+        cfg = lm.cfg
+        cpu = build_lm(cfg, device="cpu")
+        cpu.load_state_dict(lm.state_dict())
+        prompt, total = 120, 128
+        tokens = lm_tokens(cfg.vocab, 2, prompt, total, SEED + 11 + i)
+        out, ids, launches, plain, secs = {}, {}, None, None, {}
+        for model, dev in ((lm, "cuda"), (cpu, "cpu")):
+            t1 = time.perf_counter()
+            params = model.params()
+            if dev == "cuda":
+                zero_counts(wrappers)
+                calls, restore = count_plain_calls(FA)
+            spans = StageSpans()
+            try:
+                cache, logits = serve.prefill(model, params, tokens.to(dev))
+                steps, toks = [logits], []
+                tok = logits[:, -1:, :cfg.vocab].argmax(-1)
+                for j in range(n_steps):
+                    cache, logits = serve.decode_step(model, params, cache,
+                                                      tok, prompt + j)
+                    tok = logits[:, :, :cfg.vocab].argmax(-1)
+                    steps.append(logits)
+                    toks.append(tok)
+                del cache
+                # one step; its gradients are read where AdamW takes them
+                grads = []
+                lm_step.adamw_update = lambda p_, g_, *a, **kw: (
+                    grads.extend(g.detach().clone() for g in g_),
+                    update(p_, g_, *a, **kw))
+                state = lm_step.TrainState(params, adamw_init(params))
+                _, metrics = lm_step.make_train_step(
+                    model, lr=1e-3, total_steps=10)(
+                        state, lm_batch(cfg.vocab, 128, 2, 0, dev))
+                loss = metrics["loss"]
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+            finally:
+                lm_step.adamw_update = update
+                spans.close()
+                if dev == "cuda":
+                    restore()
+            if dev == "cuda":
+                launches, plain = lm_counts(wrappers), dict(calls)
+            secs[dev] = round(time.perf_counter() - t1, 1)
+            ids[dev] = [x.cpu() for x in spans.ids]
+            out[dev] = ([x.cpu() for x in steps], torch.cat(toks, 1).cpu(),
+                        float(loss.detach()), [g.cpu() for g in grads],
+                        [p.detach().cpu() for p in tree_leaves(params)],
+                        float(metrics["grad_norm"]))
+            del grads, state, params
+        (lg_g, tk_g, l_g, g_g, p_g, n_g), (lg_c, tk_c, l_c, g_c, p_c, n_c) = \
+            out["cuda"], out["cpu"]
+        rels = max(rel_l2(a, b) for a, b in zip(lg_g, lg_c))
+        loss_rel = abs(l_g - l_c) / abs(l_c)
+        grad_rel = max(rel_l2(a, b) for a, b in zip(g_g, g_c))
+        par_rel = max(rel_l2(a, b) for a, b in zip(p_g, p_c))
+        diff = topk_diff(ids["cuda"], ids["cpu"])
+        moe = cfg.family == "moe"
+        log(f"path lm-families-fp32-depth2 {arch}: prefill + {n_steps} "
+            f"decode steps: logits rel L2 max {rels} (limit {FP32_LM_RTOL}), "
+            f"greedy tokens equal: {torch.equal(tk_g, tk_c)}; B 2 x S 128: "
+            f"loss card {l_g} CPU {l_c} (rel {loss_rel}, limit 1e-5); "
+            f"gradients rel L2 max {grad_rel} (limit 1e-4); grad norm {n_g} "
+            f"/ {n_c}; one step's parameters rel L2 max {par_rel} (limit "
+            f"1e-4); routing calls {len(ids['cuda'])}, tokens whose top-k "
+            f"expert set differs card vs CPU: {diff}; launches={launches}; "
+            f"plain calls on the card {plain}; card {secs['cuda']} s, CPU "
+            f"{secs['cpu']} s, {time.perf_counter() - t0:.1f} s in all")
+        n = cfg.n_layers if moe else 0
+        # the prefill, then the step's forward and its recompute
+        if launches["flash_attention"] != 3 * n or \
+                launches["flash_attention_bwd"] != n:
+            problem(f"path lm-families-fp32-depth2 {arch}: kernel 13 / 13b "
+                    f"launched {launches['flash_attention']} / "
+                    f"{launches['flash_attention_bwd']} times, expected "
+                    f"{3 * n} / {n}")
+        check_launches(f"lm-families-fp32-depth2 {arch}", launches,
+                       ["flash_attention", "flash_attention_bwd"] if moe
+                       else [],
+                       [k for k in wrappers if not k.startswith("flash")
+                        or not moe])
+        if any(plain.values()):
+            problem(f"path lm-families-fp32-depth2 {arch}: plain versions "
+                    f"ran on the card: {plain}")
+        if not (rels <= FP32_LM_RTOL and torch.equal(tk_g, tk_c)
+                and loss_rel <= 1e-5 and grad_rel <= 1e-4
+                and par_rel <= 1e-4 and diff == 0):
+            problem(f"path lm-families-fp32-depth2 {arch}: the card "
+                    f"disagrees with the CPU")
+        if not moe:
+            # teacher forcing in fp32 on the card: a 64-token prefill then
+            # 64 decode steps against the 128-token prefill (1e-4)
+            seq = lm_tokens(cfg.vocab, 2, total, total, SEED + 14).cuda()
+            _, full = serve.prefill(lm, lm.params(), seq)
+            cache, _ = serve.prefill(lm, lm.params(), seq[:, :total // 2])
+            for j in range(total // 2, total):
+                cache, last = serve.decode_step(lm, lm.params(), cache,
+                                                seq[:, j:j + 1], j)
+            tf = rel_l2(last, full)
+            log(f"path lm-families-fp32-depth2 {arch}: a {total // 2}-token "
+                f"prefill + {total // 2} decode steps against the {total}-"
+                f"token prefill: last logits rel L2 {tf} (limit "
+                f"{FP32_LM_RTOL})")
+            if not tf <= FP32_LM_RTOL:
+                problem(f"path lm-families-fp32-depth2 {arch}: teacher "
+                        f"forcing differs from the prefill by {tf}")
+            del cache
+        for k, v in launches.items():
+            total_launches[k] += v
+        del lm, cpu, out
+        torch.cuda.empty_cache()
+    return total_launches
+
+
+def train_lm_family_path(arch, wrappers):
+    """train-lm-<arch>: ``launch.train.main`` at full width and depth,
+    bf16, remat ``full``, B 4 x S 1,024, ``FAMILY_STEPS`` steps: finite
+    losses, the first within 0.5 of ln V (MoE: plus 0.01 x aux, aux at
+    most the expert count); MoE: 2 launches of kernel 13 and 1 of 13b a
+    layer and step, SSM none; step p50, tokens/s, peak memory, and a
+    profiler breakdown of one forward+backward by stage."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import lm_step
+    argv = ["--arch", arch, "--batch", str(LM_BATCH), "--seq", str(LM_SEQ),
+            "--log-every", "1", "--lr", "3e-4", "--steps", str(FAMILY_STEPS)]
+    step_ms, starts, models = [], [], []
+    make_step, build = lm_step.make_train_step, launch_train.build_lm
+
+    def timed_make(*a, **kw):
+        fn = make_step(*a, **kw)
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if not starts:
+                starts.append(t)
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+        return step
+
+    def building(*a, **kw):
+        models.append(build(*a, **kw))
+        return models[-1]
+    zero_counts(wrappers)
+    calls, restore_plain = count_plain_calls(FA)
+    lm_step.make_train_step = timed_make
+    launch_train.build_lm = building
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        losses = launch_train.main(argv)
+        span = time.perf_counter() - starts[0]
+    finally:
+        lm_step.make_train_step, launch_train.build_lm = make_step, build
+        restore_plain()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches, plain = lm_counts(wrappers), dict(calls)
+    steady = sorted(step_ms[1:])
+    p50 = steady[len(steady) // 2] if steady else float("nan")
+    tok_s = len(losses) * LM_BATCH * LM_SEQ / span
+    lm = models[-1]
+    c = lm.cfg
+    moe = c.family == "moe"
+    batch = lm_batch(c.vocab, LM_SEQ, LM_BATCH, 99, "cuda")
+    params = lm.params()
+    spans = StageSpans()
+    try:
+        breakdown_log(f"train-lm-{arch}", "forward+backward",
+                      lambda: torch.autograd.grad(lm.loss(params, batch),
+                                                  tree_leaves(params)),
+                      MOE_SPANS if moe else SSM_SPANS)
+    finally:
+        spans.close()
+    ln_v = math.log(c.vocab)
+    hi = ln_v + 0.5 + (0.01 * c.n_experts if moe else 0.0)
+    log(f"path train-lm-{arch}: launch.train.main, {c.n_layers} layers "
+        f"bf16, remat {c.remat_policy}, B {LM_BATCH} x S {LM_SEQ}: losses "
+        f"{losses} (ln V {ln_v}, first-loss window [{ln_v - 0.5}, {hi}]); "
+        f"step host ms {[round(x, 3) for x in step_ms]}, p50 {p50} after "
+        f"the first; {tok_s:.1f} tokens/s over the run's window ({span:.3f}"
+        f" s); peak memory {peak:.2f} GiB [{CARD}]; launches={launches} "
+        f"over {len(losses)} steps; plain calls {plain}")
+    if len(losses) != FAMILY_STEPS or \
+            not all(math.isfinite(x) for x in losses):
+        problem(f"path train-lm-{arch}: losses {losses}: expected "
+                f"{FAMILY_STEPS} finite losses")
+    if not ln_v - 0.5 <= losses[0] <= hi:
+        problem(f"path train-lm-{arch}: first loss {losses[0]} outside "
+                f"[{ln_v - 0.5}, {hi}]")
+    n = c.n_layers if moe else 0
+    if launches["flash_attention"] != 2 * n * FAMILY_STEPS or \
+            launches["flash_attention_bwd"] != n * FAMILY_STEPS:
+        problem(f"path train-lm-{arch}: kernel 13 / 13b launched "
+                f"{launches['flash_attention']} / "
+                f"{launches['flash_attention_bwd']} times over "
+                f"{FAMILY_STEPS} steps, expected {2 * n} / {n} a step")
+    check_launches(f"train-lm-{arch}", launches,
+                   ["flash_attention", "flash_attention_bwd"] if moe else [],
+                   [k for k in wrappers if not k.startswith("flash")
+                    or not moe])
+    if any(plain.values()):
+        problem(f"path train-lm-{arch}: plain versions ran on the card: "
+                f"{plain}")
+    del lm, params, models[:]
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -3546,6 +4058,30 @@ def main() -> None:
             ("train-lm-fp32-depth2", lambda: train_lm_fp32_path(wrappers)),
             (f"train-lm-{LM_ARCH}", lambda: train_lm_path(wrappers,
                                                           ckpt_dir))):
+        t = time.perf_counter()
+        launches = run()
+        for k, v in launches.items():
+            total[k] += v
+        log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+
+    # the MoE and SSM families: granite at full depth, moonshot at 8 of its
+    # 48 layers (its fp32 weights would not fit at full depth), mamba2
+    moe_a, moe_b, ssm = ("granite-moe-1b-a400m", "moonshot-v1-16b-a3b",
+                         "mamba2-1.3b")
+    for name, run in (
+            (f"serve-lm-{moe_a}",
+             lambda: serve_lm_moe_path(f"serve-lm-{moe_a}", moe_a, None,
+                                       wrappers)),
+            (f"serve-lm-{moe_b}-depth8",
+             lambda: serve_lm_moe_path(f"serve-lm-{moe_b}-depth8", moe_b, 8,
+                                       wrappers)),
+            (f"serve-lm-{ssm}", lambda: serve_lm_ssm_path(wrappers)),
+            ("lm-families-fp32-depth2",
+             lambda: lm_families_fp32_path(wrappers)),
+            (f"train-lm-{moe_a}", lambda: train_lm_family_path(moe_a,
+                                                               wrappers)),
+            (f"train-lm-{ssm}", lambda: train_lm_family_path(ssm,
+                                                             wrappers))):
         t = time.perf_counter()
         launches = run()
         for k, v in launches.items():

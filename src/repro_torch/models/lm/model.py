@@ -1,15 +1,19 @@
-"""The LM for the dense family (qwen3, minitron, minicpm) as an ``nn.Module``.
+"""The LM for the dense (qwen3, minitron, minicpm), MoE (granite,
+moonshot) and SSM (mamba2) families as an ``nn.Module``.
 
 Port of ``repro/models/lm/model.py``.  The weights follow the reference's
 template: stacked per-layer tensors (``layers.wq`` is (L, d, H, hd)),
 stored in fp32 and cast to ``cfg.dtype`` where the reference casts them
-(``_attn_args``, the FFN weights).  The functions take the parameter tree
-``params`` (``lm.params()``: nested dicts of the module's tensors) as the
-reference's pure functions do, so the two packages compare call for call.
-The layer scan is a Python loop over the layer index.  ``loss`` is the
-training objective (chunked CE + 0.01 aux); with ``cfg.remat`` each layer
-body is recomputed in the backward under ``cfg.remat_policy``
-(:func:`_maybe_remat`).  Other families wait (ROADMAP.md §1 item 6).
+(``_attn_args``, the FFN, expert and SSM projection weights).  The
+functions take the parameter tree ``params`` (``lm.params()``: nested
+dicts of the module's tensors) as the reference's pure functions do, so
+the two packages compare call for call.  The layer scan is a Python loop
+over the layer index; the MoE body carries (x, aux) from layer to layer.
+``loss`` is the training objective (chunked CE + 0.01 aux); with
+``cfg.remat`` each layer body is recomputed in the backward under
+``cfg.remat_policy`` (:func:`_maybe_remat`).  The MoE FFN is the
+reference's single-shard path (every expert on the device).  The hybrid
+(zamba2), VLM and audio families wait (ROADMAP.md §1 item 6).
 """
 
 from __future__ import annotations
@@ -27,11 +31,14 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.lm import attention as attn
 from repro_torch.models.lm import ffn as ffn_mod
+from repro_torch.models.lm import mamba2 as m2
 from repro_torch.models.lm.common import (PSpec, cross_entropy_chunked,
                                           init_params, pad_heads, pad_vocab,
                                           rms_norm)
 
 Params = Dict[str, Any]
+
+FAMILIES = ("dense", "moe", "ssm")
 
 
 def layer_list(params: Params):
@@ -89,17 +96,20 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ArchConfig, tp: int = 1, *, device="cuda"):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r}: the port has the dense LM only; "
-                f"the moe / ssm / hybrid / vlm / audio families wait "
+                f"family {cfg.family!r}: the port has the dense, moe and "
+                f"ssm LMs; the hybrid / vlm / audio families wait "
                 f"(ROADMAP.md §1 item 6)")
         # "meta" builds the module's shapes without allocating them
         dev = (torch.device("meta") if str(device) == "meta"
                else resolve_device(device))
         self.cfg = cfg
         self.tp = tp
-        self.h_pad, self.kv_pad = pad_heads(cfg.n_heads, cfg.n_kv, tp)
+        if cfg.family == "ssm":
+            self.h_pad, self.kv_pad = 0, 0
+        else:
+            self.h_pad, self.kv_pad = pad_heads(cfg.n_heads, cfg.n_kv, tp)
         self.v_pad = pad_vocab(cfg.vocab, tp)
         self.dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                       else torch.float32)
@@ -140,6 +150,42 @@ class LM(nn.Module):
                 "w_up": PSpec((n, c.d_model, c.d_ff), (None, "embed", "mlp")),
                 "w_down": PSpec((n, c.d_ff, c.d_model), (None, "mlp", "embed"))}
 
+    def _moe_tmpl(self, n: int) -> Dict[str, PSpec]:
+        c = self.cfg
+        return {
+            "router": PSpec((n, c.d_model, c.n_experts), (None, "embed", None)),
+            "w_gate": PSpec((n, c.n_experts, c.d_model, c.d_ff),
+                            (None, "experts", "embed", None)),
+            "w_up": PSpec((n, c.n_experts, c.d_model, c.d_ff),
+                          (None, "experts", "embed", None)),
+            "w_down": PSpec((n, c.n_experts, c.d_ff, c.d_model),
+                            (None, "experts", None, "embed")),
+        }
+
+    def _ssm_tmpl(self, n: int) -> Dict[str, PSpec]:
+        c = self.cfg
+        d, di = c.d_model, c.ssm_expand * c.d_model
+        nst, h = c.ssm_state, (c.ssm_expand * c.d_model) // c.ssm_head_dim
+        k = m2.CONV_K
+        return {
+            "z_proj": PSpec((n, d, di), (None, "embed", "mlp")),
+            "x_proj": PSpec((n, d, di), (None, "embed", "mlp")),
+            "b_proj": PSpec((n, d, nst), (None, "embed", None)),
+            "c_proj": PSpec((n, d, nst), (None, "embed", None)),
+            "dt_proj": PSpec((n, d, h), (None, "embed", "ssm_heads")),
+            "dt_bias": PSpec((n, h), (None, "ssm_heads"), "zeros"),
+            "conv_x_w": PSpec((n, k, di), (None, None, "mlp"), "normal", 0.1),
+            "conv_x_b": PSpec((n, di), (None, "mlp"), "zeros"),
+            "conv_b_w": PSpec((n, k, nst), (None, None, None), "normal", 0.1),
+            "conv_b_b": PSpec((n, nst), (None, None), "zeros"),
+            "conv_c_w": PSpec((n, k, nst), (None, None, None), "normal", 0.1),
+            "conv_c_b": PSpec((n, nst), (None, None), "zeros"),
+            "a_log": PSpec((n, h), (None, "ssm_heads"), "zeros"),
+            "d_skip": PSpec((n, h), (None, "ssm_heads"), "ones"),
+            "ssd_norm": PSpec((n, di), (None, "mlp"), "ones"),
+            "out_proj": PSpec((n, di, d), (None, "mlp", "embed")),
+        }
+
     def _norms(self, n: int, names) -> Dict[str, PSpec]:
         return {k: PSpec((n, self.cfg.d_model), (None, None), "ones")
                 for k in names}
@@ -152,9 +198,17 @@ class LM(nn.Module):
         }
         if not c.tie_embeddings:
             t["out_w"] = PSpec((c.d_model, self.v_pad), ("embed", "vocab"))
-        t["layers"] = {**self._attn_tmpl(c.n_layers),
-                       **self._ffn_tmpl(c.n_layers),
-                       **self._norms(c.n_layers, ("ln1", "ln2"))}
+        if c.family == "dense":
+            t["layers"] = {**self._attn_tmpl(c.n_layers),
+                           **self._ffn_tmpl(c.n_layers),
+                           **self._norms(c.n_layers, ("ln1", "ln2"))}
+        elif c.family == "moe":
+            t["layers"] = {**self._attn_tmpl(c.n_layers),
+                           **self._moe_tmpl(c.n_layers),
+                           **self._norms(c.n_layers, ("ln1", "ln2"))}
+        else:
+            t["layers"] = {**self._ssm_tmpl(c.n_layers),
+                           **self._norms(c.n_layers, ("ln",))}
         return t
 
     # ------------------------------------------------------------------
@@ -226,6 +280,28 @@ class LM(nn.Module):
         x = x + f
         return (x, kv) if kv_out else x
 
+    def _moe_body(self, xa, lp, *, kv_out: bool = False):
+        x, aux = xa
+        c = self.cfg
+        h = attn.attention_block(rms_norm(x, lp["ln1"]),
+                                 return_kv=kv_out, **self._attn_args(lp))
+        kv = None
+        if kv_out:
+            h, kv = h
+        x = x + h
+        f, aux_l = ffn_mod.moe_ffn(rms_norm(x, lp["ln2"]), lp["router"],
+                                   lp["w_gate"].to(self.dtype),
+                                   lp["w_up"].to(self.dtype),
+                                   lp["w_down"].to(self.dtype),
+                                   n_experts=c.n_experts, top_k=c.top_k,
+                                   capacity_factor=c.capacity_factor)
+        x = x + f
+        return ((x, aux + aux_l), kv) if kv_out else (x, aux + aux_l)
+
+    def _ssm_body(self, x, lp):
+        h, _ = m2.mamba2_block(rms_norm(x, lp["ln"]), lp, self.cfg)
+        return x + h
+
     # ------------------------------------------------------------------
     # forward: tokens -> final hidden
     # ------------------------------------------------------------------
@@ -238,11 +314,18 @@ class LM(nn.Module):
         remat when ``cfg.remat``."""
         c = self.cfg
         x = self._embed(params, tokens)
-        body = _maybe_remat(self._dense_body, c.remat, c.remat_policy)
-        for lp in layer_list(params):
-            x = body(x, lp)
-        return (rms_norm(x, params["final_norm"]),
-                torch.zeros((), dtype=torch.float32, device=x.device))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if c.family == "moe":
+            body = _maybe_remat(self._moe_body, c.remat, c.remat_policy)
+            for lp in layer_list(params):
+                x, aux = body((x, aux), lp)
+        else:
+            body = _maybe_remat(self._dense_body if c.family == "dense"
+                                else self._ssm_body, c.remat,
+                                c.remat_policy)
+            for lp in layer_list(params):
+                x = body(x, lp)
+        return rms_norm(x, params["final_norm"]), aux
 
     # ------------------------------------------------------------------
     # loss

@@ -8,7 +8,12 @@ tokens left the model's prediction is discarded and the next prompt token
 is fed (ragged prefill-by-decode), so requests of different lengths join
 and leave the batch at any step.  Finished slots are freed and refilled
 from the queue.  The engine runs no prefill, so it never launches the
-flash-attention kernel.
+flash-attention kernel.  It serves the dense and MoE families (a MoE step
+caps over all B slots, inactive ones feeding token 0, as the reference's
+does).  A family with a recurrent cache (SSM) raises: the reference
+admits a request into a slot without resetting the slot's cache, and an
+SSM decode ignores the position, so a reused slot would continue the
+previous request's state (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -42,6 +47,12 @@ class Request:
 class ServeEngine:
     def __init__(self, lm: LM, params, *, max_batch: int, s_max: int,
                  sample: Optional[Callable] = None, device="cuda"):
+        if lm.cfg.family not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"ServeEngine over the {lm.cfg.family!r} family: a reused "
+                f"slot would keep the previous request's recurrent state "
+                f"(ROADMAP.md §3); serve it with models.lm.serve.prefill / "
+                f"decode_step")
         dev = resolve_device(device)
         if lm.device != dev:
             raise ValueError(f"model on {lm.device}, engine on {dev}; "

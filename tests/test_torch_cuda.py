@@ -5,7 +5,8 @@ trainer, the dense-SpMM trainer, the serial per-bucket trainer and the
 homogeneous baselines), the concurrent relation modules against the
 sequential ones, the flash-attention kernel (fp32 and bf16, k/v at
 KV <= H heads, up to S 4,096) and the reduced dense LM (prefill, decode,
-``ServeEngine``) on the card against the CPU, kernel 13b (the flash
+``ServeEngine``) and the reduced MoE and SSM LMs (prefill, decode, a train
+step) on the card against the CPU, kernel 13b (the flash
 backward) against its plain version, bit-equal across two bf16 launches
 and refusing a misaligned view, the forward's log-sum-exp, autograd
 through ``chunked_attention`` and two LM training steps against the CPU,
@@ -1512,6 +1513,59 @@ def test_lm_bf16_prefill_on_card(cuda):
     assert cache["k"].dtype == torch.bfloat16 and torch.isfinite(lp).all()
     _, ld = lm_serve.decode_step(lm, lm.params(), cache, tok[:, -1:], 63)
     _rel_close(ld, lp, 5e-2)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "moonshot-v1-16b-a3b", "mamba2-1.3b"])
+def test_lm_family_on_card_matches_cpu(cuda, arch):
+    """The reduced MoE and SSM LMs in fp32 from the same weights: prefill
+    (kernel 13 once a layer for MoE, never for SSM), three decode steps
+    (no launch) and one ``make_train_step`` step (MoE: kernel 13 twice a
+    layer, 13b once) within 1e-4 relative L2 of the CPU, the same greedy
+    tokens."""
+    cfg = reduced(get_config(arch))
+    lm = build_lm(cfg, device=cuda)
+    lm.init(torch.Generator(cuda).manual_seed(0))
+    cpu = build_lm(cfg, device="cpu")
+    cpu.load_state_dict(lm.state_dict())
+    n = cfg.n_layers if cfg.family == "moe" else 0
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 32)))
+    f0 = flash_attention.flash_attention.launches
+    c_gpu, l_gpu = lm_serve.prefill(lm, lm.params(), tok.to(cuda))
+    c_cpu, l_cpu = lm_serve.prefill(cpu, cpu.params(), tok)
+    _rel_close(l_gpu, l_cpu)
+    for k in c_cpu:
+        _rel_close(c_gpu[k], c_cpu[k])
+    for step in range(3):
+        t = tok[:, step:step + 1]
+        c_gpu, l_gpu = lm_serve.decode_step(lm, lm.params(), c_gpu,
+                                            t.to(cuda), 31 - step)
+        c_cpu, l_cpu = lm_serve.decode_step(cpu, cpu.params(), c_cpu, t,
+                                            31 - step)
+        _rel_close(l_gpu, l_cpu)
+        assert torch.equal(l_gpu.argmax(-1).cpu(), l_cpu.argmax(-1))
+    assert flash_attention.flash_attention.launches - f0 == n
+    batch = {k: torch.from_numpy(v.astype(np.int64)) for k, v in
+             TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                      global_batch=2)).global_batch(0).items()}
+    out = {}
+    for model, dev in ((lm, cuda), (cpu, "cpu")):
+        state = lm_step.TrainState(model.params(),
+                                   adamw_init(model.params()))
+        f0 = flash_attention.flash_attention.launches
+        b0 = flash_attention.flash_attention_bwd.launches
+        _, m = lm_step.make_train_step(model, lr=1e-3, total_steps=10)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        out[str(dev)] = (m, state)
+        if dev != "cpu":
+            assert flash_attention.flash_attention.launches - f0 == 2 * n
+            assert flash_attention.flash_attention_bwd.launches - b0 == n
+    (m_gpu, s_gpu), (m_cpu, s_cpu) = out[str(cuda)], out["cpu"]
+    _rel_close(m_gpu["loss"], m_cpu["loss"])
+    _rel_close(m_gpu["grad_norm"], m_cpu["grad_norm"])
+    for a, b in zip(tree_leaves(s_gpu.params), tree_leaves(s_cpu.params)):
+        _rel_close(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,8 @@ from repro_torch.serve.engine import ServeEngine
 from _torch_port import assert_close
 
 DENSE = ("qwen3-0.6b", "qwen3-1.7b", "minitron-4b", "minicpm-2b")
+# the MoE and SSM families
+FAMILIES = ("granite-moe-1b-a400m", "moonshot-v1-16b-a3b", "mamba2-1.3b")
 BF16_RTOL = 2.0 ** -7
 
 
@@ -66,7 +68,7 @@ def test_configs_match_reference(arch):
         {k: dataclasses.astuple(v) for k, v in jbase.SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + FAMILIES)
 @pytest.mark.parametrize("tp", [1, 16])
 def test_templates_match_reference(arch, tp):
     """Full size, compared as specs and as the module's (meta) tensors."""
@@ -87,8 +89,7 @@ def test_templates_match_reference(arch, tp):
         (ref.h_pad, ref.kv_pad, ref.v_pad)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "granite-moe-1b-a400m",
-                                  "zamba2-1.2b", "whisper-large-v3",
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-large-v3",
                                   "llama-3.2-vision-90b"])
 def test_other_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -352,4 +353,105 @@ def test_bf16_prefill_close_to_reference():
     assert c["k"].dtype == torch.bfloat16 and lg.dtype == torch.float32
     assert _rel_l2(lg.numpy(), jl) < 5e-2
     _, ld = serve.decode_step(lm, lm.params(), c, _t(tokens[:, -1:]).long(), 15)
+    assert torch.isfinite(ld).all()
+
+
+# ---------------------------------------------------------------------------
+# the reduced MoE and SSM LMs with the reference's weights
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=FAMILIES)
+def fam(request):
+    jlm = j_build_lm(jbase.reduced(jbase.get_config(request.param)))
+    jp = jlm.init(jax.random.PRNGKey(0))
+    lm = LM.from_jax_params(tbase.reduced(tbase.get_config(request.param)),
+                            jax.tree.map(np.asarray, jp), device="cpu")
+    tokens = np.random.default_rng(1).integers(
+        0, lm.cfg.vocab, (2, 32)).astype(np.int32)
+    return jlm, jp, lm, lm.params(), tokens
+
+
+def test_family_from_jax_params_carries_weights(fam):
+    jlm, jp, lm, p, _ = fam
+    assert set(p["layers"]) == set(jp["layers"])
+    for k, v in p["layers"].items():
+        np.testing.assert_array_equal(v.detach().numpy(), jp["layers"][k])
+
+
+def test_family_forward_matches_reference(fam):
+    """Hidden states and the aux loss (MoE: the layers' load-balance sum;
+    SSM: 0)."""
+    jlm, jp, lm, p, tokens = fam
+    ref, ref_aux = jlm.forward(jp, jnp.asarray(tokens))
+    with torch.no_grad():
+        out, aux = lm(p, _t(tokens).long())
+    assert_close(out.numpy(), np.asarray(ref))
+    assert_close(aux.numpy(), np.asarray(ref_aux))
+    assert (float(aux) > 0) == (lm.cfg.family == "moe")
+
+
+def test_family_cache_template_matches_reference(fam):
+    jlm, jp, lm, p, _ = fam
+    ref = jserve.cache_template(jlm, 3, 24)
+    ours = serve.cache_template(lm, 3, 24)
+    assert {k: v[:2] for k, v in ours.items()} == \
+        {k: v[:2] for k, v in ref.items()}
+    assert {k: str(v[2])[6:] for k, v in ours.items()} == \
+        {k: np.dtype(v[2]).name for k, v in ref.items()}
+    zeros = serve.cache_zeros(lm, 3, 24)
+    assert all(tuple(t.shape) == ref[k][0] and not t.any()
+               for k, t in zeros.items())
+
+
+def test_family_prefill_matches_reference(fam):
+    jlm, jp, lm, p, tokens = fam
+    jc, jl = jserve.prefill(jlm, jp, jnp.asarray(tokens))
+    c, lg = serve.prefill(lm, p, _t(tokens).long())
+    assert lg.shape == jl.shape and set(c) == set(jc)
+    assert_close(lg.numpy(), np.asarray(jl))
+    for k in c:
+        assert c[k].shape == jc[k].shape, k
+        assert_close(c[k].numpy(), np.asarray(jc[k]), k)
+
+
+@pytest.mark.parametrize("vector", [False, True])
+def test_family_decode_step_matches_reference(fam, vector):
+    """Three decode steps after the prefill (a scalar position, or every
+    slot at its own), logits and the whole cache after each (the port
+    writes it in place)."""
+    jlm, jp, lm, p, tokens = fam
+    jc, _ = jserve.prefill(jlm, jp, jnp.asarray(tokens))
+    c, _ = serve.prefill(lm, p, _t(tokens).long())
+    for step in range(3):
+        tok = tokens[:, step:step + 1]
+        pos = (np.array([31 - step, 5 + step], np.int32) if vector
+               else np.int32(31 - step))
+        jc, jl = jserve.decode_step(jlm, jp, jc, jnp.asarray(tok),
+                                    jnp.asarray(pos))
+        c2, lg = serve.decode_step(lm, p, c, _t(tok).long(),
+                                   _t(pos).long() if vector else int(pos))
+        assert c2 is c
+        assert_close(lg.numpy(), np.asarray(jl), f"step {step}")
+        for k in c:
+            assert_close(c[k].numpy(), np.asarray(jc[k]), f"step {step} {k}")
+
+
+def test_family_bf16_prefill_close_to_reference(fam):
+    """bf16 end to end: logits within 5e-2 relative L2 of the reference's
+    bf16 prefill (the frameworks round at other places), decode finite."""
+    _, jp, _, _, tokens = fam
+    arch = fam[2].cfg.name
+    jlm = j_build_lm(dataclasses.replace(
+        jbase.reduced(jbase.get_config(arch)), dtype="bfloat16"))
+    lm = LM.from_jax_params(dataclasses.replace(
+        tbase.reduced(tbase.get_config(arch)), dtype="bfloat16"),
+        jax.tree.map(np.asarray, jp), device="cpu")
+    jc, jl = jserve.prefill(jlm, jp, jnp.asarray(tokens))
+    c, lg = serve.prefill(lm, lm.params(), _t(tokens).long())
+    assert lg.dtype == torch.float32
+    assert {k: v.dtype for k, v in c.items()} == {
+        k: torch.float32 if k == "state" else torch.bfloat16 for k in c}
+    assert _rel_l2(lg.numpy(), jl) < 5e-2
+    _, ld = serve.decode_step(lm, lm.params(), c, _t(tokens[:, -1:]).long(),
+                              31)
     assert torch.isfinite(ld).all()

@@ -141,11 +141,11 @@ def test_checkpoint_copies_at_save(tmp_path):
     assert torch.equal(out["w"], torch.ones(1000))
 
 
-def _states():
-    """The reference's and the port's train state of the reduced
-    qwen3-0.6b holding the same numbers (one AdamW step apart from zero
-    moments, so m, v and step are not trivial)."""
-    jc = jbase.reduced(jbase.get_config("qwen3-0.6b"))
+def _states(arch="qwen3-0.6b"):
+    """The reference's train state of a reduced config after one AdamW
+    step (so m, v and step are not trivial) and a fresh port state of the
+    same config."""
+    jc = jbase.reduced(jbase.get_config(arch))
     jlm = j_build_lm(jc)
     params = jlm.init(jax.random.PRNGKey(1))
     step_fn = jax.jit(jstep.make_train_step(jlm, lr=1e-3, total_steps=10))
@@ -153,7 +153,7 @@ def _states():
                                              global_batch=2)).global_batch(0)
     j_state, _ = step_fn(jstep.TrainState(params, j_adamw_init(params)),
                          {k: jnp.asarray(v) for k, v in b.items()})
-    lm = LM(tbase.reduced(tbase.get_config("qwen3-0.6b")), device="cpu")
+    lm = LM(tbase.reduced(tbase.get_config(arch)), device="cpu")
     t_state = lm_step.TrainState(lm.params(), adamw_init(lm.params()))
     return j_state, t_state
 
@@ -200,6 +200,26 @@ def test_port_checkpoint_restores_into_reference_state(tmp_path):
     _assert_states_equal(j_restore(str(tmp_path / "port"), 1, like), t_state)
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-1.3b"])
+def test_family_checkpoint_crosses_packages(tmp_path, arch):
+    """A MoE (router, stacked experts) and an SSM train state: the
+    reference's checkpoint restores into the port's state leaf for leaf,
+    the port writes the reference's file set, and the reference restores
+    the port's."""
+    j_state, t_state = _states(arch)
+    j_save(str(tmp_path / "ref"), 1, j_state)
+    restored = restore_checkpoint(str(tmp_path / "ref"), 1, t_state)
+    _assert_states_equal(j_state, restored)
+    save_checkpoint(str(tmp_path / "port"), 1, restored)
+    leaves = lambda d: json.loads((tmp_path / d / "step_1" /
+                                   "manifest.json").read_text())["leaves"]
+    assert leaves("port") == leaves("ref")
+    like = jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype),
+                        j_state)
+    _assert_states_equal(j_restore(str(tmp_path / "port"), 1, like),
+                         restored)
+
+
 def test_bf16_leaves_cross_packages(tmp_path):
     """bf16 leaves round-trip between the packages through the raw bytes
     (the port has no ml_dtypes: a 16-bit integer view)."""
@@ -227,6 +247,18 @@ def test_lm_training_loss_decreases():
                          "--device", "cpu"])
     assert len(losses) == 30 and np.isfinite(losses).all()
     assert np.mean(losses[-6:]) < np.mean(losses[:6])
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-1.3b"])
+def test_family_training_loss_decreases(arch):
+    """``launch.train.main --reduced`` trains the MoE and the SSM families:
+    10 steps at lr 3e-3 (seeded weights and batches), finite losses whose
+    last three average below the first three."""
+    losses = train_main(["--arch", arch, "--reduced", "--steps", "10",
+                         "--batch", "4", "--seq", "64", "--lr", "3e-3",
+                         "--log-every", "100", "--device", "cpu"])
+    assert len(losses) == 10 and np.isfinite(losses).all()
+    assert np.mean(losses[-3:]) < np.mean(losses[:3])
 
 
 def test_lm_checkpoint_restart_continues(tmp_path):

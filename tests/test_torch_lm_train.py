@@ -1,7 +1,8 @@
-"""The port's dense-LM training against the reference, on the CPU.
+"""The port's LM training against the reference, on the CPU.
 
-From the reduced qwen3-0.6b and minicpm-2b configs (tied embeddings, WSD)
-with the reference's weights carried by ``LM.from_jax_params`` and
+From the reduced qwen3-0.6b and minicpm-2b configs (tied embeddings, WSD),
+and the MoE (granite, moonshot: the 0.01 aux term) and SSM (mamba2)
+families, with the reference's weights carried by ``LM.from_jax_params`` and
 batches from the token pipeline (numpy, the same arrays on both sides):
 
 * ``cross_entropy_chunked``'s value and its ``jax.vjp`` gradients (one
@@ -44,6 +45,9 @@ from repro_torch.train import lm_step
 from _torch_port import assert_close
 
 SEQ, BATCH = 64, 2
+# every trained family: dense (untied, tied + WSD), MoE, SSM
+ARCHS = ("qwen3-0.6b", "minicpm-2b", "granite-moe-1b-a400m",
+         "moonshot-v1-16b-a3b", "mamba2-1.3b")
 
 
 def _rel(a, b):
@@ -136,7 +140,7 @@ def test_cross_entropy_chunked_keeps_no_logits():
 # LM.loss and its gradients
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "minicpm-2b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_grads_match_reference_fp32(arch):
     """fp32: loss within 1e-5, every gradient within 1e-4 relative L2
     (minicpm ties ``embed`` to ``out_w``: both paths feed its gradient)."""
@@ -152,7 +156,7 @@ def test_loss_and_grads_match_reference_fp32(arch):
         assert _rel(g, ref_g[n]) <= 1e-4, (n, _rel(g, ref_g[n]))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "minicpm-2b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_grads_match_reference_bf16(arch):
     """bf16 (the module docstring states the limits): the port's bf16 is as
     far from the fp32 gradient as the reference's bf16 is."""
@@ -170,16 +174,19 @@ def test_loss_and_grads_match_reference_bf16(arch):
         assert ours <= 1.25 * theirs + 5e-3, (n, ours, theirs)
 
 
-def test_remat_policies_change_no_number():
-    """remat off, ``full``, ``dots`` and ``proj`` on the reduced qwen3-0.6b:
-    the same loss and gradients, bit for bit."""
-    _, params, _ = _pair("qwen3-0.6b")
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-1b-a400m",
+                                  "mamba2-1.3b"])
+def test_remat_policies_change_no_number(arch):
+    """remat off, ``full``, ``dots`` and ``proj`` on the reduced qwen3-0.6b,
+    granite (the (x, aux) carry recomputed: the same routing and keep set)
+    and mamba2: the same loss and gradients, bit for bit."""
+    _, params, _ = _pair(arch)
     b = _batch(512)
     out = {}
     for remat, policy in ((False, "full"), (True, "full"), (True, "dots"),
                           (True, "proj")):
         cfg = dataclasses.replace(tbase.reduced(tbase.get_config(
-            "qwen3-0.6b")), remat=remat, remat_policy=policy)
+            arch)), remat=remat, remat_policy=policy)
         out[(remat, policy)] = _port_loss_grads(
             LM.from_jax_params(cfg, params, device="cpu"), b)
     base_l, base_g = out[(False, "full")]
@@ -223,7 +230,7 @@ def test_remat_policies_save_what_they_name(monkeypatch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("grad_accum", [1, 2])
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "minicpm-2b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_train_steps_match_reference(arch, grad_accum):
     """3 steps (lr 1e-3, 10 total: cosine warmup, or minicpm's WSD) against
     the reference's jitted step from the same weights and batches; step 1
@@ -283,8 +290,7 @@ def test_abstract_state_and_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm_step.train_state_shardings(lm, None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(tbase.reduced(tbase.get_config("granite-moe-1b-a400m")),
-           device="cpu")
+        LM(tbase.reduced(tbase.get_config("zamba2-1.2b")), device="cpu")
 
 
 def test_init_state_and_serve_steps():
