@@ -125,17 +125,48 @@ weights from a seed, bf16):
     fp32 prefill of the same weights);
 24. ``lm-families-fp32-depth2``: each of the three at 2 layers, fp32:
     prefill + 8 decode steps, loss, gradients and one ``make_train_step``
-    step against the port's CPU from the same weights (1e-4 / 1e-5 /
-    1e-4), the MoE top-k expert sets equal on both; mamba2's teacher
-    forcing over 64 decode steps in fp32;
+    step (the updated parameters against the CPU's AdamW on the card's
+    gradients and against the CPU's whole step) against the port's CPU
+    from the same weights (1e-4 / 1e-5 / 1e-4), the MoE top-k expert sets
+    equal on both; mamba2's teacher forcing over 64 decode steps in fp32;
 25. ``train-lm-granite-moe-1b-a400m`` and 26. ``train-lm-mamba2-1.3b``:
     ``launch.train.main`` at full depth, bf16, remat ``full``, B 4 x S
     1,024, 4 steps: finite losses, the first near ln V; granite 48
     launches of kernel 13 and 24 of 13b a step, mamba2 none; step p50,
     tokens/s, peak memory, a forward+backward breakdown by stage.
 
-Every kernel's launch count is zeroed just before each path and read just
-after; a kernel that the path should run and did not, or one it must not
+and serves and trains the hybrid, audio and VLM families (random weights
+from a seed, bf16; the served and fp32 models with the VLM's cross gates
+and whisper's GELU biases drawn nonzero); ``kernel-flash`` and ``flash-bwd`` also hold kernels 13 / 13b
+at the non-causal shapes these give them (``CROSS_SHAPES``: whisper's
+encoder 1,500 x 1,500 and decoder 448 x 1,500 at hd 64, the VLM's 1,024 x
+1,600 at hd 128 and 64/8 heads; bf16 and fp32), and ``flash-cross`` times
+them beside SDPA and its backward:
+
+27. ``serve-lm-zamba2-1.2b``: 38 layers, the shared block 7 times (6
+    groups of 6 SSM layers and a tail of 2): 4 x 1,008 tokens padded to
+    1,024, 7 launches of kernel 13 in the prefill, 16 greedy steps (none),
+    teacher forcing (a 192-token prefill in a 256-slot cache, decode
+    steps over tokens 192-255, against the 256-token prefill);
+28. ``serve-lm-whisper-large-v3``: 32 + 32 layers over seeded frames of 4
+    x 1,500 x 1,280, 432 prompt tokens padded to the 448-token context:
+    96 launches in the prefill (32 encoder, 32 self, 32 cross);
+29. ``serve-lm-llama-3.2-vision-90b-depth5``: full width at 5 of 100
+    layers (4 self + 1 cross) over 1,600 seeded image tokens, 4 x 1,008
+    tokens padded to 1,024: 5 launches in the prefill;
+30. ``lm-hybrid-cross-fp32``: zamba2 at depth 8 (the shared block twice),
+    whisper at 2 + 2 layers and the VLM at depth 5 cut in width
+    (``VLM_CPU_CUT``), fp32: the checks of ``lm-families-fp32-depth2``,
+    by the same function (``lm_fp32_path``), with seeded frames / image
+    tokens;
+31. ``train-lm-zamba2-1.2b``: ``launch.train.main``, 38 layers, B 4 x S
+    1,024, 4 steps, 7 / 7 launches of kernels 13 / 13b a step;
+32. ``train-lm-whisper-large-v3``: ``launch.train.main`` at B 4 x S 448,
+    its zero frames replaced by seeded ones, 4 steps, 192 / 96 launches a
+    step.
+
+Every parameter count is taken from the model's leaves.  Every kernel's
+launch count is zeroed just before each path and read just after; a kernel that the path should run and did not, or one it must not
 run and did, fails the run.  Every
 served prediction is compared with the port's CPU forward of the same
 graph and weights; every training step's loss, and the first step's
@@ -1573,7 +1604,21 @@ def flash_cases(q, k, v):
                                                 dtype=torch.bfloat16),
                   *(rnd(1, 4096, n_kv, hd, dtype=torch.bfloat16)
                     for _ in range(2)), True))
+    for label, (bq, sq, sk, hq, n_kv_, d) in CROSS_SHAPES.items():
+        for dt in (torch.bfloat16, torch.float32):
+            cases.append((f"{label} {str(dt)[6:]} full", rnd(bq, sq, hq, d,
+                                                             dtype=dt),
+                          *(rnd(bq, sk, n_kv_, d, dtype=dt)
+                            for _ in range(2)), False))
     return cases
+
+
+# the non-causal shapes of the hybrid / audio / VLM paths (B, Sq, Sk, H, KV,
+# hd): whisper's encoder over its 1,500 frames, its decoder's 448 tokens
+# against them, the VLM's 1,024 tokens against 1,600 image tokens
+CROSS_SHAPES = {"whisper encoder": (4, 1500, 1500, 20, 20, 64),
+                "whisper cross": (4, 448, 1500, 20, 20, 64),
+                "VLM cross": (4, 1024, 1600, 64, 8, 128)}
 
 
 def bf16_limit(ref):
@@ -1894,6 +1939,13 @@ def bwd_cases(q, k, v):
                           rnd(b, sq, h, hd, dtype=dt),
                           rnd(b, sk, n_kv, hd, dtype=dt),
                           rnd(b, sk, n_kv, hd, dtype=dt), causal, off))
+    for label, (bq, sq, sk, h, n_kv, hd) in CROSS_SHAPES.items():
+        for dt in (torch.bfloat16, torch.float32):
+            cases.append((f"{label} {str(dt)[6:]} B{bq} Sq{sq} Sk{sk} H{h} "
+                          f"KV{n_kv} hd{hd} full",
+                          rnd(bq, sq, h, hd, dtype=dt),
+                          rnd(bq, sk, n_kv, hd, dtype=dt),
+                          rnd(bq, sk, n_kv, hd, dtype=dt), False, 0))
     cases.append(("prefill bf16 causal", q, k, v, True, 0))
     return cases
 
@@ -2030,6 +2082,68 @@ def check_flash_bwd_kernel(q, k, v, wrappers):
         f"{10.0 * hd * b * h * (s * (s + 1) // 2) / row['ms'] / 1e9:.1f} "
         f"TFLOP/s on the 5 causal products [{CARD}]")
     return row
+
+
+def flash_cross_times():
+    """Kernels 13 and 13b at the non-causal ``CROSS_SHAPES`` in bf16 (the
+    shapes the hybrid, audio and VLM paths give them; checked against the
+    plain versions in ``kernel-flash`` and ``flash-bwd``): each timed by
+    events queued behind a sleep beside the plain version and
+    ``scaled_dot_product_attention`` (non-causal; k/v tiled to the q heads
+    outside the timed call) and its backward, with the bound of each: the
+    bytes read and written once, the products over the whole Sq x Sk
+    (2 for 13, 5 for 13b) at the bf16 tensor-core peak."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.lm.attention import tile_kv
+    g = torch.Generator("cuda").manual_seed(SEED + 5)
+    out = {}
+    for label, (b, sq, sk, h, n_kv, hd) in CROSS_SHAPES.items():
+        q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
+                       .to(torch.bfloat16)
+                       for shape in ((b, sq, h, hd), (b, sk, n_kv, hd),
+                                     (b, sk, n_kv, hd), (b, sq, h, hd)))
+        o, lse = FA._forward(q, k, v, False, 0, with_lse=True)
+        flops = 4.0 * hd * b * h * sq * sk
+        fwd_bound = bound((2 * h * sq + 2 * n_kv * sk) * b * hd * 2, flops,
+                          H100_BF16_PER_S)
+        bwd_bound = bound((4 * h * sq + 4 * n_kv * sk) * b * hd * 2
+                          + b * h * sq * 4, 2.5 * flops, H100_BF16_PER_S)
+        qt = q.transpose(1, 2).detach().requires_grad_()
+        kt, vt = (tile_kv(t, h).transpose(1, 2).detach().requires_grad_()
+                  for t in (k, v))
+        q_, k_, v_ = (t.detach() for t in (qt, kt, vt))
+        sdpa = lambda: F.scaled_dot_product_attention(q_, k_, v_)
+        ref = F.scaled_dot_product_attention(qt, kt, vt)
+        sdpa_bwd = lambda: torch.autograd.grad(ref, (qt, kt, vt),
+                                               do.transpose(1, 2),
+                                               retain_graph=True)
+        r = dict(
+            fwd_ms=queued_ms(lambda: FA.flash_attention(q, k, v,
+                                                        causal=False)),
+            fwd_plain_ms=queued_ms(lambda: FA.flash_attention_plain(
+                q, k, v, causal=False), reps=3),
+            fwd_sdpa_ms=queued_ms(sdpa), fwd_bound_ms=fwd_bound[0],
+            fwd_bound_by=fwd_bound[1],
+            bwd_ms=queued_ms(lambda: FA.flash_attention_bwd(
+                q, k, v, o, lse, do, causal=False)),
+            bwd_plain_ms=queued_ms(lambda: FA.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal=False), reps=3),
+            bwd_sdpa_ms=queued_ms(sdpa_bwd), bwd_bound_ms=bwd_bound[0],
+            bwd_bound_by=bwd_bound[1])
+        log(f"flash cross {label} (B {b}, Sq {sq}, Sk {sk}, H {h}, KV "
+            f"{n_kv}, hd {hd}, bf16, full): kernel 13 ms={r['fwd_ms']} "
+            f"plain_ms={r['fwd_plain_ms']} SDPA ms={r['fwd_sdpa_ms']} "
+            f"bound_ms={r['fwd_bound_ms']} ({r['fwd_bound_by']}), "
+            f"{flops / r['fwd_ms'] / 1e9:.1f} TFLOP/s; kernel 13b ms="
+            f"{r['bwd_ms']} plain_ms={r['bwd_plain_ms']} SDPA backward ms="
+            f"{r['bwd_sdpa_ms']} bound_ms={r['bwd_bound_ms']} "
+            f"({r['bwd_bound_by']}), {2.5 * flops / r['bwd_ms'] / 1e9:.1f} "
+            f"TFLOP/s (events queued behind a sleep) [{CARD}]")
+        out[label] = r
+        del q, k, v, do, o, lse, qt, kt, vt, q_, k_, v_, ref
+    torch.cuda.empty_cache()
+    return out
 
 
 def count_plain_calls(fa_module):
@@ -2392,19 +2506,31 @@ class StageSpans:
             setattr(mod, name, fn)
 
 
-def family_model(arch, device, dtype=None, n_layers=None, seed=SEED):
+def family_model(arch, device, dtype=None, n_layers=None, seed=SEED,
+                 **over):
     """``build_lm`` of ``arch`` (depth ``n_layers`` if given, ``dtype`` if
-    given) with weights drawn from ``seed`` on ``device``."""
+    given, other fields ``over``) with weights drawn from ``seed`` on
+    ``device``, the template's zero gates and biases drawn too
+    (``draw_zero_inits``: they would leave the cross branches and the
+    biases out)."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.models.lm.model import build_lm
+    from repro_torch.models.lm.model import build_lm, draw_zero_inits
     cfg = get_config(arch)
-    over = {k: v for k, v in (("n_layers", n_layers), ("dtype", dtype))
-            if v is not None}
+    over.update({k: v for k, v in (("n_layers", n_layers), ("dtype", dtype))
+                 if v is not None})
     lm = build_lm(dataclasses.replace(cfg, **over), device=device)
-    lm.init(torch.Generator(device).manual_seed(seed))
+    g = torch.Generator(device).manual_seed(seed)
+    draw_zero_inits(lm.init(g), g)
     return lm
+
+
+def n_params(lm) -> int:
+    """The model's parameter count from its leaves (``param_count()`` is the
+    reference's estimate: for whisper it counts a SwiGLU FFN the audio
+    family does not have)."""
+    return sum(p.numel() for p in lm.parameters())
 
 
 def breakdown_log(name, what, run, labels):
@@ -2583,15 +2709,23 @@ def topk_diff(ids_a, ids_b):
                    .any(-1).sum()) for a, b in zip(ids_a, ids_b))
 
 
-def lm_families_fp32_path(wrappers, n_steps=8):
-    """lm-families-fp32-depth2: granite, moonshot and mamba2 at full width,
-    2 layers, fp32 (TF32 off), from the same weights on the card and on
-    the CPU: the prefill of 2 x 120 tokens padded to 128 and 8 greedy
-    decode steps (logits 1e-4 relative L2), then one ``make_train_step``
-    step at B 2 x S 128: its loss (1e-5 relative), the gradients it hands
-    AdamW and the updated parameters (1e-4 relative L2 a leaf); the MoE top-k expert sets of
-    every routing call equal on both; mamba2 also a 64-token prefill and
-    64 decode steps against the 128-token prefill on the card (1e-4)."""
+def lm_fp32_path(name, models, wrappers, n_steps=8):
+    """``name``: each of ``models`` (``FP32_FAMILIES`` or ``FP32_CROSS``)
+    in fp32 (TF32 off) from the same weights (cross gates and GELU biases
+    nonzero) on the card and on the CPU, with seeded image tokens / frames
+    where the family reads them: the prefill of 2 x 120 tokens padded to
+    128 and 8 greedy decode steps (logits ``FP32_LM_RTOL``, the same
+    tokens), then one ``make_train_step`` step at B 2 x S 128: its loss
+    (1e-5 relative), the gradients it hands AdamW (1e-4 relative L2 a
+    leaf), the parameters it updates against the CPU's AdamW applied to
+    the card's own gradients and against the CPU's whole step (1e-4
+    relative L2 a leaf each; the whole step only logged for
+    ``WHOLE_STEP_LOGGED``); the MoE top-k expert sets of every routing call
+    equal on both.  The CPU's D-ReLU keeps the card's picks
+    (``DreluPins``; its own flipped picks counted and held under
+    ``DRELU_FLIPS`` of the kept entries).  The SSM family also runs a
+    64-token prefill and 64 decode steps against the 128-token prefill on
+    the card (``FP32_LM_RTOL``)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models.lm import serve
     from repro_torch.models.lm.model import build_lm
@@ -2599,26 +2733,29 @@ def lm_families_fp32_path(wrappers, n_steps=8):
     from repro_torch.train import lm_step
     update = lm_step.adamw_update
     total_launches = {k: 0 for k in wrappers}
-    for i, arch in enumerate(("granite-moe-1b-a400m", "moonshot-v1-16b-a3b",
-                              "mamba2-1.3b")):
+    for arch, over, seed in models:
         t0 = time.perf_counter()
-        lm = family_model(arch, "cuda", dtype="float32", n_layers=2,
-                          seed=SEED + 11 + i)
+        lm = family_model(arch, "cuda", dtype="float32", seed=seed, **over)
         cfg = lm.cfg
         cpu = build_lm(cfg, device="cpu")
         cpu.load_state_dict(lm.state_dict())
         prompt, total = 120, 128
-        tokens = lm_tokens(cfg.vocab, 2, prompt, total, SEED + 11 + i)
+        tokens = lm_tokens(cfg.vocab, 2, prompt, total, seed)
+        extra = lm_extras(cfg, 2, "cpu", seed + 3)
         out, ids, launches, plain, secs = {}, {}, None, None, {}
+        pins = DreluPins()
         for model, dev in ((lm, "cuda"), (cpu, "cpu")):
             t1 = time.perf_counter()
             params = model.params()
+            ex = {k: v.to(dev) for k, v in extra.items()}
+            pins.replay = dev == "cpu"
             if dev == "cuda":
                 zero_counts(wrappers)
                 calls, restore = count_plain_calls(FA)
             spans = StageSpans()
             try:
-                cache, logits = serve.prefill(model, params, tokens.to(dev))
+                cache, logits = serve.prefill(model, params, tokens.to(dev),
+                                              ex or None)
                 steps, toks = [logits], []
                 tok = logits[:, -1:, :cfg.vocab].argmax(-1)
                 for j in range(n_steps):
@@ -2634,9 +2771,11 @@ def lm_families_fp32_path(wrappers, n_steps=8):
                     grads.extend(g.detach().clone() for g in g_),
                     update(p_, g_, *a, **kw))
                 state = lm_step.TrainState(params, adamw_init(params))
+                if dev == "cpu":
+                    p0 = [p.detach().clone() for p in tree_leaves(params)]
                 _, metrics = lm_step.make_train_step(
                     model, lr=1e-3, total_steps=10)(
-                        state, lm_batch(cfg.vocab, 128, 2, 0, dev))
+                        state, {**lm_batch(cfg.vocab, 128, 2, 0, dev), **ex})
                 loss = metrics["loss"]
                 if dev == "cuda":
                     torch.cuda.synchronize()
@@ -2645,6 +2784,8 @@ def lm_families_fp32_path(wrappers, n_steps=8):
                 spans.close()
                 if dev == "cuda":
                     restore()
+                else:
+                    pins.close()
             if dev == "cuda":
                 launches, plain = lm_counts(wrappers), dict(calls)
             secs[dev] = round(time.perf_counter() - t1, 1)
@@ -2654,46 +2795,73 @@ def lm_families_fp32_path(wrappers, n_steps=8):
                         [p.detach().cpu() for p in tree_leaves(params)],
                         float(metrics["grad_norm"]))
             del grads, state, params
+        names = list(flat_names(lm.params()))
         (lg_g, tk_g, l_g, g_g, p_g, n_g), (lg_c, tk_c, l_c, g_c, p_c, n_c) = \
             out["cuda"], out["cpu"]
         rels = max(rel_l2(a, b) for a, b in zip(lg_g, lg_c))
         loss_rel = abs(l_g - l_c) / abs(l_c)
-        grad_rel = max(rel_l2(a, b) for a, b in zip(g_g, g_c))
-        par_rel = max(rel_l2(a, b) for a, b in zip(p_g, p_c))
+        grad_rel, grad_at = max((rel_l2(a, b), n)
+                                for a, b, n in zip(g_g, g_c, names))
+        # the CPU's AdamW on the card's gradients, from the same weights
+        p_ref = [p.clone() for p in p0]
+        update(p_ref, g_g, adamw_init(p_ref),
+               lm_step.make_schedule(cfg, 1e-3, 10)(0), weight_decay=0.1,
+               grad_clip=1.0)
+        par_rel, par_at = max((rel_l2(a, b), n)
+                              for a, b, n in zip(p_g, p_ref, names))
+        whole_rel, whole_i = max((rel_l2(a, b), i)
+                                 for i, (a, b) in enumerate(zip(p_g, p_c)))
+        g_small = g_g[whole_i].abs()
+        held = arch not in WHOLE_STEP_LOGGED
+        del p0, p_ref
         diff = topk_diff(ids["cuda"], ids["cpu"])
-        moe = cfg.family == "moe"
-        log(f"path lm-families-fp32-depth2 {arch}: prefill + {n_steps} "
-            f"decode steps: logits rel L2 max {rels} (limit {FP32_LM_RTOL}), "
-            f"greedy tokens equal: {torch.equal(tk_g, tk_c)}; B 2 x S 128: "
-            f"loss card {l_g} CPU {l_c} (rel {loss_rel}, limit 1e-5); "
-            f"gradients rel L2 max {grad_rel} (limit 1e-4); grad norm {n_g} "
-            f"/ {n_c}; one step's parameters rel L2 max {par_rel} (limit "
-            f"1e-4); routing calls {len(ids['cuda'])}, tokens whose top-k "
-            f"expert set differs card vs CPU: {diff}; launches={launches}; "
-            f"plain calls on the card {plain}; card {secs['cuda']} s, CPU "
-            f"{secs['cpu']} s, {time.perf_counter() - t0:.1f} s in all")
-        n = cfg.n_layers if moe else 0
-        # the prefill, then the step's forward and its recompute
-        if launches["flash_attention"] != 3 * n or \
-                launches["flash_attention_bwd"] != n:
-            problem(f"path lm-families-fp32-depth2 {arch}: kernel 13 / 13b "
-                    f"launched {launches['flash_attention']} / "
+        pre = prefill_flash(cfg)
+        fwd, bwd = step_flash(cfg)
+        log(f"path {name} {arch} {over}: {n_params(lm):,} parameters from "
+            f"the leaves; prefill + {n_steps} decode steps: logits rel L2 "
+            f"max {rels} (limit {FP32_LM_RTOL}), greedy tokens equal: "
+            f"{torch.equal(tk_g, tk_c)}; B 2 x S 128: loss card {l_g} CPU "
+            f"{l_c} (rel {loss_rel}, limit 1e-5); gradients rel L2 max "
+            f"{grad_rel} at {grad_at} (limit 1e-4); grad norm {n_g} / {n_c}; "
+            f"one step's parameters against the CPU's AdamW on the card's "
+            f"gradients rel L2 max {par_rel} at {par_at} (limit 1e-4), "
+            f"against the CPU's whole step {whole_rel} at {names[whole_i]} "
+            f"({'limit 1e-4' if held else 'logged'}; its card gradient: |g| "
+            f"min {float(g_small.min())}, max {float(g_small.max())}, "
+            f"{int((g_small < 1e-6).sum())} of {g_small.numel()} elements "
+            f"below 1e-6); routing calls {len(ids['cuda'])}, tokens whose "
+            f"top-k expert set differs card vs CPU: {diff}; D-ReLU: "
+            f"{pins.calls} calls, the CPU's own picks differ from the "
+            f"card's at {pins.flips} of {pins.kept} kept entries (pinned to "
+            f"the card's); launches={launches} (expected {pre} + {fwd} / "
+            f"{bwd}); plain calls on the card {plain}; card {secs['cuda']} "
+            f"s, CPU {secs['cpu']} s, {time.perf_counter() - t0:.1f} s in "
+            f"all")
+        if launches["flash_attention"] != pre + fwd or \
+                launches["flash_attention_bwd"] != bwd:
+            problem(f"path {name} {arch}: kernel 13 / 13b launched "
+                    f"{launches['flash_attention']} / "
                     f"{launches['flash_attention_bwd']} times, expected "
-                    f"{3 * n} / {n}")
-        check_launches(f"lm-families-fp32-depth2 {arch}", launches,
-                       ["flash_attention", "flash_attention_bwd"] if moe
+                    f"{pre + fwd} / {bwd}")
+        check_launches(f"{name} {arch}", launches,
+                       ["flash_attention", "flash_attention_bwd"] if bwd
                        else [],
                        [k for k in wrappers if not k.startswith("flash")
-                        or not moe])
+                        or not bwd])
         if any(plain.values()):
-            problem(f"path lm-families-fp32-depth2 {arch}: plain versions "
-                    f"ran on the card: {plain}")
+            problem(f"path {name} {arch}: plain versions ran on the card: "
+                    f"{plain}")
         if not (rels <= FP32_LM_RTOL and torch.equal(tk_g, tk_c)
                 and loss_rel <= 1e-5 and grad_rel <= 1e-4
-                and par_rel <= 1e-4 and diff == 0):
-            problem(f"path lm-families-fp32-depth2 {arch}: the card "
-                    f"disagrees with the CPU")
-        if not moe:
+                and par_rel <= 1e-4 and (whole_rel <= 1e-4 or not held)
+                and diff == 0):
+            problem(f"path {name} {arch}: the card disagrees with the CPU")
+        if pins.calls != len(pins.masks) or \
+                pins.flips > DRELU_FLIPS * max(pins.kept, 1):
+            problem(f"path {name} {arch}: D-ReLU calls card "
+                    f"{len(pins.masks)} CPU {pins.calls}, {pins.flips} "
+                    f"flipped picks of {pins.kept}")
+        if cfg.family == "ssm":
             # teacher forcing in fp32 on the card: a 64-token prefill then
             # 64 decode steps against the 128-token prefill (1e-4)
             seq = lm_tokens(cfg.vocab, 2, total, total, SEED + 14).cuda()
@@ -2703,13 +2871,12 @@ def lm_families_fp32_path(wrappers, n_steps=8):
                 cache, last = serve.decode_step(lm, lm.params(), cache,
                                                 seq[:, j:j + 1], j)
             tf = rel_l2(last, full)
-            log(f"path lm-families-fp32-depth2 {arch}: a {total // 2}-token "
-                f"prefill + {total // 2} decode steps against the {total}-"
-                f"token prefill: last logits rel L2 {tf} (limit "
-                f"{FP32_LM_RTOL})")
+            log(f"path {name} {arch}: a {total // 2}-token prefill + "
+                f"{total // 2} decode steps against the {total}-token "
+                f"prefill: last logits rel L2 {tf} (limit {FP32_LM_RTOL})")
             if not tf <= FP32_LM_RTOL:
-                problem(f"path lm-families-fp32-depth2 {arch}: teacher "
-                        f"forcing differs from the prefill by {tf}")
+                problem(f"path {name} {arch}: teacher forcing differs from "
+                        f"the prefill by {tf}")
             del cache
         for k, v in launches.items():
             total_launches[k] += v
@@ -2718,21 +2885,28 @@ def lm_families_fp32_path(wrappers, n_steps=8):
     return total_launches
 
 
-def train_lm_family_path(arch, wrappers):
+def train_lm_family_path(arch, wrappers, seq=LM_SEQ, extras_seed=None):
     """train-lm-<arch>: ``launch.train.main`` at full width and depth,
-    bf16, remat ``full``, B 4 x S 1,024, ``FAMILY_STEPS`` steps: finite
+    bf16, remat ``full``, B 4 x S ``seq``, ``FAMILY_STEPS`` steps: finite
     losses, the first within 0.5 of ln V (MoE: plus 0.01 x aux, aux at
-    most the expert count); MoE: 2 launches of kernel 13 and 1 of 13b a
-    layer and step, SSM none; step p50, tokens/s, peak memory, and a
-    profiler breakdown of one forward+backward by stage."""
+    most the expert count); ``step_flash`` launches of kernels 13 / 13b a
+    step (MoE 2 / 1 a layer, SSM none, the hybrid 1 / 1 an application of
+    its shared block); step p50, tokens/s, peak memory, and a profiler
+    breakdown of one forward+backward by stage.  With ``extras_seed`` the
+    VLM's image tokens / the audio family's frames are seeded draws, a new
+    one each step, in place of ``launch.train``'s zeros, which would leave
+    the cross-attention no work and give whisper a NaN gradient (its
+    all-zero encoder stream meets each ``rms_norm`` at 0; ROADMAP §3)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import train as launch_train
+    from repro_torch.models.lm.model import extra_input
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.train import lm_step
-    argv = ["--arch", arch, "--batch", str(LM_BATCH), "--seq", str(LM_SEQ),
+    argv = ["--arch", arch, "--batch", str(LM_BATCH), "--seq", str(seq),
             "--log-every", "1", "--lr", "3e-4", "--steps", str(FAMILY_STEPS)]
     step_ms, starts, models = [], [], []
     make_step, build = lm_step.make_train_step, launch_train.build_lm
+    zeros = launch_train._maybe_add_extras
 
     def timed_make(*a, **kw):
         fn = make_step(*a, **kw)
@@ -2751,26 +2925,34 @@ def train_lm_family_path(arch, wrappers):
     def building(*a, **kw):
         models.append(build(*a, **kw))
         return models[-1]
+
+    def seeded(cfg, batch, lm):
+        batch.update(lm_extras(cfg, LM_BATCH, "cuda",
+                               extras_seed + len(step_ms), lm.dtype))
     zero_counts(wrappers)
     calls, restore_plain = count_plain_calls(FA)
     lm_step.make_train_step = timed_make
     launch_train.build_lm = building
+    if extras_seed is not None:
+        launch_train._maybe_add_extras = seeded
     torch.cuda.reset_peak_memory_stats()
     try:
         losses = launch_train.main(argv)
         span = time.perf_counter() - starts[0]
     finally:
         lm_step.make_train_step, launch_train.build_lm = make_step, build
+        launch_train._maybe_add_extras = zeros
         restore_plain()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches, plain = lm_counts(wrappers), dict(calls)
     steady = sorted(step_ms[1:])
     p50 = steady[len(steady) // 2] if steady else float("nan")
-    tok_s = len(losses) * LM_BATCH * LM_SEQ / span
+    tok_s = len(losses) * LM_BATCH * seq / span
     lm = models[-1]
     c = lm.cfg
     moe = c.family == "moe"
-    batch = lm_batch(c.vocab, LM_SEQ, LM_BATCH, 99, "cuda")
+    batch = {**lm_batch(c.vocab, seq, LM_BATCH, 99, "cuda"),
+             **lm_extras(c, LM_BATCH, "cuda", SEED + 99, lm.dtype)}
     params = lm.params()
     spans = StageSpans()
     try:
@@ -2782,8 +2964,14 @@ def train_lm_family_path(arch, wrappers):
         spans.close()
     ln_v = math.log(c.vocab)
     hi = ln_v + 0.5 + (0.01 * c.n_experts if moe else 0.0)
-    log(f"path train-lm-{arch}: launch.train.main, {c.n_layers} layers "
-        f"bf16, remat {c.remat_policy}, B {LM_BATCH} x S {LM_SEQ}: losses "
+    depth = (f"{c.enc_layers} + {c.n_layers}" if c.family == "audio"
+             else str(c.n_layers))
+    mem = extra_input(c)
+    over = (f" over {mem[1]} seeded {mem[0]}"
+            if mem and extras_seed is not None else "")
+    log(f"path train-lm-{arch}: launch.train.main, {depth} layers bf16, "
+        f"{n_params(lm):,} parameters from the leaves, remat "
+        f"{c.remat_policy}, B {LM_BATCH} x S {seq}{over}: losses "
         f"{losses} (ln V {ln_v}, first-loss window [{ln_v - 0.5}, {hi}]); "
         f"step host ms {[round(x, 3) for x in step_ms]}, p50 {p50} after "
         f"the first; {tok_s:.1f} tokens/s over the run's window ({span:.3f}"
@@ -2796,23 +2984,266 @@ def train_lm_family_path(arch, wrappers):
     if not ln_v - 0.5 <= losses[0] <= hi:
         problem(f"path train-lm-{arch}: first loss {losses[0]} outside "
                 f"[{ln_v - 0.5}, {hi}]")
-    n = c.n_layers if moe else 0
-    if launches["flash_attention"] != 2 * n * FAMILY_STEPS or \
-            launches["flash_attention_bwd"] != n * FAMILY_STEPS:
+    fwd, bwd = step_flash(c)
+    if launches["flash_attention"] != fwd * FAMILY_STEPS or \
+            launches["flash_attention_bwd"] != bwd * FAMILY_STEPS:
         problem(f"path train-lm-{arch}: kernel 13 / 13b launched "
                 f"{launches['flash_attention']} / "
                 f"{launches['flash_attention_bwd']} times over "
-                f"{FAMILY_STEPS} steps, expected {2 * n} / {n} a step")
+                f"{FAMILY_STEPS} steps, expected {fwd} / {bwd} a step")
     check_launches(f"train-lm-{arch}", launches,
-                   ["flash_attention", "flash_attention_bwd"] if moe else [],
+                   ["flash_attention", "flash_attention_bwd"] if fwd else [],
                    [k for k in wrappers if not k.startswith("flash")
-                    or not moe])
+                    or not fwd])
     if any(plain.values()):
         problem(f"path train-lm-{arch}: plain versions ran on the card: "
                 f"{plain}")
     del lm, params, models[:]
     torch.cuda.empty_cache()
     return launches
+
+
+# the hybrid (zamba2), audio (whisper) and VLM (llama-3.2-vision) families
+WHISPER_CTX = 448            # whisper's published decoder context
+VLM_DEPTH = 5                # one group: 4 self layers + 1 cross layer
+# lm-hybrid-cross-fp32: the VLM at depth 5 cut in width so that the CPU
+# trains it (hd 128, 8:1 GQA, d_ff / d 3.5 and drelu_k / d_ff 1/4 kept)
+VLM_CPU_CUT = dict(d_model=1024, n_heads=8, n_kv=1, d_ff=3584, drelu_k=896)
+# lm-hybrid-cross-fp32: at most this share of the kept D-ReLU entries may
+# be picked otherwise by the CPU than by the card (near ties that fp32
+# rounding flips; more would be a real difference)
+DRELU_FLIPS = 1e-4
+# the hybrid's teacher forcing: (sequence, prefix prefilled); one 256-token
+# chunk, since the SSM path's 768 + 256 would take 256 of its ~140 ms
+# decode steps
+HYBRID_TF = (256, 192)
+
+# lm-families-fp32-depth2: granite, moonshot and mamba2 at full width and
+# 2 layers; lm-hybrid-cross-fp32: zamba2 at full width and depth 8 (one
+# group and a tail of 2: the shared block twice), whisper at full width
+# with 2 encoder + 2 decoder layers, the VLM at depth 5 cut to
+# ``VLM_CPU_CUT``: (arch, fields replaced, seed) each
+FP32_FAMILIES = (("granite-moe-1b-a400m", dict(n_layers=2), SEED + 11),
+                 ("moonshot-v1-16b-a3b", dict(n_layers=2), SEED + 12),
+                 ("mamba2-1.3b", dict(n_layers=2), SEED + 13))
+FP32_CROSS = (("zamba2-1.2b", dict(n_layers=8), SEED + 41),
+              ("whisper-large-v3", dict(n_layers=2, enc_layers=2), SEED + 42),
+              ("llama-3.2-vision-90b", dict(n_layers=VLM_DEPTH,
+                                            **VLM_CPU_CUT), SEED + 43))
+# the one model whose whole step (the CPU's AdamW on the CPU's gradients)
+# is logged and not held: zamba2's zero-initialised ``conv_c_b`` takes
+# gradient elements near 4e-7, where AdamW's first update, lr g / (|g| +
+# eps), turns fp32 noise into whole-update differences (4.4e-4 relative
+# L2 in run 38e); the updated parameters are held against the CPU's AdamW
+# on the card's gradients, as every model's are
+WHOLE_STEP_LOGGED = ("zamba2-1.2b",)
+
+
+def flat_names(tree, pre=""):
+    """Leaf names of a parameter tree in ``tree_leaves``' order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from flat_names(tree[k], f"{pre}{k}.")
+        else:
+            yield pre + k
+
+
+def prefill_flash(cfg) -> int:
+    """Kernel 13 launches of one prefill: one an attention layer; the
+    hybrid's shared block once an application, whisper's decoder twice a
+    layer (self and cross) after its encoder."""
+    return {"ssm": 0, "hybrid": -(-cfg.n_layers // max(cfg.attn_every, 1)),
+            "audio": cfg.enc_layers + 2 * cfg.n_layers}.get(cfg.family,
+                                                            cfg.n_layers)
+
+
+def step_flash(cfg):
+    """(kernel 13, kernel 13b) launches of one training step under remat:
+    a rematted attention runs its forward twice and its backward once; the
+    hybrid's shared block runs outside remat, as the reference's does."""
+    n = prefill_flash(cfg)
+    if cfg.family == "hybrid" or not cfg.remat:
+        return n, n
+    return 2 * n, n
+
+
+def lm_extras(cfg, batch, device, seed, dtype=torch.float32):
+    """Seeded ``image_emb`` (VLM) / ``frames`` (audio) of ``batch``
+    sequences, or {}."""
+    from repro_torch.models.lm.model import extra_input
+    spec = extra_input(cfg)
+    if spec is None:
+        return {}
+    x = torch.randn((batch, spec[1], cfg.d_model), device=device,
+                    generator=torch.Generator(device).manual_seed(seed))
+    return {spec[0]: x.to(dtype)}
+
+
+def serve_lm_family_path(name, arch, wrappers, n_layers=None):
+    """serve-lm-<arch>: ``examples/serve_lm.py``'s layout at full width
+    (depth ``n_layers`` if given), bf16, random weights from a seed: 4
+    prompts padded with 16 zeros (whisper: to its 448-token context, over
+    seeded frames of 4 x 1,500 x 1,280; the VLM: to 1,024, over 1,600
+    seeded image tokens), the prefill (``prefill_flash`` launches of
+    kernel 13), decode at S-1 against the prefill's last logits (rel L2
+    ``DECODE_RTOL``), 16 greedy steps (no launch), a profiler breakdown of
+    a prefill and a decode step.  The hybrid's prompts run the same way,
+    then teacher forcing (``hybrid_teacher_forcing``)."""
+    from repro_torch.models.lm import serve
+    lm = family_model(arch, "cuda", n_layers=n_layers)
+    params, c = lm.params(), lm.cfg
+    total = WHISPER_CTX if c.family == "audio" else LM_SEQ
+    s = total - LM_NEW
+    tokens = lm_tokens(c.vocab, LM_BATCH, s, total, SEED + 21).cuda()
+    extra = lm_extras(c, LM_BATCH, "cuda", SEED + 22, torch.bfloat16) \
+        or None
+    serve.prefill(lm, params, tokens, extra)                   # warm-up
+    zero_counts(wrappers)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cache, logits = serve.prefill(lm, params, tokens, extra)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    n_prefill = wrappers["flash_attention"].launches
+    finite = torch.isfinite(logits).all()
+    rel = None
+    if c.family != "hybrid":
+        # a recurrent state cannot take position S-1 again
+        _, again = serve.decode_step(lm, params, cache, tokens[:, -1:],
+                                     total - 1)
+        rel = rel_l2(again, logits)
+        finite &= torch.isfinite(again).all()
+    tok = logits[:, -1:, :c.vocab].argmax(-1)
+    gen = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(LM_NEW):
+        cache, logits = serve.decode_step(lm, params, cache, tok, s + i)
+        finite &= torch.isfinite(logits).all()
+        tok = logits[:, :, :c.vocab].argmax(-1)
+        gen.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    launches = lm_counts(wrappers)
+    spans = StageSpans()
+    try:
+        breakdown_log(name, "prefill",
+                      lambda: serve.prefill(lm, params, tokens, extra),
+                      SSM_SPANS if c.family == "hybrid" else ())
+        breakdown_log(name, "decode step", lambda: serve.decode_step(
+            lm, params, cache, tok, total - 1), ())
+    finally:
+        spans.close()
+    tf = ""
+    if c.family == "hybrid":
+        tf = hybrid_teacher_forcing(name, lm)
+    mem = {"vlm": f"{c.n_img_tokens} image tokens",
+           "audio": f"{c.enc_layers} encoder layers over {c.enc_frames} "
+                    f"frames"}.get(c.family, f"shared block every "
+                                             f"{c.attn_every} SSM layers")
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    log(f"path {name}: {c.name} d {c.d_model}, heads {c.n_heads}/{c.n_kv} "
+        f"hd {c.hd}, d_ff {c.d_ff}, vocab {c.vocab}, {c.n_layers} of "
+        f"{full.n_layers} layers ({mem}), {n_params(lm):,} parameters from "
+        f"the leaves (param_count() {c.param_count():,}), bf16: {LM_BATCH} "
+        f"prompts of {s} tokens padded to {total}: prefill "
+        f"{prefill_ms:.3f} ms, {LM_NEW} decode steps "
+        f"{decode_s * 1e3 / LM_NEW:.3f} ms a step = "
+        f"{LM_BATCH * LM_NEW / decode_s:.1f} tokens/s [{CARD}]; decode at "
+        f"S-1 vs prefill rel L2 {rel} (limit {DECODE_RTOL}){tf}; launches="
+        f"{launches}; sample {torch.cat(gen, 1)[:2].tolist()}")
+    want = prefill_flash(c)
+    if n_prefill != want or launches["flash_attention"] != want:
+        problem(f"path {name}: {n_prefill} flash launches in the prefill "
+                f"and {launches['flash_attention'] - n_prefill} in the "
+                f"decode, expected {want} and 0")
+    check_launches(name, launches, ["flash_attention"],
+                   [k for k in wrappers if k != "flash_attention"])
+    if not bool(finite):
+        problem(f"path {name}: non-finite logits")
+    if rel is not None and not rel <= DECODE_RTOL:
+        problem(f"path {name}: decode at S-1 differs from the prefill by "
+                f"{rel} relative L2")
+    del lm, params, cache, extra
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hybrid_teacher_forcing(name, lm):
+    """A ``HYBRID_TF[1]``-token prefill, its cache copied into one of
+    ``HYBRID_TF[0]`` slots, and decode steps over the rest of the same
+    sequence: the last logits against the whole sequence's prefill,
+    within ``SSM_DECODE_FACTOR`` x the bf16 prefill's distance from the
+    fp32 prefill of the same weights."""
+    from repro_torch.models.lm import serve
+    params, c = lm.params(), lm.cfg
+    total, split = HYBRID_TF
+    seq = lm_tokens(c.vocab, LM_BATCH, total, total, SEED + 23).cuda()
+    _, full = serve.prefill(lm, params, seq)
+    t = time.perf_counter()
+    part, _ = serve.prefill(lm, params, seq[:, :split])
+    cache = serve.cache_zeros(lm, LM_BATCH, total)
+    for k, v in part.items():
+        if k in ("sk", "sv"):               # (n_app, B, S, KV, hd)
+            cache[k][:, :, :split].copy_(v)
+        else:
+            cache[k].copy_(v)
+    del part
+    for i in range(split, total):
+        cache, last = serve.decode_step(lm, params, cache, seq[:, i:i + 1], i)
+    torch.cuda.synchronize()
+    tf_s = time.perf_counter() - t
+    rel = rel_l2(last, full)
+    lm32 = family_model(c.name, "cuda", dtype="float32")
+    _, full32 = serve.prefill(lm32, lm32.params(), seq)
+    bf16_rel = rel_l2(full, full32)
+    limit = SSM_DECODE_FACTOR * bf16_rel
+    same = torch.equal(last[..., :c.vocab].argmax(-1),
+                       full[..., :c.vocab].argmax(-1))
+    del lm32, cache
+    torch.cuda.empty_cache()
+    if not rel <= limit:
+        problem(f"path {name}: decoding tokens {split}-{total - 1} after a "
+                f"{split}-token prefill differs from the {total}-token "
+                f"prefill by {rel} relative L2")
+    return (f"; prefill {split} + {total - split} decode steps ({tf_s:.2f} "
+            f"s): last logits vs the {total}-token prefill rel L2 {rel} "
+            f"(limit {limit}: {SSM_DECODE_FACTOR} x the bf16 prefill's rel "
+            f"L2 {bf16_rel} from the fp32 prefill), greedy token equal: "
+            f"{same}")
+
+
+class DreluPins:
+    """While installed, ``ffn.drelu_grouped`` (the SwiGLU FFN's D-ReLU)
+    records each call's kept entries on the card; with ``replay`` set, the
+    CPU's call of the same index keeps the card's entries instead of its
+    own and counts the entries where its own pick differs.  In fp32 the
+    two devices round the FFN's products in other orders, so a near-tied
+    top-k pick can flip between them, and one flipped entry moves the
+    gradient of a whole row and column; pinned, the two run the same
+    function on the same selection."""
+
+    def __init__(self):
+        from repro_torch.models.lm import ffn
+        self.ffn, self.orig = ffn, ffn.drelu_grouped
+        self.masks, self.replay, self.calls = [], False, 0
+        self.flips, self.kept = 0, 0
+        ffn.drelu_grouped = self._run
+
+    def _run(self, x, k, groups):
+        y = self.orig(x, k, groups)
+        if not self.replay:
+            self.masks.append((y != 0).cpu())
+            return y
+        card = self.masks[self.calls].to(x.device)
+        self.calls += 1
+        self.flips += int(((y != 0) != card).sum())
+        self.kept += int(card.sum())
+        return torch.where(card, x, torch.zeros_like(x))
+
+    def close(self):
+        self.ffn.drelu_grouped = self.orig
 
 
 def member_rows(batch):
@@ -4040,6 +4471,9 @@ def main() -> None:
     rows["flash_attention_bwd"] = check_flash_bwd_kernel(q, k, v, wrappers)
     del q, k, v
     log(f"phase flash-bwd: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    flash_cross_times()
+    log(f"phase flash-cross: {time.perf_counter() - t:.1f} s")
     for name, run in (
             (f"serve-lm-{LM_ARCH}", lambda: serve_lm_path(lm, tokens, wrappers)),
             ("serve-lm-fp32-depth2", lambda: serve_lm_fp32_path(wrappers)),
@@ -4077,11 +4511,37 @@ def main() -> None:
                                        wrappers)),
             (f"serve-lm-{ssm}", lambda: serve_lm_ssm_path(wrappers)),
             ("lm-families-fp32-depth2",
-             lambda: lm_families_fp32_path(wrappers)),
+             lambda: lm_fp32_path("lm-families-fp32-depth2", FP32_FAMILIES,
+                                  wrappers)),
             (f"train-lm-{moe_a}", lambda: train_lm_family_path(moe_a,
                                                                wrappers)),
             (f"train-lm-{ssm}", lambda: train_lm_family_path(ssm,
                                                              wrappers))):
+        t = time.perf_counter()
+        launches = run()
+        for k, v in launches.items():
+            total[k] += v
+        log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+
+    # the hybrid (zamba2), audio (whisper) and VLM (llama-3.2-vision at 5
+    # of its 100 layers: its fp32 weights would take 351 GB at full depth)
+    hyb, aud, vlm = ("zamba2-1.2b", "whisper-large-v3",
+                     "llama-3.2-vision-90b")
+    for name, run in (
+            (f"serve-lm-{hyb}",
+             lambda: serve_lm_family_path(f"serve-lm-{hyb}", hyb, wrappers)),
+            (f"serve-lm-{aud}",
+             lambda: serve_lm_family_path(f"serve-lm-{aud}", aud, wrappers)),
+            (f"serve-lm-{vlm}-depth{VLM_DEPTH}",
+             lambda: serve_lm_family_path(f"serve-lm-{vlm}-depth{VLM_DEPTH}",
+                                          vlm, wrappers, VLM_DEPTH)),
+            ("lm-hybrid-cross-fp32",
+             lambda: lm_fp32_path("lm-hybrid-cross-fp32", FP32_CROSS,
+                                  wrappers)),
+            (f"train-lm-{hyb}", lambda: train_lm_family_path(hyb, wrappers)),
+            (f"train-lm-{aud}",
+             lambda: train_lm_family_path(aud, wrappers, WHISPER_CTX,
+                                          SEED + 30))):
         t = time.perf_counter()
         launches = run()
         for k, v in launches.items():

@@ -5,7 +5,9 @@
 
 Port of ``repro/launch/train.py``: the same flags, plus ``--device``
 (``cuda``, the default, or ``cpu``; ``--reduced`` runs the tiny
-same-family config, which the CPU takes).  Wired in: the cosine / WSD
+same-family config, which the CPU takes).  The VLM and audio
+families get zero ``image_emb`` / ``frames`` (the reference's
+``_maybe_add_extras``).  Wired in: the cosine / WSD
 schedule, gradient accumulation (``--grad-accum`` splits each batch into
 that many microbatches), async atomic checkpoints with restart from the
 latest one, straggler monitoring (the port's ``StepMonitor``) and the
@@ -30,7 +32,7 @@ from repro_torch.configs import ARCH_IDS, get_config, reduced
 from repro_torch.data.pipeline import DataConfig, PrefetchingLoader, \
     TokenPipeline
 from repro_torch.fault.monitor import StepMonitor
-from repro_torch.models.lm.model import build_lm
+from repro_torch.models.lm.model import build_lm, extra_input
 from repro_torch.train import lm_step
 
 
@@ -64,7 +66,10 @@ def main(argv=None):
         cfg = reduced(cfg)
     device = resolve_device(args.device)
     lm = build_lm(cfg, device=device)
-    print(f"[train] {cfg.name} ({cfg.family}) params={cfg.param_count():,} "
+    # counted from the leaves: ``param_count()`` is the reference's
+    # estimate (whisper: a SwiGLU FFN the audio family does not have)
+    print(f"[train] {cfg.name} ({cfg.family}) "
+          f"params={sum(p.numel() for p in lm.parameters()):,} "
           f"device={device}")
 
     pipeline = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
@@ -93,6 +98,7 @@ def main(argv=None):
             batch = {k: _to_device(v, device, args.grad_accum)
                      for k, v in loader.next().items()
                      if not k.startswith("_")}
+            _maybe_add_extras(cfg, batch, lm)
             t0 = time.perf_counter()
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])
@@ -117,6 +123,18 @@ def main(argv=None):
     print(f"[train] loss {first:.4f} -> {last5:.4f} "
           f"({'improved' if last5 < first else 'NOT improved'})")
     return losses
+
+
+def _maybe_add_extras(cfg, batch, lm):
+    """The VLM's ``image_emb`` and the audio family's ``frames``: zeros in
+    the model's dtype (the reference's contract; the front ends are
+    stubs), one (n_img_tokens | enc_frames, d) memory a sequence."""
+    spec = extra_input(cfg)
+    if spec is not None:
+        name, n = spec
+        batch[name] = torch.zeros((*batch["tokens"].shape[:-1], n,
+                                   cfg.d_model), dtype=lm.dtype,
+                                  device=batch["tokens"].device)
 
 
 def _to_device(a: np.ndarray, device, grad_accum: int) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """The LM for the dense (qwen3, minitron, minicpm), MoE (granite,
-moonshot) and SSM (mamba2) families as an ``nn.Module``.
+moonshot), SSM (mamba2), hybrid (zamba2), VLM (llama-3.2-vision) and
+audio (whisper) families as an ``nn.Module``.
 
 Port of ``repro/models/lm/model.py``.  The weights follow the reference's
 template: stacked per-layer tensors (``layers.wq`` is (L, d, H, hd)),
@@ -9,11 +10,20 @@ functions take the parameter tree ``params`` (``lm.params()``: nested
 dicts of the module's tensors) as the reference's pure functions do, so
 the two packages compare call for call.  The layer scan is a Python loop
 over the layer index; the MoE body carries (x, aux) from layer to layer.
+The hybrid runs the shared attention block (one set of weights, a leading
+dim of 1) before each group of ``attn_every`` SSM layers, and once more
+before a tail of ``n_layers % attn_every``; the VLM runs groups of
+``self_per_group`` dense layers, each followed by one cross-attention
+layer over the image tokens whose two residual branches are scaled by
+``tanh`` of their gates; the audio family is whisper's encoder (non-causal
+self-attention over the frames, GELU FFN) and decoder (causal
+self-attention, cross-attention over the encoder's output with the
+``x_``-prefixed weights, GELU FFN).  ``jax.nn.gelu`` is the tanh
+approximation, and so is the port's.
 ``loss`` is the training objective (chunked CE + 0.01 aux); with
 ``cfg.remat`` each layer body is recomputed in the backward under
 ``cfg.remat_policy`` (:func:`_maybe_remat`).  The MoE FFN is the
-reference's single-shard path (every expert on the device).  The hybrid
-(zamba2), VLM and audio families wait (ROADMAP.md §1 item 6).
+reference's single-shard path (every expert on the device).
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -38,13 +49,42 @@ from repro_torch.models.lm.common import (PSpec, cross_entropy_chunked,
 
 Params = Dict[str, Any]
 
-FAMILIES = ("dense", "moe", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+# the template's zero leaves whose zeros close a branch: the VLM's cross
+# gates (tanh(0) = 0) and the GELU FFN's biases; the scale of each when
+# ``draw_zero_inits`` draws them
+ZERO_INITS = {"gate_attn": 1.0, "gate_ffn": 1.0, "b1": 0.1, "b2": 0.1}
 
 
-def layer_list(params: Params):
-    """Every layer's slice at once (``unbind``: the backward stacks the
-    layers' gradients once instead of one full-size buffer a layer)."""
-    per_key = {k: v.unbind(0) for k, v in params["layers"].items()}
+def extra_input(cfg) -> Optional[tuple]:
+    """(batch key, memory length) of ``cfg``'s extra input, one (length,
+    d_model) memory a sequence: the VLM's ``image_emb`` over its image
+    tokens, the audio family's ``frames``; None for the other families."""
+    return {"vlm": ("image_emb", cfg.n_img_tokens),
+            "audio": ("frames", cfg.enc_frames)}.get(cfg.family)
+
+
+@torch.no_grad()
+def draw_zero_inits(params: Params, generator: torch.Generator) -> None:
+    """Draw the ``ZERO_INITS`` leaves of a parameter tree in place, N(0, 1)
+    x their scale from ``generator`` (on the leaves' device), in sorted
+    order: a check from freshly initialised weights would otherwise leave
+    the branches they close untested."""
+    for k in sorted(params):
+        v = params[k]
+        if isinstance(v, dict):
+            draw_zero_inits(v, generator)
+        elif k in ZERO_INITS:
+            v.copy_(torch.randn(v.shape, generator=generator,
+                                device=v.device) * ZERO_INITS[k])
+
+
+def layer_list(params: Params, key: str = "layers"):
+    """Every layer's slice of the stack ``params[key]`` at once (``unbind``:
+    the backward stacks the layers' gradients once instead of one
+    full-size buffer a layer)."""
+    per_key = {k: v.unbind(0) for k, v in params[key].items()}
     return [{k: v[i] for k, v in per_key.items()}
             for i in range(len(next(iter(per_key.values()))))]
 
@@ -97,10 +137,7 @@ class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, tp: int = 1, *, device="cuda"):
         super().__init__()
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r}: the port has the dense, moe and "
-                f"ssm LMs; the hybrid / vlm / audio families wait "
-                f"(ROADMAP.md §1 item 6)")
+            raise ValueError(cfg.family)
         # "meta" builds the module's shapes without allocating them
         dev = (torch.device("meta") if str(device) == "meta"
                else resolve_device(device))
@@ -127,7 +164,7 @@ class LM(nn.Module):
     # parameter templates
     # ------------------------------------------------------------------
 
-    def _attn_tmpl(self, n: int) -> Dict[str, PSpec]:
+    def _attn_tmpl(self, n: int, cross: bool = False) -> Dict[str, PSpec]:
         c, hd = self.cfg, self.cfg.hd
         t = {
             "wq": PSpec((n, c.d_model, self.h_pad, hd),
@@ -139,13 +176,18 @@ class LM(nn.Module):
             "wo": PSpec((n, self.h_pad, hd, c.d_model),
                         (None, "heads", None, "embed")),
         }
-        if c.qk_norm:
+        if c.qk_norm and not cross:
             t["qk_q"] = PSpec((n, hd), (None, None), "ones")
             t["qk_k"] = PSpec((n, hd), (None, None), "ones")
         return t
 
-    def _ffn_tmpl(self, n: int) -> Dict[str, PSpec]:
+    def _ffn_tmpl(self, n: int, gelu: bool = False) -> Dict[str, PSpec]:
         c = self.cfg
+        if gelu:
+            return {"w1": PSpec((n, c.d_model, c.d_ff), (None, "embed", "mlp")),
+                    "b1": PSpec((n, c.d_ff), (None, "mlp"), "zeros"),
+                    "w2": PSpec((n, c.d_ff, c.d_model), (None, "mlp", "embed")),
+                    "b2": PSpec((n, c.d_model), (None, None), "zeros")}
         return {"w_gate": PSpec((n, c.d_model, c.d_ff), (None, "embed", "mlp")),
                 "w_up": PSpec((n, c.d_model, c.d_ff), (None, "embed", "mlp")),
                 "w_down": PSpec((n, c.d_ff, c.d_model), (None, "mlp", "embed"))}
@@ -206,9 +248,39 @@ class LM(nn.Module):
             t["layers"] = {**self._attn_tmpl(c.n_layers),
                            **self._moe_tmpl(c.n_layers),
                            **self._norms(c.n_layers, ("ln1", "ln2"))}
-        else:
+        elif c.family == "ssm":
             t["layers"] = {**self._ssm_tmpl(c.n_layers),
                            **self._norms(c.n_layers, ("ln",))}
+        elif c.family == "hybrid":
+            t["layers"] = {**self._ssm_tmpl(c.n_layers),
+                           **self._norms(c.n_layers, ("ln",))}
+            t["shared"] = {**self._attn_tmpl(1), **self._ffn_tmpl(1),
+                           **self._norms(1, ("ln1", "ln2"))}
+        elif c.family == "vlm":
+            n_cross = c.n_layers // c.cross_every
+            n_self = c.n_layers - n_cross
+            self.n_groups = n_cross
+            self.self_per_group = n_self // n_cross
+            t["layers"] = {**self._attn_tmpl(n_self),
+                           **self._ffn_tmpl(n_self),
+                           **self._norms(n_self, ("ln1", "ln2"))}
+            cross = {**self._attn_tmpl(n_cross, cross=True),
+                     **self._ffn_tmpl(n_cross),
+                     **self._norms(n_cross, ("ln1", "ln2"))}
+            cross["gate_attn"] = PSpec((n_cross,), (None,), "zeros")
+            cross["gate_ffn"] = PSpec((n_cross,), (None,), "zeros")
+            t["cross"] = cross
+        else:                                   # audio
+            t["enc_layers"] = {**self._attn_tmpl(c.enc_layers),
+                               **self._ffn_tmpl(c.enc_layers, gelu=True),
+                               **self._norms(c.enc_layers, ("ln1", "ln2"))}
+            t["enc_norm"] = PSpec((c.d_model,), (None,), "ones")
+            dec = {**self._attn_tmpl(c.n_layers),
+                   **self._ffn_tmpl(c.n_layers, gelu=True),
+                   **self._norms(c.n_layers, ("ln1", "ln2", "ln_x"))}
+            for k, v in self._attn_tmpl(c.n_layers, cross=True).items():
+                dec["x_" + k] = v
+            t["layers"] = dec
         return t
 
     # ------------------------------------------------------------------
@@ -302,6 +374,14 @@ class LM(nn.Module):
         h, _ = m2.mamba2_block(rms_norm(x, lp["ln"]), lp, self.cfg)
         return x + h
 
+    def _gelu_ffn(self, x, lp, prefix=""):
+        """whisper's FFN: GELU (the tanh approximation, ``jax.nn.gelu``'s
+        default) between two biased projections."""
+        g = lambda k: lp[prefix + k].to(self.dtype)
+        h = F.gelu(torch.einsum("bsd,df->bsf", x, g("w1")) + g("b1"),
+                   approximate="tanh")
+        return torch.einsum("bsf,fd->bsd", h, g("w2")) + g("b2")
+
     # ------------------------------------------------------------------
     # forward: tokens -> final hidden
     # ------------------------------------------------------------------
@@ -311,7 +391,9 @@ class LM(nn.Module):
 
     def forward(self, params, tokens, extra: Optional[Dict] = None):
         """Returns (hidden (B,S,d), aux_loss scalar); each layer under
-        remat when ``cfg.remat``."""
+        remat when ``cfg.remat``.  The VLM reads ``extra["image_emb"]``
+        (B, n_img_tokens, d) and the audio family ``extra["frames"]`` (B,
+        enc_frames, d), both cast to the model's dtype."""
         c = self.cfg
         x = self._embed(params, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -319,13 +401,128 @@ class LM(nn.Module):
             body = _maybe_remat(self._moe_body, c.remat, c.remat_policy)
             for lp in layer_list(params):
                 x, aux = body((x, aux), lp)
-        else:
+        elif c.family in ("dense", "ssm"):
             body = _maybe_remat(self._dense_body if c.family == "dense"
                                 else self._ssm_body, c.remat,
                                 c.remat_policy)
             for lp in layer_list(params):
                 x = body(x, lp)
+        elif c.family == "hybrid":
+            x = self._hybrid_forward(params, x)
+        elif c.family == "vlm":
+            x = self._vlm_forward(params, x, extra["image_emb"])
+        else:
+            x = self._audio_forward(params, x, extra["frames"])
         return rms_norm(x, params["final_norm"]), aux
+
+    # --- hybrid: the shared attention block every attn_every ssm layers --
+
+    def _shared_block(self, params, x, *, kv_out: bool = False):
+        """The one shared dense block (attention + SwiGLU FFN with D-ReLU);
+        with ``kv_out`` also its (k, v) (the prefill's cache)."""
+        sp = {k: v[0] for k, v in params["shared"].items()}
+        return self._dense_body(x, sp, kv_out=kv_out)
+
+    def _hybrid_split(self, layers):
+        """(groups: a list of ``attn_every`` layer slices a group, the tail's
+        slices, n_groups, n_tail) of the SSM stack ``layers``."""
+        c = self.cfg
+        lps = layer_list({"layers": layers})
+        n_groups = c.n_layers // c.attn_every
+        n_full = n_groups * c.attn_every
+        head = [lps[g * c.attn_every:(g + 1) * c.attn_every]
+                for g in range(n_groups)]
+        return head, lps[n_full:], n_groups, c.n_layers - n_full
+
+    def _hybrid_forward(self, params, x):
+        """The shared block before each group of ``attn_every`` SSM layers
+        and, when ``n_layers % attn_every``, once more before the tail
+        (zamba2: 6 groups + a tail of 2, 7 applications).  As in the
+        reference, the SSM layers run under remat and the shared block
+        outside it."""
+        c = self.cfg
+        head, tail, _, n_tail = self._hybrid_split(params["layers"])
+        ssm_body = _maybe_remat(self._ssm_body, c.remat, c.remat_policy)
+        for group in head + ([tail] if n_tail else []):
+            x = self._shared_block(params, x)
+            for lp in group:
+                x = ssm_body(x, lp)
+        return x
+
+    # --- vlm: groups of self layers + one gated cross-attention ---------
+
+    def _cross_body(self, x, lp, img):
+        """Cross-attention over the image tokens (no RoPE, no mask) and a
+        SwiGLU FFN, each residual branch scaled by tanh of its gate."""
+        h = attn.attention_block(rms_norm(x, lp["ln1"]), kv_x=img,
+                                 causal=False, **self._attn_args(lp))
+        x = x + torch.tanh(lp["gate_attn"]).to(x.dtype) * h
+        f = ffn_mod.swiglu_ffn(rms_norm(x, lp["ln2"]),
+                               lp["w_gate"].to(self.dtype),
+                               lp["w_up"].to(self.dtype),
+                               lp["w_down"].to(self.dtype),
+                               drelu_k=self.cfg.drelu_k, drelu_groups=self.tp)
+        return x + torch.tanh(lp["gate_ffn"]).to(x.dtype) * f
+
+    def _vlm_forward(self, params, x, img):
+        c = self.cfg
+        img = img.to(self.dtype)
+        self_body = _maybe_remat(self._dense_body, c.remat, c.remat_policy)
+        cross_body = _maybe_remat(lambda x_, lp: self._cross_body(x_, lp, img),
+                                  c.remat, c.remat_policy)
+        selfs, k = layer_list(params), self.self_per_group
+        for g, clp in enumerate(layer_list(params, "cross")):
+            for lp in selfs[g * k:(g + 1) * k]:
+                x = self_body(x, lp)
+            x = cross_body(x, clp)
+        return x
+
+    # --- audio: whisper encoder-decoder ---------------------------------
+
+    def _enc_body(self, x, lp):
+        h = attn.attention_block(rms_norm(x, lp["ln1"]), causal=False,
+                                 **self._attn_args(lp))
+        x = x + h
+        return x + self._gelu_ffn(rms_norm(x, lp["ln2"]), lp)
+
+    def _dec_body(self, x, lp, enc_out, *, kv_out: bool = False):
+        """Causal self-attention, cross-attention over ``enc_out`` (the
+        ``x_`` weights, after ``ln_x``), GELU FFN; with ``kv_out`` also
+        ((k, v), (xk, xv)) for the prefill's cache."""
+        h = attn.attention_block(rms_norm(x, lp["ln1"]), return_kv=kv_out,
+                                 **self._attn_args(lp))
+        kv = None
+        if kv_out:
+            h, kv = h
+        x = x + h
+        hx = attn.attention_block(rms_norm(x, lp["ln_x"]), kv_x=enc_out,
+                                  causal=False, return_kv=kv_out,
+                                  **self._attn_args(lp, prefix="x_"))
+        xkv = None
+        if kv_out:
+            hx, xkv = hx
+        x = x + hx
+        x = x + self._gelu_ffn(rms_norm(x, lp["ln2"]), lp)
+        return (x, (kv, xkv)) if kv_out else x
+
+    def encode_audio(self, params, frames):
+        """frames (B, F, d): precomputed mel-frame embeddings (the
+        convolutional front end is a stub, as in the reference)."""
+        c = self.cfg
+        x = frames.to(self.dtype)
+        body = _maybe_remat(self._enc_body, c.remat, c.remat_policy)
+        for lp in layer_list(params, "enc_layers"):
+            x = body(x, lp)
+        return rms_norm(x, params["enc_norm"])
+
+    def _audio_forward(self, params, x, frames):
+        c = self.cfg
+        enc_out = self.encode_audio(params, frames)
+        body = _maybe_remat(lambda x_, lp: self._dec_body(x_, lp, enc_out),
+                            c.remat, c.remat_policy)
+        for lp in layer_list(params):
+            x = body(x, lp)
+        return x
 
     # ------------------------------------------------------------------
     # loss

@@ -1,18 +1,25 @@
-"""Serving the dense, MoE and SSM LMs: cache templates, prefill, and
-one-token decode.
+"""Serving every LM family: cache templates, prefill, and one-token
+decode.
 
-Port of the dense, moe and ssm branches of ``repro/models/lm/serve.py``
-(the hybrid, VLM and audio families wait, ROADMAP.md §1 item 6).  The
-dense and MoE cache is ``{"k", "v"}`` of shape (L, B, S_max, KV, hd) in
-the model's dtype; the SSM cache is each layer's fp32 state (L, B, H, P, N)
-and its last CONV_K-1 raw conv inputs (``conv_x`` / ``conv_b`` /
-``conv_c``, the model's dtype).  ``prefill`` runs the prompt through every
-layer (attention is kernel 13 on the card; the MoE FFN caps over the
-prompt's B*S tokens) and stacks the layers' caches as the reference's scan
-does; ``decode_step`` writes each layer's new K/V, or its new state and
-conv window, into the cache in place (the MoE FFN caps over the step's B
-tokens, so a decode does not reproduce a prefill's logits; an SSM step
-ignores ``pos``).  Both run without autograd.
+Port of ``repro/models/lm/serve.py``.  The dense and MoE cache is
+``{"k", "v"}`` of shape (L, B, S_max, KV, hd) in the model's dtype; the SSM
+cache is each layer's fp32 state (L, B, H, P, N) and its last CONV_K-1 raw
+conv inputs (``conv_x`` / ``conv_b`` / ``conv_c``, the model's dtype).
+The hybrid's is the SSM cache plus ``sk`` / ``sv`` (n_app, B, S_max, KV,
+hd), one entry for each application of the shared block, ceil(n_layers /
+attn_every).  The VLM's self-attention cache is (groups, self_per_group,
+B, S_max, KV, hd) and its cross cache ``xk`` / ``xv`` (groups, B,
+n_img_tokens, KV, hd); the audio family's is ``k`` / ``v`` and ``xk`` /
+``xv`` (L, B, enc_frames, KV, hd).  ``prefill`` runs the prompt through
+every layer (attention is kernel 13 on the card; the MoE FFN caps over
+the prompt's B*S tokens) and stacks the layers' caches as the reference's
+scan does; the VLM and audio branches write ``xk`` / ``xv`` once, from
+``extra["image_emb"]`` / the encoder's output of ``extra["frames"]``.
+``decode_step`` writes each layer's new K/V, or its new state and conv
+window, into the cache in place and attends to the cross caches as they
+are (``_decode_cross``); the MoE FFN caps over the step's B tokens, so a
+decode does not reproduce a prefill's logits; an SSM step ignores
+``pos``.  Both run without autograd.
 """
 
 from __future__ import annotations
@@ -33,11 +40,33 @@ CacheTmpl = Dict[str, Tuple[Tuple[int, ...], Tuple[Any, ...], Any]]
 def cache_template(lm: LM, batch: int, s_max: int) -> CacheTmpl:
     """name -> (shape, logical axes, dtype)."""
     c = lm.cfg
-    if c.family == "ssm":
-        return _ssm_cache_tmpl(c, c.n_layers, batch, lm.dtype)
-    shape = (c.n_layers, batch, s_max, lm.kv_pad, c.hd)
+    kv, hd, dt = lm.kv_pad, c.hd, lm.dtype
     kv_axes = (None, "batch", "kv_seq", None, None)
-    return {"k": (shape, kv_axes, lm.dtype), "v": (shape, kv_axes, lm.dtype)}
+    if c.family in ("dense", "moe"):
+        shape = (c.n_layers, batch, s_max, kv, hd)
+        return {"k": (shape, kv_axes, dt), "v": (shape, kv_axes, dt)}
+    if c.family == "ssm":
+        return _ssm_cache_tmpl(c, c.n_layers, batch, dt)
+    if c.family == "hybrid":
+        t = _ssm_cache_tmpl(c, c.n_layers, batch, dt)
+        n_app = -(-c.n_layers // c.attn_every)       # ceil: one per group
+        shape = (n_app, batch, s_max, kv, hd)
+        t["sk"] = (shape, kv_axes, dt)
+        t["sv"] = (shape, kv_axes, dt)
+        return t
+    x_axes = (None, "batch", None, None, None)
+    if c.family == "vlm":
+        g, spg = lm.n_groups, lm.self_per_group
+        self_shape = (g, spg, batch, s_max, kv, hd)
+        self_axes = (None, None, "batch", "kv_seq", None, None)
+        x_shape = (g, batch, c.n_img_tokens, kv, hd)
+        return {"k": (self_shape, self_axes, dt),
+                "v": (self_shape, self_axes, dt),
+                "xk": (x_shape, x_axes, dt), "xv": (x_shape, x_axes, dt)}
+    shape = (c.n_layers, batch, s_max, kv, hd)               # audio
+    x_shape = (c.n_layers, batch, c.enc_frames, kv, hd)
+    return {"k": (shape, kv_axes, dt), "v": (shape, kv_axes, dt),
+            "xk": (x_shape, x_axes, dt), "xv": (x_shape, x_axes, dt)}
 
 
 def _ssm_cache_tmpl(c, n_layers, batch, dt):
@@ -85,8 +114,19 @@ def _decode_attn(lm: LM, x, lp, kc, vc, pos, prefix=""):
     return out, kc, vc
 
 
+def _decode_cross(lm: LM, x, lp, xk, xv, prefix="x_"):
+    """Cross-attention of x (B,1,d) against a cached memory (every entry
+    valid)."""
+    dt = lm.dtype
+    q = torch.einsum("bsd,dhe->bshe", x, lp[prefix + "wq"].to(dt))
+    ctx = attn._local_decode(q, xk, xv, xk.shape[1] - 1, 0)
+    return torch.einsum("bshe,hed->bsd", ctx, lp[prefix + "wo"].to(dt))
+
+
 def _decode_ffn(lm: LM, x, lp):
     c = lm.cfg
+    if c.family == "audio":
+        return lm._gelu_ffn(x, lp)
     w = [lp[n].to(lm.dtype) for n in ("w_gate", "w_up", "w_down")]
     if c.family == "moe":
         y, _ = ffn_mod.moe_ffn(x, lp["router"], *w, n_experts=c.n_experts,
@@ -109,7 +149,9 @@ def prefill(lm: LM, params, tokens, extra: Optional[Dict] = None,
             s_max: Optional[int] = None):
     """Run the full prompt; returns (cache, last-token logits).
 
-    The cache covers [0, s_max); tokens fill positions [0, S)."""
+    The cache covers [0, s_max); tokens fill positions [0, S).  The VLM
+    takes ``extra["image_emb"]`` (B, n_img_tokens, d), the audio family
+    ``extra["frames"]`` (B, enc_frames, d)."""
     c = lm.cfg
     b, s = tokens.shape
     s_max = s_max or s
@@ -118,12 +160,38 @@ def prefill(lm: LM, params, tokens, extra: Optional[Dict] = None,
     if c.family == "ssm":
         caches = []
         for lp in layer_list(params):
-            h, cch = m2.mamba2_block(rms_norm(x, lp["ln"]), lp, c,
-                                     mode="prefill")
-            x = x + h
+            x, cch = _ssm_prefill(lm, x, lp)
             caches.append(cch)
-        cache = {k: torch.stack([getattr(cc, k) for cc in caches])
-                 for k in m2.SSMCache._fields}
+        cache = _stack_ssm(caches)
+    elif c.family == "hybrid":
+        x, cache = _hybrid_prefill_body(lm, params, x)
+    elif c.family == "vlm":
+        img = extra["image_emb"].to(lm.dtype)
+        selfs, spg = layer_list(params), lm.self_per_group
+        ks, vs, xks, xvs = [], [], [], []
+        for g, clp in enumerate(layer_list(params, "cross")):
+            gk, gv = [], []
+            for lp in selfs[g * spg:(g + 1) * spg]:
+                x, (k, v) = lm._dense_body(x, lp, kv_out=True)
+                gk.append(k)
+                gv.append(v)
+            ks.append(torch.stack(gk))
+            vs.append(torch.stack(gv))
+            xks.append(torch.einsum("bsd,dke->bske", img,
+                                    clp["wk"].to(lm.dtype)))
+            xvs.append(torch.einsum("bsd,dke->bske", img,
+                                    clp["wv"].to(lm.dtype)))
+            x = lm._cross_body(x, clp, img)
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+                 "xk": torch.stack(xks), "xv": torch.stack(xvs)}
+    elif c.family == "audio":
+        enc_out = lm.encode_audio(params, extra["frames"])
+        kvs = []
+        for lp in layer_list(params):
+            x, ((k, v), (xk, xv)) = lm._dec_body(x, lp, enc_out, kv_out=True)
+            kvs.append((k, v, xk, xv))
+        cache = {n: torch.stack([t[i] for t in kvs])
+                 for i, n in enumerate(("k", "v", "xk", "xv"))}
     else:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         ks, vs = [], []
@@ -139,26 +207,97 @@ def prefill(lm: LM, params, tokens, extra: Optional[Dict] = None,
     return cache, lm.logits_last(params, hidden)
 
 
+def _ssm_prefill(lm: LM, x, lp):
+    h, cch = m2.mamba2_block(rms_norm(x, lp["ln"]), lp, lm.cfg,
+                             mode="prefill")
+    return x + h, cch
+
+
+def _stack_ssm(caches):
+    return {k: torch.stack([getattr(cc, k) for cc in caches])
+            for k in m2.SSMCache._fields}
+
+
+def _hybrid_prefill_body(lm: LM, params, x):
+    """The hybrid's prefill: the shared block's k/v at each application,
+    the SSM layers' caches in layer order."""
+    head, tail, _, n_tail = lm._hybrid_split(params["layers"])
+    caches, sks, svs = [], [], []
+    for group in head + ([tail] if n_tail else []):
+        x, (sk, sv) = lm._shared_block(params, x, kv_out=True)
+        sks.append(sk)
+        svs.append(sv)
+        for lp in group:
+            x, cch = _ssm_prefill(lm, x, lp)
+            caches.append(cch)
+    cache = _stack_ssm(caches)
+    cache["sk"], cache["sv"] = torch.stack(sks), torch.stack(svs)
+    return x, cache
+
+
 @torch.no_grad()
 def decode_step(lm: LM, params, cache: Dict, token, pos):
     """One serve step: token (B,1) int, ``pos`` a scalar or a (B,) tensor.
 
     Writes the token's K/V (an SSM layer: its state and conv window) into
     ``cache`` in place; returns (cache, logits (B,1,V_pad))."""
+    c = lm.cfg
     x = lm._embed(params, token)
-    for i, lp in enumerate(layer_list(params)):
-        if lm.cfg.family == "ssm":
-            h, new = m2.mamba2_block(
-                rms_norm(x, lp["ln"]), lp, lm.cfg, mode="decode",
-                cache=m2.SSMCache(*(cache[k][i]
-                                    for k in m2.SSMCache._fields)))
-            for k in m2.SSMCache._fields:
-                cache[k][i].copy_(getattr(new, k))
+    if c.family == "ssm":
+        for i, lp in enumerate(layer_list(params)):
+            x = _ssm_decode(lm, x, lp, cache, i)
+    elif c.family == "hybrid":
+        x = _hybrid_decode_body(lm, params, cache, x, pos)
+    elif c.family == "vlm":
+        selfs, spg = layer_list(params), lm.self_per_group
+        for g, clp in enumerate(layer_list(params, "cross")):
+            for j, lp in enumerate(selfs[g * spg:(g + 1) * spg]):
+                x = _dense_decode(lm, x, lp, cache["k"][g][j],
+                                  cache["v"][g][j], pos)
+            h = _decode_cross(lm, rms_norm(x, clp["ln1"]), clp,
+                              cache["xk"][g], cache["xv"][g], prefix="")
+            x = x + torch.tanh(clp["gate_attn"]).to(x.dtype) * h
+            f = _decode_ffn(lm, rms_norm(x, clp["ln2"]), clp)
+            x = x + torch.tanh(clp["gate_ffn"]).to(x.dtype) * f
+    else:
+        for i, lp in enumerate(layer_list(params)):
+            h, _, _ = _decode_attn(lm, rms_norm(x, lp["ln1"]), lp,
+                                   cache["k"][i], cache["v"][i], pos)
             x = x + h
-            continue
-        h, _, _ = _decode_attn(lm, rms_norm(x, lp["ln1"]), lp,
-                               cache["k"][i], cache["v"][i], pos)
-        x = x + h
-        x = x + _decode_ffn(lm, rms_norm(x, lp["ln2"]), lp)
+            if c.family == "audio":
+                x = x + _decode_cross(lm, rms_norm(x, lp["ln_x"]), lp,
+                                      cache["xk"][i], cache["xv"][i])
+            x = x + _decode_ffn(lm, rms_norm(x, lp["ln2"]), lp)
     hidden = rms_norm(x, params["final_norm"])
     return cache, lm.logits_last(params, hidden)
+
+
+def _dense_decode(lm: LM, x, lp, kc, vc, pos):
+    h, _, _ = _decode_attn(lm, rms_norm(x, lp["ln1"]), lp, kc, vc, pos)
+    x = x + h
+    return x + _decode_ffn(lm, rms_norm(x, lp["ln2"]), lp)
+
+
+def _ssm_decode(lm: LM, x, lp, cache, i):
+    """SSM layer ``i`` for one token; its state and conv window written
+    into ``cache`` in place."""
+    h, new = m2.mamba2_block(
+        rms_norm(x, lp["ln"]), lp, lm.cfg, mode="decode",
+        cache=m2.SSMCache(*(cache[k][i] for k in m2.SSMCache._fields)))
+    for k in m2.SSMCache._fields:
+        cache[k][i].copy_(getattr(new, k))
+    return x + h
+
+
+def _hybrid_decode_body(lm: LM, params, cache, x, pos):
+    """The hybrid's decode: application a of the shared block attends to
+    (and writes) ``sk[a]`` / ``sv[a]``; the SSM layers follow in order."""
+    head, tail, _, n_tail = lm._hybrid_split(params["layers"])
+    sp = {k: v[0] for k, v in params["shared"].items()}
+    i = 0
+    for a, group in enumerate(head + ([tail] if n_tail else [])):
+        x = _dense_decode(lm, x, sp, cache["sk"][a], cache["sv"][a], pos)
+        for lp in group:
+            x = _ssm_decode(lm, x, lp, cache, i)
+            i += 1
+    return x

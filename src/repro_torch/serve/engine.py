@@ -10,10 +10,17 @@ and leave the batch at any step.  Finished slots are freed and refilled
 from the queue.  The engine runs no prefill, so it never launches the
 flash-attention kernel.  It serves the dense and MoE families (a MoE step
 caps over all B slots, inactive ones feeding token 0, as the reference's
-does).  A family with a recurrent cache (SSM) raises: the reference
-admits a request into a slot without resetting the slot's cache, and an
-SSM decode ignores the position, so a reused slot would continue the
-previous request's state (ROADMAP.md §3).
+does).  The other families raise, each for its own reason:
+
+* a recurrent cache (SSM, hybrid): the reference admits a request into a
+  slot without resetting the slot's cache, and an SSM decode ignores the
+  position, so a reused slot would continue the previous request's state
+  (ROADMAP.md §3);
+* a cross-attention cache (VLM, audio): the reference's engine only ever
+  decodes, so ``xk`` / ``xv`` stay the zeros of ``cache_zeros`` and every
+  request would attend to an empty image or audio memory (ROADMAP.md §3).
+
+Serve those with ``models.lm.serve.prefill`` / ``decode_step``.
 """
 
 from __future__ import annotations
@@ -47,12 +54,19 @@ class Request:
 class ServeEngine:
     def __init__(self, lm: LM, params, *, max_batch: int, s_max: int,
                  sample: Optional[Callable] = None, device="cuda"):
-        if lm.cfg.family not in ("dense", "moe"):
+        fam = lm.cfg.family
+        if fam in ("ssm", "hybrid"):
             raise NotImplementedError(
-                f"ServeEngine over the {lm.cfg.family!r} family: a reused "
-                f"slot would keep the previous request's recurrent state "
-                f"(ROADMAP.md §3); serve it with models.lm.serve.prefill / "
-                f"decode_step")
+                f"ServeEngine over the {fam!r} family: a reused slot would "
+                f"keep the previous request's recurrent state (ROADMAP.md "
+                f"§3); serve it with models.lm.serve.prefill / decode_step")
+        if fam in ("vlm", "audio"):
+            raise NotImplementedError(
+                f"ServeEngine over the {fam!r} family: the engine only "
+                f"decodes, so the cross-attention caches xk / xv would stay "
+                f"zeros and every request would attend to an empty "
+                f"{'image' if fam == 'vlm' else 'audio'} memory (ROADMAP.md "
+                f"§3); serve it with models.lm.serve.prefill / decode_step")
         dev = resolve_device(device)
         if lm.device != dev:
             raise ValueError(f"model on {lm.device}, engine on {dev}; "

@@ -4,10 +4,20 @@ Inputs are made with numpy from a seed and handed to both packages; JAX
 stays on the CPU (its Pallas kernels run in interpret mode there)."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
 import torch
+
+# Under pytest-xdist each worker takes its share of the cores for
+# PyTorch's intra-op threads: at the default (every core in every
+# worker) the workers' OpenMP threads wait on each other's cores, and a
+# small model's training ran 30-60x slower than alone.  Every worker
+# imports this module while it collects the suite.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 # small size of the parity tests: scale-0.02 Table-1 partitions, hidden 32,
 # k 8, two layers
@@ -44,6 +54,39 @@ def assert_bf16_close(actual, ref, msg=""):
     assert (excess <= 0).all(), (
         f"{msg} {int((excess > 0).sum())} elements beyond one bf16 ulp; "
         f"worst by {float(excess.max())}")
+
+
+def lm_extras(cfg, lead, seed=0):
+    """Seeded fp32 ``image_emb`` (VLM) or ``frames`` (audio) for a batch
+    whose leading dims are ``lead``: one memory a sequence, shaped as the
+    port's ``extra_input`` says, as numpy; {} for the other families."""
+    from repro_torch.models.lm.model import extra_input
+    spec = extra_input(cfg)
+    if spec is None:
+        return {}
+    x = np.random.default_rng(seed).normal(size=(*lead, spec[1],
+                                                 cfg.d_model))
+    return {spec[0]: x.astype(np.float32)}
+
+
+def nonzero_gates(params, seed=0):
+    """A copy of a reference LM's parameter tree (numpy leaves) whose zero
+    gates and biases the port's ``draw_zero_inits`` has drawn from
+    ``seed``: the template makes them 0, and tanh(0) = 0 would leave the
+    VLM's cross layer untested."""
+    from repro_torch.models.lm.model import draw_zero_inits
+
+    def to_torch(tree):
+        return {k: to_torch(v) if isinstance(v, dict)
+                else torch.from_numpy(np.array(v, np.float32))
+                for k, v in tree.items()}
+
+    def to_numpy(tree):
+        return {k: to_numpy(v) if isinstance(v, dict) else v.numpy()
+                for k, v in tree.items()}
+    tree = to_torch(params)
+    draw_zero_inits(tree, torch.Generator().manual_seed(seed))
+    return to_numpy(tree)
 
 
 def assert_fused_equal(a, b):

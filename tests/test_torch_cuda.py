@@ -5,9 +5,10 @@ trainer, the dense-SpMM trainer, the serial per-bucket trainer and the
 homogeneous baselines), the concurrent relation modules against the
 sequential ones, the flash-attention kernel (fp32 and bf16, k/v at
 KV <= H heads, up to S 4,096) and the reduced dense LM (prefill, decode,
-``ServeEngine``) and the reduced MoE and SSM LMs (prefill, decode, a train
-step) on the card against the CPU, kernel 13b (the flash
-backward) against its plain version, bit-equal across two bf16 launches
+``ServeEngine``) and the reduced MoE, SSM, hybrid, VLM and audio LMs
+(prefill, decode, a train step) on the card against the CPU, kernel 13b
+(the flash backward) against its plain version, kernels 13 / 13b at a
+non-causal cross-attention shape (Sq 448, Sk 1,500), bit-equal across two bf16 launches
 and refusing a misaligned view, the forward's log-sum-exp, autograd
 through ``chunked_attention`` and two LM training steps against the CPU,
 and the engine's captured
@@ -55,7 +56,7 @@ from repro_torch.models.hgnn import (HOMO_KINDS, DRCircuitGNN, HomoGNN,
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.models.lm import attention as lm_attention
 from repro_torch.models.lm import serve as lm_serve
-from repro_torch.models.lm.model import build_lm
+from repro_torch.models.lm.model import build_lm, draw_zero_inits
 from repro_torch.optim.adamw import adamw_init, tree_leaves
 from repro_torch.train import lm_step
 from repro_torch.serve.circuit_engine import CircuitServeEngine
@@ -64,7 +65,7 @@ from repro_torch.train.circuit_trainer import (CircuitTrainConfig,
                                                CircuitTrainer)
 from _torch_port import (HIDDEN, K, LAYERS, SCALE, assert_bf16_close,
                          assert_close, cbsr_operands,
-                         cuda, drelu_rows,  # noqa: F401  (fixture)
+                         cuda, drelu_rows, lm_extras,  # noqa: F401  (fixture)
                          padded_and_exact_rows)
 
 pytestmark = pytest.mark.cuda
@@ -1400,6 +1401,34 @@ def test_flash_lse_matches_plain(cuda, dtype, hd, sq, sk, causal, q_offset):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,h,kv", [(64, 4, 4), (128, 8, 1)])
+def test_flash_cross_attention_matches_plain(cuda, dtype, hd, h, kv):
+    """Cross-attention's shapes (whisper's decoder over 1,500 frames: Sq
+    448, Sk 1,500, not a multiple of the 64- or 128-key tile; non-causal;
+    MHA at hd 64 and 8:1 GQA at hd 128 as the VLM's): kernel 13's output
+    and lse and kernel 13b's dq/dk/dv against the plain versions, one
+    launch each, at the limits of the tests above."""
+    dt = getattr(torch, dtype)
+    q, k, v, o, lse_ref, do = _bwd_case(cuda, dt, hd, 448, 1500, h, kv,
+                                        False, 0, 5 + hd + kv)
+    f0 = flash_attention.flash_attention.launches
+    b0 = flash_attention.flash_attention_bwd.launches
+    out, lse = flash_attention._forward(q, k, v, False, 0, with_lse=True)
+    got = flash_attention.flash_attention_bwd(q, k, v, o, lse_ref, do,
+                                              causal=False)
+    ref = flash_attention.flash_attention_bwd_plain(q, k, v, o, lse_ref, do,
+                                                    causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == f0 + 1
+    assert flash_attention.flash_attention_bwd.launches == b0 + 1
+    close = assert_close if dt == torch.float32 else assert_bf16_close
+    close(out.float().cpu().numpy(), o.float().cpu().numpy(), "o")
+    assert_close(lse.cpu().numpy(), lse_ref.cpu().numpy(), "lse")
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        close(a.float().cpu().numpy(), b.float().cpu().numpy(), name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_autograd_on_card_matches_cpu(cuda, dtype):
     """``chunked_attention`` under autograd on the card (kernels 13 and 13b)
     against the same on the CPU (the plain versions): fp32 within
@@ -1515,25 +1544,39 @@ def test_lm_bf16_prefill_on_card(cuda):
     _rel_close(ld, lp, 5e-2)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
-                                  "moonshot-v1-16b-a3b", "mamba2-1.3b"])
+# kernel 13 launches of a reduced family's prefill, and kernels 13 / 13b
+# of one train step under remat (a rematted layer runs its forward twice;
+# the hybrid's shared block runs outside remat, as the reference's)
+FAMILY_FLASH = {"granite-moe-1b-a400m": (2, 4, 2),
+                "moonshot-v1-16b-a3b": (2, 4, 2), "mamba2-1.3b": (0, 0, 0),
+                "zamba2-1.2b": (1, 1, 1),
+                "llama-3.2-vision-90b": (2, 4, 2),
+                "whisper-large-v3": (6, 12, 6)}
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_FLASH))
 def test_lm_family_on_card_matches_cpu(cuda, arch):
-    """The reduced MoE and SSM LMs in fp32 from the same weights: prefill
-    (kernel 13 once a layer for MoE, never for SSM), three decode steps
-    (no launch) and one ``make_train_step`` step (MoE: kernel 13 twice a
-    layer, 13b once) within 1e-4 relative L2 of the CPU, the same greedy
-    tokens."""
+    """The reduced MoE, SSM, hybrid, VLM and audio LMs in fp32 from the
+    same weights (the VLM's gates and whisper's biases drawn nonzero,
+    seeded ``image_emb`` / ``frames``): prefill, three decode steps (no
+    launch) and one ``make_train_step`` step within 1e-4 relative L2 of
+    the CPU, the same greedy tokens, kernels 13 / 13b launched as
+    ``FAMILY_FLASH`` says."""
     cfg = reduced(get_config(arch))
     lm = build_lm(cfg, device=cuda)
-    lm.init(torch.Generator(cuda).manual_seed(0))
+    draw_zero_inits(lm.init(torch.Generator(cuda).manual_seed(0)),
+                    torch.Generator(cuda).manual_seed(1))
     cpu = build_lm(cfg, device="cpu")
     cpu.load_state_dict(lm.state_dict())
-    n = cfg.n_layers if cfg.family == "moe" else 0
+    n_pre, n_fwd, n_bwd = FAMILY_FLASH[arch]
     tok = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab, (2, 32)))
+    extra = {k: torch.from_numpy(v)
+             for k, v in lm_extras(cfg, (2,), seed=2).items()}
+    on = lambda dev: {k: v.to(dev) for k, v in extra.items()} or None
     f0 = flash_attention.flash_attention.launches
-    c_gpu, l_gpu = lm_serve.prefill(lm, lm.params(), tok.to(cuda))
-    c_cpu, l_cpu = lm_serve.prefill(cpu, cpu.params(), tok)
+    c_gpu, l_gpu = lm_serve.prefill(lm, lm.params(), tok.to(cuda), on(cuda))
+    c_cpu, l_cpu = lm_serve.prefill(cpu, cpu.params(), tok, on("cpu"))
     _rel_close(l_gpu, l_cpu)
     for k in c_cpu:
         _rel_close(c_gpu[k], c_cpu[k])
@@ -1545,10 +1588,11 @@ def test_lm_family_on_card_matches_cpu(cuda, arch):
                                             31 - step)
         _rel_close(l_gpu, l_cpu)
         assert torch.equal(l_gpu.argmax(-1).cpu(), l_cpu.argmax(-1))
-    assert flash_attention.flash_attention.launches - f0 == n
+    assert flash_attention.flash_attention.launches - f0 == n_pre
     batch = {k: torch.from_numpy(v.astype(np.int64)) for k, v in
              TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=64,
                                       global_batch=2)).global_batch(0).items()}
+    batch.update(extra)
     out = {}
     for model, dev in ((lm, cuda), (cpu, "cpu")):
         state = lm_step.TrainState(model.params(),
@@ -1559,8 +1603,8 @@ def test_lm_family_on_card_matches_cpu(cuda, arch):
             state, {k: v.to(dev) for k, v in batch.items()})
         out[str(dev)] = (m, state)
         if dev != "cpu":
-            assert flash_attention.flash_attention.launches - f0 == 2 * n
-            assert flash_attention.flash_attention_bwd.launches - b0 == n
+            assert flash_attention.flash_attention.launches - f0 == n_fwd
+            assert flash_attention.flash_attention_bwd.launches - b0 == n_bwd
     (m_gpu, s_gpu), (m_cpu, s_cpu) = out[str(cuda)], out["cpu"]
     _rel_close(m_gpu["loss"], m_cpu["loss"])
     _rel_close(m_gpu["grad_norm"], m_cpu["grad_norm"])

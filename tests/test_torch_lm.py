@@ -7,7 +7,11 @@ config with the reference's weights carried by ``LM.from_jax_params``:
 the SwiGLU FFN with D-ReLU, ``forward``, ``prefill`` (logits and cache),
 ``decode_step`` at a scalar and at a per-slot ``pos``, decode reproducing
 prefill, the sparse decode FFN, and ``ServeEngine`` against the reference
-engine.  fp32 tolerances as ``_torch_port.assert_close``; where a test
+engine; and the MoE, SSM, hybrid (also with a tail), VLM and audio
+families from their reduced configs (forward, cache template, prefill,
+three decode steps at scalar and per-slot positions, bf16), and
+``ServeEngine`` refusing the hybrid, VLM and audio families.  fp32
+tolerances as ``_torch_port.assert_close``; where a test
 says bf16, one bf16 rounding (2^-7 relative) or, for a whole model whose
 two frameworks round at other places, 5e-2 relative L2."""
 
@@ -35,11 +39,17 @@ from repro_torch.models.lm import ffn as tffn
 from repro_torch.models.lm import serve
 from repro_torch.models.lm.model import LM, build_lm
 from repro_torch.serve.engine import ServeEngine
-from _torch_port import assert_close
+from _torch_port import assert_close, lm_extras, nonzero_gates
 
 DENSE = ("qwen3-0.6b", "qwen3-1.7b", "minitron-4b", "minicpm-2b")
-# the MoE and SSM families
-FAMILIES = ("granite-moe-1b-a400m", "moonshot-v1-16b-a3b", "mamba2-1.3b")
+# the MoE, SSM, hybrid, VLM and audio families
+FAMILIES = ("granite-moe-1b-a400m", "moonshot-v1-16b-a3b", "mamba2-1.3b",
+            "zamba2-1.2b", "llama-3.2-vision-90b", "whisper-large-v3")
+# the reduced configs of the family tests, and the hybrid with a tail:
+# 3 layers at attn_every 2 are one group and a tail of one, so the shared
+# block runs twice (``reduced()`` alone gives one group and no tail)
+FAMILY_CASES = [pytest.param((a, {}), id=a) for a in FAMILIES] + [
+    pytest.param(("zamba2-1.2b", {"n_layers": 3}), id="zamba2-1.2b-tail")]
 BF16_RTOL = 2.0 ** -7
 
 
@@ -89,11 +99,18 @@ def test_templates_match_reference(arch, tp):
         (ref.h_pad, ref.kv_pad, ref.v_pad)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-large-v3",
-                                  "llama-3.2-vision-90b"])
-def test_other_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_lm(tbase.reduced(tbase.get_config(arch)), device="cpu")
+@pytest.mark.parametrize("arch,why", [
+    ("zamba2-1.2b", "recurrent state"),
+    ("llama-3.2-vision-90b", "empty image memory"),
+    ("whisper-large-v3", "empty audio memory")])
+def test_engine_refuses_family(arch, why):
+    """``ServeEngine`` refuses the hybrid (a reused slot keeps its
+    recurrent state) and the VLM and audio families (an engine that only
+    decodes leaves the cross caches zero), each for its own reason;
+    ``build_lm`` builds all three."""
+    lm = build_lm(tbase.reduced(tbase.get_config(arch)), device="cpu")
+    with pytest.raises(NotImplementedError, match=f"{why}.*ROADMAP"):
+        ServeEngine(lm, lm.params(), max_batch=2, s_max=16, device="cpu")
 
 
 def test_init_follows_template():
@@ -357,41 +374,65 @@ def test_bf16_prefill_close_to_reference():
 
 
 # ---------------------------------------------------------------------------
-# the reduced MoE and SSM LMs with the reference's weights
+# the reduced MoE, SSM, hybrid, VLM and audio LMs with the reference's weights
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module", params=FAMILIES)
+def _cfg(mod, arch, over, **more):
+    return dataclasses.replace(mod.reduced(mod.get_config(arch)), **over,
+                               **more)
+
+
+@pytest.fixture(scope="module", params=FAMILY_CASES)
 def fam(request):
-    jlm = j_build_lm(jbase.reduced(jbase.get_config(request.param)))
-    jp = jlm.init(jax.random.PRNGKey(0))
-    lm = LM.from_jax_params(tbase.reduced(tbase.get_config(request.param)),
-                            jax.tree.map(np.asarray, jp), device="cpu")
+    """(reference LM, its weights, the port's LM holding them, its tree,
+    tokens (2, 32), the seeded extras as numpy): the VLM's cross gates and
+    whisper's GELU biases drawn nonzero."""
+    arch, over = request.param
+    jlm = j_build_lm(_cfg(jbase, arch, over))
+    jp = nonzero_gates(jlm.init(jax.random.PRNGKey(0)), seed=2)
+    lm = LM.from_jax_params(_cfg(tbase, arch, over), jp, device="cpu")
     tokens = np.random.default_rng(1).integers(
         0, lm.cfg.vocab, (2, 32)).astype(np.int32)
-    return jlm, jp, lm, lm.params(), tokens
+    return jlm, jp, lm, lm.params(), tokens, lm_extras(lm.cfg, (2,), 3)
+
+
+def _extra(extra, jax_side):
+    if not extra:
+        return None
+    return {k: jnp.asarray(v) if jax_side else _t(v)
+            for k, v in extra.items()}
 
 
 def test_family_from_jax_params_carries_weights(fam):
-    jlm, jp, lm, p, _ = fam
-    assert set(p["layers"]) == set(jp["layers"])
-    for k, v in p["layers"].items():
-        np.testing.assert_array_equal(v.detach().numpy(), jp["layers"][k])
+    """Every subtree (``layers``, and the hybrid's ``shared``, the VLM's
+    ``cross``, whisper's ``enc_layers`` / ``enc_norm``) leaf for leaf."""
+    jlm, jp, lm, p, _, _ = fam
+    assert set(p) == set(jp)
+    for name, tree in p.items():
+        if not isinstance(tree, dict):
+            np.testing.assert_array_equal(tree.detach().numpy(), jp[name])
+            continue
+        assert set(tree) == set(jp[name]), name
+        for k, v in tree.items():
+            np.testing.assert_array_equal(v.detach().numpy(), jp[name][k])
+    if "cross" in p:
+        assert (p["cross"]["gate_attn"] != 0).all()
 
 
 def test_family_forward_matches_reference(fam):
     """Hidden states and the aux loss (MoE: the layers' load-balance sum;
-    SSM: 0)."""
-    jlm, jp, lm, p, tokens = fam
-    ref, ref_aux = jlm.forward(jp, jnp.asarray(tokens))
+    the others: 0)."""
+    jlm, jp, lm, p, tokens, extra = fam
+    ref, ref_aux = jlm.forward(jp, jnp.asarray(tokens), _extra(extra, True))
     with torch.no_grad():
-        out, aux = lm(p, _t(tokens).long())
+        out, aux = lm(p, _t(tokens).long(), _extra(extra, False))
     assert_close(out.numpy(), np.asarray(ref))
     assert_close(aux.numpy(), np.asarray(ref_aux))
     assert (float(aux) > 0) == (lm.cfg.family == "moe")
 
 
 def test_family_cache_template_matches_reference(fam):
-    jlm, jp, lm, p, _ = fam
+    jlm, jp, lm, p, _, _ = fam
     ref = jserve.cache_template(jlm, 3, 24)
     ours = serve.cache_template(lm, 3, 24)
     assert {k: v[:2] for k, v in ours.items()} == \
@@ -404,9 +445,12 @@ def test_family_cache_template_matches_reference(fam):
 
 
 def test_family_prefill_matches_reference(fam):
-    jlm, jp, lm, p, tokens = fam
-    jc, jl = jserve.prefill(jlm, jp, jnp.asarray(tokens))
-    c, lg = serve.prefill(lm, p, _t(tokens).long())
+    """The last logits and every cache entry (the hybrid's ``sk`` / ``sv``,
+    the VLM's and whisper's ``xk`` / ``xv``)."""
+    jlm, jp, lm, p, tokens, extra = fam
+    jc, jl = jserve.prefill(jlm, jp, jnp.asarray(tokens),
+                            _extra(extra, True))
+    c, lg = serve.prefill(lm, p, _t(tokens).long(), _extra(extra, False))
     assert lg.shape == jl.shape and set(c) == set(jc)
     assert_close(lg.numpy(), np.asarray(jl))
     for k in c:
@@ -419,9 +463,9 @@ def test_family_decode_step_matches_reference(fam, vector):
     """Three decode steps after the prefill (a scalar position, or every
     slot at its own), logits and the whole cache after each (the port
     writes it in place)."""
-    jlm, jp, lm, p, tokens = fam
-    jc, _ = jserve.prefill(jlm, jp, jnp.asarray(tokens))
-    c, _ = serve.prefill(lm, p, _t(tokens).long())
+    jlm, jp, lm, p, tokens, extra = fam
+    jc, _ = jserve.prefill(jlm, jp, jnp.asarray(tokens), _extra(extra, True))
+    c, _ = serve.prefill(lm, p, _t(tokens).long(), _extra(extra, False))
     for step in range(3):
         tok = tokens[:, step:step + 1]
         pos = (np.array([31 - step, 5 + step], np.int32) if vector
@@ -439,15 +483,14 @@ def test_family_decode_step_matches_reference(fam, vector):
 def test_family_bf16_prefill_close_to_reference(fam):
     """bf16 end to end: logits within 5e-2 relative L2 of the reference's
     bf16 prefill (the frameworks round at other places), decode finite."""
-    _, jp, _, _, tokens = fam
-    arch = fam[2].cfg.name
-    jlm = j_build_lm(dataclasses.replace(
-        jbase.reduced(jbase.get_config(arch)), dtype="bfloat16"))
-    lm = LM.from_jax_params(dataclasses.replace(
-        tbase.reduced(tbase.get_config(arch)), dtype="bfloat16"),
-        jax.tree.map(np.asarray, jp), device="cpu")
-    jc, jl = jserve.prefill(jlm, jp, jnp.asarray(tokens))
-    c, lg = serve.prefill(lm, lm.params(), _t(tokens).long())
+    _, jp, lm32, _, tokens, extra = fam
+    over = {"n_layers": lm32.cfg.n_layers, "dtype": "bfloat16"}
+    jlm = j_build_lm(_cfg(jbase, lm32.cfg.name, over))
+    lm = LM.from_jax_params(_cfg(tbase, lm32.cfg.name, over), jp,
+                            device="cpu")
+    jc, jl = jserve.prefill(jlm, jp, jnp.asarray(tokens), _extra(extra, True))
+    c, lg = serve.prefill(lm, lm.params(), _t(tokens).long(),
+                          _extra(extra, False))
     assert lg.dtype == torch.float32
     assert {k: v.dtype for k, v in c.items()} == {
         k: torch.float32 if k == "state" else torch.bfloat16 for k in c}

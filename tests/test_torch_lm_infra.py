@@ -31,6 +31,7 @@ from repro_torch.launch.train import main as train_main
 from repro_torch.models.lm.model import LM
 from repro_torch.optim.adamw import AdamWState, adamw_init, tree_leaves
 from repro_torch.train import lm_step
+from _torch_port import lm_extras
 
 
 # ---------------------------------------------------------------------------
@@ -143,14 +144,16 @@ def test_checkpoint_copies_at_save(tmp_path):
 
 def _states(arch="qwen3-0.6b"):
     """The reference's train state of a reduced config after one AdamW
-    step (so m, v and step are not trivial) and a fresh port state of the
-    same config."""
+    step (so m, v and step are not trivial; the VLM and audio families on
+    seeded ``image_emb`` / ``frames``) and a fresh port state of the same
+    config."""
     jc = jbase.reduced(jbase.get_config(arch))
     jlm = j_build_lm(jc)
     params = jlm.init(jax.random.PRNGKey(1))
     step_fn = jax.jit(jstep.make_train_step(jlm, lr=1e-3, total_steps=10))
     b = tpipe.TokenPipeline(tpipe.DataConfig(vocab=jc.vocab, seq_len=16,
                                              global_batch=2)).global_batch(0)
+    b.update(lm_extras(jc, (2,)))
     j_state, _ = step_fn(jstep.TrainState(params, j_adamw_init(params)),
                          {k: jnp.asarray(v) for k, v in b.items()})
     lm = LM(tbase.reduced(tbase.get_config(arch)), device="cpu")
@@ -200,12 +203,15 @@ def test_port_checkpoint_restores_into_reference_state(tmp_path):
     _assert_states_equal(j_restore(str(tmp_path / "port"), 1, like), t_state)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-1.3b",
+                                  "zamba2-1.2b", "llama-3.2-vision-90b",
+                                  "whisper-large-v3"])
 def test_family_checkpoint_crosses_packages(tmp_path, arch):
-    """A MoE (router, stacked experts) and an SSM train state: the
-    reference's checkpoint restores into the port's state leaf for leaf,
-    the port writes the reference's file set, and the reference restores
-    the port's."""
+    """A MoE (router, stacked experts), an SSM, a hybrid (``shared``), a
+    VLM (``cross``) and an audio (``enc_layers``, ``enc_norm``) train
+    state: the reference's checkpoint restores into the port's state leaf
+    for leaf, the port writes the reference's file set, and the reference
+    restores the port's."""
     j_state, t_state = _states(arch)
     j_save(str(tmp_path / "ref"), 1, j_state)
     restored = restore_checkpoint(str(tmp_path / "ref"), 1, t_state)
@@ -259,6 +265,28 @@ def test_family_training_loss_decreases(arch):
                          "--log-every", "100", "--device", "cpu"])
     assert len(losses) == 10 and np.isfinite(losses).all()
     assert np.mean(losses[-3:]) < np.mean(losses[:3])
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b",
+                                  "whisper-large-v3"])
+def test_family_training_runs_with_extras(arch):
+    """``launch.train.main --reduced`` on the VLM and audio families: the
+    entry point adds zero ``image_emb`` / ``frames`` (the reference's
+    ``_maybe_add_extras``, one memory a sequence, also under the
+    microbatch split's leading dims) to each batch; 3 steps give finite
+    losses."""
+    losses = train_main(["--arch", arch, "--reduced", "--steps", "3",
+                         "--batch", "2", "--seq", "16", "--log-every",
+                         "100", "--device", "cpu"])
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    from repro_torch.launch.train import _maybe_add_extras
+    cfg = tbase.reduced(tbase.get_config(arch))
+    batch = {"tokens": torch.zeros((2, 3, 16), dtype=torch.long)}
+    _maybe_add_extras(cfg, batch, LM(cfg, device="meta"))
+    (name, x), = [(k, v) for k, v in batch.items() if k != "tokens"]
+    n = cfg.n_img_tokens if cfg.family == "vlm" else cfg.enc_frames
+    assert name == ("image_emb" if cfg.family == "vlm" else "frames")
+    assert x.shape == (2, 3, n, cfg.d_model) and not x.any()
 
 
 def test_lm_checkpoint_restart_continues(tmp_path):

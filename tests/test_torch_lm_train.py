@@ -1,19 +1,23 @@
 """The port's LM training against the reference, on the CPU.
 
 From the reduced qwen3-0.6b and minicpm-2b configs (tied embeddings, WSD),
-and the MoE (granite, moonshot: the 0.01 aux term) and SSM (mamba2)
-families, with the reference's weights carried by ``LM.from_jax_params`` and
-batches from the token pipeline (numpy, the same arrays on both sides):
+the MoE (granite, moonshot: the 0.01 aux term), SSM (mamba2), hybrid
+(zamba2 at 3 layers: one group and a tail, the shared block twice), VLM
+and audio (seeded ``image_emb`` / ``frames``, cross gates and GELU biases
+nonzero) families, with the reference's weights carried by
+``LM.from_jax_params`` and batches from the token pipeline (numpy, the same
+arrays on both sides):
 
 * ``cross_entropy_chunked``'s value and its ``jax.vjp`` gradients (one
   chunk, two chunks, a padded vocab);
-* ``LM.loss`` and every gradient against ``jax.value_and_grad(lm.loss)``:
-  fp32 within 1e-5 of the loss and 1e-4 relative L2 a leaf (observed
+* ``LM.loss`` and every gradient against the jitted
+  ``jax.value_and_grad(lm.loss)``: fp32 within 1e-5 of the loss and 1e-4 relative L2 a leaf (observed
   ~1e-6); bf16 loss within 1e-3 of the reference's bf16 loss, and each
   leaf's distance from the fp32 gradient at most 1.25x the reference's
   bf16 distance plus 5e-3 (the two frameworks round each bf16 product
   once at other places and flip other near-tied D-ReLU picks; both sit
-  1-10 % from fp32, observed ratio <= 1.1);
+  1-10 % from fp32, observed ratio <= 1.1); the VLM's D-ReLU keeps the
+  reference's picks (``PINNED``), here and in the train steps;
 * remat off / ``full`` / ``dots`` / ``proj``: the same loss and gradients
   bit for bit;
 * 1 and 3 steps of ``make_train_step`` (``grad_accum`` 1 and 2) against
@@ -42,12 +46,69 @@ from repro_torch.models.lm import common as tcommon
 from repro_torch.models.lm.model import LM
 from repro_torch.optim.adamw import adamw_init, tree_leaves
 from repro_torch.train import lm_step
-from _torch_port import assert_close
+from _torch_port import assert_close, lm_extras, nonzero_gates
 
 SEQ, BATCH = 64, 2
-# every trained family: dense (untied, tied + WSD), MoE, SSM
+# every trained family: dense (untied, tied + WSD), MoE, SSM, hybrid, VLM,
+# audio
 ARCHS = ("qwen3-0.6b", "minicpm-2b", "granite-moe-1b-a400m",
-         "moonshot-v1-16b-a3b", "mamba2-1.3b")
+         "moonshot-v1-16b-a3b", "mamba2-1.3b", "zamba2-1.2b",
+         "llama-3.2-vision-90b", "whisper-large-v3")
+# the hybrid trains with a tail: 3 layers at attn_every 2
+OVER = {"zamba2-1.2b": {"n_layers": 3}}
+# the bf16 gradient test and the train steps pin the VLM's D-ReLU: the
+# port keeps the reference's picks.  Near-tied picks that the two
+# frameworks round apart moved its bf16 FFN weights and scalar cross
+# gates 1.03-2.8x the reference's distance from fp32 over four seeds, and
+# 4 fp32 picks flipped after two AdamW steps moved its third step's
+# gradient norm 1.25e-5 from the reference's (ROADMAP.md §3).  The port's
+# own picks may differ from the reference's at most at this share of the
+# kept entries (measured: bf16 0.8-1.0 % over ten weight and batch draws,
+# fp32 1.2e-4 at that third step)
+PINNED = ("llama-3.2-vision-90b",)
+PIN_FLIPS = {"bfloat16": 0.02, "float32": 1e-3}
+
+
+class _DreluPins:
+    """While installed (through ``monkeypatch``), the reference's D-ReLU
+    records each call's kept entries (a host callback, in call order: the
+    forward, then the remat's recomputation in the backward) and the
+    port's keeps the recorded entries of the call of the same index,
+    counting the entries where its own pick differs; ``reset`` before
+    each reference call."""
+
+    def __init__(self, monkeypatch):
+        import repro.core.drelu as jdrelu
+        from repro_torch.models.lm import ffn as tffn
+        self.masks, self.calls, self.flips, self.kept = [], 0, 0, 0
+        j_orig, t_orig = jdrelu.drelu_grouped, tffn.drelu_grouped
+
+        def record(x, k, groups):
+            y = j_orig(x, k, groups)
+            jax.debug.callback(lambda m: self.masks.append(np.array(m)),
+                               y != 0, ordered=True)
+            return y
+
+        def replay(x, k, groups):
+            own = t_orig(x, k, groups) != 0
+            keep = torch.from_numpy(self.masks[self.calls])
+            self.calls += 1
+            self.flips += int((own != keep).sum())
+            self.kept += int(keep.sum())
+            return torch.where(keep, x, torch.zeros_like(x))
+        monkeypatch.setattr(jdrelu, "drelu_grouped", record)
+        monkeypatch.setattr(tffn, "drelu_grouped", replay)
+
+    def reset(self):
+        self.masks.clear()
+        self.calls = 0
+
+    def check(self, dtype):
+        """Every recorded call replayed, and few flipped picks."""
+        assert self.calls == len(self.masks) > 0, (self.calls,
+                                                   len(self.masks))
+        assert self.flips <= PIN_FLIPS[dtype] * self.kept, (self.flips,
+                                                            self.kept)
 
 
 def _rel(a, b):
@@ -67,23 +128,31 @@ def _flat(tree, pre=""):
 
 
 def _pair(arch, dtype="float32", **over):
-    """(reference LM, its params, port LM holding the same weights)."""
+    """(reference LM, its params, port LM holding the same weights); the
+    cross gates and GELU biases drawn nonzero."""
+    over = {**OVER.get(arch, {}), **over}
     jc = dataclasses.replace(jbase.reduced(jbase.get_config(arch)),
                              dtype=dtype, **over)
     tc = dataclasses.replace(tbase.reduced(tbase.get_config(arch)),
                              dtype=dtype, **over)
     jlm = j_build_lm(jc)
-    params = jlm.init(jax.random.PRNGKey(0))
+    params = nonzero_gates(jlm.init(jax.random.PRNGKey(0)), seed=4)
     return jlm, params, LM.from_jax_params(tc, params, device="cpu")
 
 
-def _batch(vocab, step=0, batch=BATCH):
-    return TokenPipeline(DataConfig(vocab=vocab, seq_len=SEQ,
-                                    global_batch=batch)).global_batch(step)
+def _batch(vocab, step=0, batch=BATCH, cfg=None):
+    """The pipeline's batch, and ``cfg``'s seeded ``image_emb`` /
+    ``frames`` (one a sequence) when it is a VLM or audio config."""
+    b = TokenPipeline(DataConfig(vocab=vocab, seq_len=SEQ,
+                                 global_batch=batch)).global_batch(step)
+    if cfg is not None:
+        b.update(lm_extras(cfg, (batch,), seed=step))
+    return b
 
 
 def _torch_batch(b):
-    return {k: torch.from_numpy(v.astype(np.int64)) for k, v in b.items()}
+    return {k: torch.from_numpy(v.astype(np.int64) if v.dtype.kind in "iu"
+                                else v) for k, v in b.items()}
 
 
 def _port_loss_grads(lm, batch):
@@ -145,8 +214,8 @@ def test_loss_and_grads_match_reference_fp32(arch):
     """fp32: loss within 1e-5, every gradient within 1e-4 relative L2
     (minicpm ties ``embed`` to ``out_w``: both paths feed its gradient)."""
     jlm, params, lm = _pair(arch)
-    b = _batch(lm.cfg.vocab)
-    ref_l, ref_g = jax.value_and_grad(jlm.loss)(
+    b = _batch(lm.cfg.vocab, cfg=lm.cfg)
+    ref_l, ref_g = jax.jit(jax.value_and_grad(jlm.loss))(
         params, {k: jnp.asarray(v) for k, v in b.items()})
     loss, grads = _port_loss_grads(lm, b)
     ref_g = _flat(ref_g)
@@ -157,16 +226,21 @@ def test_loss_and_grads_match_reference_fp32(arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_loss_and_grads_match_reference_bf16(arch):
+def test_loss_and_grads_match_reference_bf16(arch, monkeypatch):
     """bf16 (the module docstring states the limits): the port's bf16 is as
-    far from the fp32 gradient as the reference's bf16 is."""
+    far from the fp32 gradient as the reference's bf16 is; the VLM with
+    the port's D-ReLU picks pinned to the reference's (``PINNED``)."""
     jlm32, params, lm32 = _pair(arch)
     jlm, _, lm = _pair(arch, "bfloat16")
-    b = _batch(lm.cfg.vocab)
+    b = _batch(lm.cfg.vocab, cfg=lm.cfg)
     jb = {k: jnp.asarray(v) for k, v in b.items()}
-    _, g32 = jax.value_and_grad(jlm32.loss)(params, jb)
-    ref_l, ref_g = jax.value_and_grad(jlm.loss)(params, jb)
+    _, g32 = jax.jit(jax.value_and_grad(jlm32.loss))(params, jb)
+    pins = _DreluPins(monkeypatch) if arch in PINNED else None
+    ref_l, ref_g = jax.jit(jax.value_and_grad(jlm.loss))(params, jb)
+    jax.effects_barrier()
     loss, grads = _port_loss_grads(lm, b)
+    if pins is not None:
+        pins.check("bfloat16")
     g32, ref_g = _flat(g32), _flat(ref_g)
     assert abs(loss - float(ref_l)) <= 1e-3
     for n, g in grads.items():
@@ -231,12 +305,14 @@ def test_remat_policies_save_what_they_name(monkeypatch):
 
 @pytest.mark.parametrize("grad_accum", [1, 2])
 @pytest.mark.parametrize("arch", ARCHS)
-def test_train_steps_match_reference(arch, grad_accum):
+def test_train_steps_match_reference(arch, grad_accum, monkeypatch):
     """3 steps (lr 1e-3, 10 total: cosine warmup, or minicpm's WSD) against
     the reference's jitted step from the same weights and batches; step 1
     and step 3 compared.  ``grad_accum`` 2 splits each batch of 4 into two
-    microbatches."""
+    microbatches.  The VLM's D-ReLU picks pinned to the reference's
+    (``PINNED``)."""
     jlm, params, lm = _pair(arch)
+    pins = _DreluPins(monkeypatch) if arch in PINNED else None
     j_fn = jax.jit(jstep.make_train_step(jlm, lr=1e-3, total_steps=10,
                                          grad_accum=grad_accum))
     t_fn = lm_step.make_train_step(lm, lr=1e-3, total_steps=10,
@@ -244,12 +320,17 @@ def test_train_steps_match_reference(arch, grad_accum):
     j_state = jstep.TrainState(params, j_adamw_init(params))
     t_state = lm_step.TrainState(lm.params(), adamw_init(lm.params()))
     for step in range(3):
-        b = _batch(lm.cfg.vocab, step, batch=4)
+        b = _batch(lm.cfg.vocab, step, batch=4, cfg=lm.cfg)
         if grad_accum > 1:
-            b = {k: v.reshape(grad_accum, 4 // grad_accum, SEQ)
+            b = {k: v.reshape(grad_accum, 4 // grad_accum, *v.shape[1:])
                  for k, v in b.items()}
+        if pins is not None:
+            pins.reset()
         j_state, jm = j_fn(j_state, {k: jnp.asarray(v) for k, v in b.items()})
+        jax.effects_barrier()
         t_state, tm = t_fn(t_state, _torch_batch(b))
+        if pins is not None:
+            pins.check("float32")
         assert abs(float(tm["loss"]) - float(jm["loss"])) <= \
             1e-5 * abs(float(jm["loss"]))
         assert abs(float(tm["grad_norm"]) - float(jm["grad_norm"])) <= \
@@ -289,8 +370,11 @@ def test_abstract_state_and_raises():
         lm_step.make_train_step(lm, compress_pod_grads=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm_step.train_state_shardings(lm, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(tbase.reduced(tbase.get_config("zamba2-1.2b")), device="cpu")
+    hybrid = LM(tbase.reduced(tbase.get_config("zamba2-1.2b")),
+                device="meta")
+    assert {n: tuple(t.shape) for n, t in _flat(
+        lm_step.abstract_train_state(hybrid).opt.m).items()} == \
+        {n: tuple(t.shape) for n, t in _flat(hybrid.params()).items()}
 
 
 def test_init_state_and_serve_steps():
